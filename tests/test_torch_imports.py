@@ -1,0 +1,63 @@
+"""The port stands alone: importing it (and ``chip_smoke.py``) loads no JAX.
+
+Runs in a subprocess, because this test process already imported JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import tgm_tpu_torch
+names = ["tgm_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    tgm_tpu_torch.__path__, "tgm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") or m.startswith("tgm_tpu."))
+assert not bad, bad
+assert len(names) > 20, names
+print("imported", len(names))
+"""
+
+
+def _run(code, **kw):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, **kw)
+
+
+def test_port_imports_no_jax():
+    out = _run(_PROBE)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from tgm_tpu_torch.hooks.neighbors import recency_eid_init\n"
+        "try:\n"
+        "    recency_eid_init(4, 3)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n"
+    )
+    out = _run(code)
+    if "AssertionError" in out.stderr:
+        pytest.skip("a CUDA device is present: the default device is usable")
+    assert out.returncode == 0 and "raised" in out.stdout, out.stderr
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin",
+                              "PYTHONPATH": str(ROOT)})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

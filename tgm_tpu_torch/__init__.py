@@ -1,0 +1,14 @@
+"""tgm_tpu_torch: the PyTorch/CUDA port of tgm_tpu, for one NVIDIA H100.
+
+The JAX package ``tgm_tpu`` is the reference and stays unchanged; this
+package keeps its module layout, names and state layouts. It imports torch
+and numpy, never JAX or anything of ``tgm_tpu``. Entry points take a
+``device`` (default ``cuda``) and raise without a card; the hand-written CUDA
+kernels under ``csrc/`` run on CUDA tensors, their plain PyTorch versions on
+CPU tensors.
+"""
+
+from .core import DGBatch, DGraph
+from .data import DGData
+
+__all__ = ["DGBatch", "DGData", "DGraph"]

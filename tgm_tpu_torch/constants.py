@@ -1,0 +1,11 @@
+"""Framework-wide constants (own copy of the part of ``tgm_tpu/constants.py`` the port uses).
+
+The port keeps the JAX package's state layouts so that state tensors compare
+element by element: int32 ids/times/edge ids, ``PADDED_NODE_ID`` on padded
+slots, and node-indexed state with N+1 rows whose last row is the dump row.
+"""
+
+from typing import Final
+
+# Sentinel id used to pad neighbor lists / invalid node slots.
+PADDED_NODE_ID: Final[int] = -1

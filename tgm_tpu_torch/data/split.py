@@ -1,0 +1,104 @@
+"""Temporal dataset split strategies (port of ``tgm_tpu/data/split.py``).
+
+``TemporalSplit`` (absolute boundaries, [start, end) per split),
+``TemporalRatioSplit`` (ratios of the time span) and ``TGBSplit`` (inclusive
+per-split edge-time bounds), over edge events only.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Dict, Tuple
+
+import numpy as np
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .dg_data import DGData
+
+
+class SplitStrategy(ABC):
+    """Base class: defines how a ``DGData`` is divided into temporal subsets."""
+
+    @abstractmethod
+    def apply(self, data: "DGData") -> Tuple["DGData", ...]:
+        raise NotImplementedError
+
+    def _masked_copy(self, data: "DGData", edge_mask: np.ndarray) -> "DGData":
+        from .dg_data import DGData
+
+        out = DGData.from_raw(
+            time_delta=data.time_delta,
+            edge_time=data.time[data.edge_mask[edge_mask]],
+            edge_index=data.edge_index[edge_mask],
+            edge_x=None if data.edge_x is None else data.edge_x[edge_mask],
+        )
+        # Where this split's edges live in the parent's row space (temporal
+        # splits select contiguous runs; anything else keeps 0).
+        idx = np.flatnonzero(edge_mask)
+        if idx.size and int(idx[-1]) - int(idx[0]) + 1 == idx.size:
+            out.edge_global_offset = data.edge_global_offset + int(idx[0])
+        return out
+
+
+@dataclass
+class TemporalSplit(SplitStrategy):
+    """Train (-inf, val_time), val [val_time, test_time), test [test_time, inf)."""
+
+    val_time: int
+    test_time: int
+
+    def __post_init__(self) -> None:
+        if not (0 <= self.val_time <= self.test_time):
+            raise ValueError(
+                f"Expected 0 <= val_time <= test_time, got {self.val_time}, {self.test_time}"
+            )
+
+    def apply(self, data: "DGData") -> Tuple["DGData", ...]:
+        edge_times = data.edge_time
+        ranges = ((-np.inf, self.val_time), (self.val_time, self.test_time),
+                  (self.test_time, np.inf))
+        splits = []
+        for start, end in ranges:
+            edge_mask = (edge_times >= start) & (edge_times < end)
+            if edge_mask.any():
+                splits.append(self._masked_copy(data, edge_mask))
+        return tuple(splits)
+
+
+@dataclass
+class TemporalRatioSplit(SplitStrategy):
+    """Ratio split over the total time span (default 0.7/0.15/0.15)."""
+
+    train_ratio: float = 0.7
+    val_ratio: float = 0.15
+    test_ratio: float = 0.15
+
+    def __post_init__(self) -> None:
+        if min(self.train_ratio, self.val_ratio, self.test_ratio) < 0:
+            raise ValueError("Ratios must all be non-negative")
+        total = self.train_ratio + self.val_ratio + self.test_ratio
+        if abs(total - 1.0) > 1e-6:
+            raise ValueError(f"Ratios must sum to 1.0, got {total}")
+
+    def apply(self, data: "DGData") -> Tuple["DGData", ...]:
+        min_time, max_time = int(data.time[0]), int(data.time[-1])
+        span = max_time - min_time + 1
+        val_time = min_time + int(span * self.train_ratio)
+        test_time = val_time + int(span * self.val_ratio)
+        return TemporalSplit(val_time=val_time, test_time=test_time).apply(data)
+
+
+@dataclass
+class TGBSplit(SplitStrategy):
+    """Official TGB split with inclusive per-split edge-time bounds."""
+
+    split_bounds: Dict[str, Tuple[int, int]]
+
+    def apply(self, data: "DGData") -> Tuple["DGData", "DGData", "DGData"]:
+        edge_times = data.edge_time
+        splits = []
+        for name in ("train", "val", "test"):
+            start, end = self.split_bounds[name]
+            splits.append(self._masked_copy(data, (edge_times >= start) & (edge_times <= end)))
+        return tuple(splits)

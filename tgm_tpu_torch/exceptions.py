@@ -1,0 +1,25 @@
+"""Exceptions of the port (the subset of ``tgm_tpu/exceptions.py`` it raises)."""
+
+
+class TGMError(Exception):
+    """Base class for all framework errors."""
+
+
+class BadHookProtocolError(TGMError):
+    """A registered hook does not satisfy the DGHook protocol."""
+
+
+class BadAggregatorProtocolError(TGMError):
+    """An aggregator does not satisfy the Aggregator protocol."""
+
+
+class UnresolvableHookDependenciesError(TGMError):
+    """The hook requires/produces graph has a cycle or missing producer."""
+
+
+class InvalidNodeIDError(TGMError):
+    """A node id is out of range or collides with the padding sentinel."""
+
+
+class EmptyGraphError(TGMError):
+    """An operation that needs events was attempted on an empty graph."""

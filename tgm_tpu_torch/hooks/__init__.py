@@ -1,0 +1,22 @@
+from .base import BaseDGHook, DGHook, SeedableHook, StatefulHook, StatelessHook
+from .dedup import candidate_rows, map_to_local, seed_lookup
+from .manager import HookManager
+from .negatives import TGBNegativeEdgeSamplerHook
+from .neighbors import RecencyNeighborHook
+from .registry import hook, list_hooks
+
+__all__ = [
+    "BaseDGHook",
+    "DGHook",
+    "HookManager",
+    "RecencyNeighborHook",
+    "SeedableHook",
+    "StatefulHook",
+    "StatelessHook",
+    "TGBNegativeEdgeSamplerHook",
+    "candidate_rows",
+    "hook",
+    "list_hooks",
+    "map_to_local",
+    "seed_lookup",
+]

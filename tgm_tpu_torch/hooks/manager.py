@@ -1,0 +1,216 @@
+"""HookManager: keyed hook sets with dependency-resolved execution.
+
+Port of ``tgm_tpu/hooks/manager.py``: keyed and shared hooks, a Kahn
+topological sort over requires/produces (with the implicit
+negatives-before-neighbour-samplers edge), ``activate``, ``reset_state``,
+``as_transform`` (the resolved pipeline as a function over the hooks' states)
+and ``adopt_states``. Requirement validation against encoder modules and
+checkpoint state collection are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict, deque
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
+
+from ..core.batch import DGBatch
+from ..core.graph import DGraph
+from ..exceptions import BadHookProtocolError, UnresolvableHookDependenciesError
+from .base import DGHook
+
+# Attributes always present on a batch (never hook-produced).
+CORE_ATTRIBUTE: Set[str] = {
+    "edge_src",
+    "edge_dst",
+    "edge_time",
+    "edge_valid",
+    "edge_ids",
+    "edge_type",
+    "node_x_time",
+    "node_x_nids",
+    "node_y_time",
+    "node_y_nids",
+    "node_type",
+}
+
+
+class HookManager:
+    """Manages shared + key-specific hook sets for batch enrichment."""
+
+    def __init__(self, keys: List[str]) -> None:
+        if not len(keys):
+            raise ValueError("HookManager keys list must be non-empty")
+        self._dirty: Dict[str, bool] = {k: True for k in keys}
+        self._key_to_hooks: Dict[str, List[DGHook]] = {k: [] for k in keys}
+        self._shared_hooks: List[DGHook] = []
+        self._active_key: Optional[str] = None
+
+    @property
+    def keys(self) -> List[str]:
+        return list(self._key_to_hooks)
+
+    def register_shared(self, hook: DGHook) -> None:
+        self._ensure_valid_hook(hook)
+        self._ensure_no_active_key()
+        self._shared_hooks.append(hook)
+        for k in self._dirty:
+            self._dirty[k] = True
+
+    def register(self, key: str, hook: DGHook) -> None:
+        self._ensure_valid_key(key)
+        self._ensure_valid_hook(hook)
+        self._ensure_no_active_key()
+        self._key_to_hooks[key].append(hook)
+        self._dirty[key] = True
+
+    @contextmanager
+    def activate(self, key: str) -> Iterator[None]:
+        self._ensure_valid_key(key)
+        prev = self._active_key
+        self._active_key = key
+        try:
+            yield
+        finally:
+            self._active_key = prev
+
+    @property
+    def active_key(self) -> Optional[str]:
+        return self._active_key
+
+    def execute_active_hooks(self, dg: DGraph, batch: DGBatch) -> DGBatch:
+        if self._active_key is None:
+            raise RuntimeError("No active key set. Use activate() context manager.")
+        for hook in self._resolved(self._active_key):
+            batch = hook(dg, batch)
+        return batch
+
+    def reset_state(self, key: Optional[str] = None) -> None:
+        if key is not None:
+            self._ensure_valid_key(key)
+        for hook in self._shared_hooks:
+            hook.reset_state()
+        for k in [key] if key is not None else list(self._key_to_hooks):
+            for h in self._key_to_hooks[k]:
+                h.reset_state()
+
+    def resolve_hooks(self, key: Optional[str] = None) -> None:
+        if key is not None:
+            self._ensure_valid_key(key)
+        for k in [key] if key else list(self._key_to_hooks):
+            hooks = self._shared_hooks + [
+                h for h in self._key_to_hooks[k] if h not in self._shared_hooks
+            ]
+            self._key_to_hooks[k] = self._topological_sort_hooks(hooks)
+            self._dirty[k] = False
+
+    def _resolved(self, key: str) -> List[DGHook]:
+        if self._dirty[key]:
+            self.resolve_hooks(key)
+        return self._key_to_hooks[key]
+
+    @staticmethod
+    def _topological_sort_hooks(hooks: List[DGHook]) -> List[DGHook]:
+        all_produced: Set[str] = set(CORE_ATTRIBUTE)
+        for h in hooks:
+            all_produced |= h.produces
+        missing: Set[str] = set()
+        for h in hooks:
+            missing |= h.requires - all_produced
+        if missing:
+            raise UnresolvableHookDependenciesError(
+                f"Cannot resolve hook dependencies: required attributes not produced "
+                f"by any hook: {missing}"
+            )
+
+        adj: Dict[DGHook, List[DGHook]] = defaultdict(list)
+        is_neg = lambda h: "neg" in h.produces
+        is_nbr = lambda h: any("nbr_nids" in p for p in h.produces)
+        for h1 in hooks:
+            for h2 in hooks:
+                if h1 is h2:
+                    continue
+                if h1.produces & h2.requires:
+                    adj[h1].append(h2)
+                # Negatives before neighbour samplers, so neighbour queries
+                # cover the negative seeds.
+                if is_neg(h1) and is_nbr(h2):
+                    adj[h1].append(h2)
+
+        indeg: Dict[DGHook, int] = {h: 0 for h in hooks}
+        for vs in adj.values():
+            for v in vs:
+                indeg[v] += 1
+        queue = deque([h for h in hooks if indeg[h] == 0])
+        ordered: List[DGHook] = []
+        while queue:
+            u = queue.popleft()
+            ordered.append(u)
+            for v in adj.get(u, []):
+                indeg[v] -= 1
+                if indeg[v] == 0:
+                    queue.append(v)
+        if len(ordered) != len(hooks):
+            unresolved = [h for h in hooks if h not in ordered]
+            raise UnresolvableHookDependenciesError(
+                f"Cannot resolve hook dependencies: {unresolved} stuck in a cycle"
+            )
+        return ordered
+
+    def as_transform(
+        self, key: str, dg: DGraph
+    ) -> Tuple[Callable[[List[Any], DGBatch], Tuple[List[Any], DGBatch]], List[Any]]:
+        """The resolved pipeline for ``key`` as ``(fn, init_states)``.
+
+        ``fn(states, batch)`` applies every hook's ``apply`` in topological
+        order. Live hook state (e.g. recency buffers carried over from a
+        previous split) is reused; a freshly initialized state is kept on the
+        hook so a repeated export starts from the same state.
+        """
+        hooks = self._resolved(key)
+
+        def state_of(h: DGHook) -> Any:
+            if not h.has_state:
+                return None
+            if h.state is None:
+                h.state = h.init_state(dg)
+            return h.state
+
+        states = [state_of(h) for h in hooks]
+
+        def fn(states: List[Any], batch: DGBatch) -> Tuple[List[Any], DGBatch]:
+            out_states = []
+            for h, s in zip(hooks, states):
+                s, batch = h.apply(s, batch)
+                out_states.append(s)
+            return out_states, batch
+
+        return fn, states
+
+    def adopt_states(self, key: str, states: List[Any]) -> None:
+        """Store an epoch's final hook states back on the hook objects
+        (aligned with ``as_transform``'s hook order)."""
+        hooks = self._resolved(key)
+        if len(hooks) != len(states):
+            raise ValueError(f"adopt_states: got {len(states)} states for {len(hooks)} hooks")
+        for h, s in zip(hooks, states):
+            if h.has_state:
+                h.state = s
+
+    def _ensure_valid_hook(self, hook: Any) -> None:
+        if not isinstance(hook, DGHook):
+            raise BadHookProtocolError(
+                f"Cannot register hook {type(hook).__name__}: must implement "
+                "__call__(dg, batch) -> batch, reset_state(), requires and produces."
+            )
+
+    def _ensure_no_active_key(self) -> None:
+        if self._active_key is not None:
+            raise RuntimeError(
+                "Cannot register hooks while a key is active. Register hooks "
+                "before using `activate`."
+            )
+
+    def _ensure_valid_key(self, key: str) -> None:
+        if key not in self._key_to_hooks:
+            raise KeyError(f"{key} was not a declared key in the hook manager")

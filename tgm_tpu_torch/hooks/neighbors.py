@@ -1,0 +1,271 @@
+"""Recency neighbour hook, edge-id layout (port of ``tgm_tpu/hooks/neighbors.py``).
+
+State is ``(nbr_ids, nbr_times, nbr_eids, write_pos)``: (N+1, B) int32 ring
+buffers of each node's most recent events plus a write position per node.
+Row N is the dump row: invalid seeds read it and dropped writes aim at it,
+so every gather and scatter has a static shape. ``write_pos`` grows without
+bound and is reduced modulo B only where it is used.
+
+A query selects each seed's K most recent events strictly before its time
+(kernel K1 on the card). A push writes a batch of events with the dense,
+sort-free plan of the JAX package (bit-equal to its sorted plan) and three
+cell scatters (kernel K2 on the card). The buffers are updated in place.
+
+The feature-buffer and packed layouts, multi-hop queries and the uniform
+``NeighborSamplerHook`` are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..constants import PADDED_NODE_ID
+from ..core.batch import DGBatch
+from ..core.graph import DGraph
+from ..device import DeviceLike, resolve_device
+from ..ops.recency_select import recency_window_select_eid
+from ..ops.scatter_cells import scatter_cells
+from .base import SeedableHook, StatefulHook
+from .registry import hook
+
+EidState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def recency_eid_init(num_nodes: int, buf_size: int, device: DeviceLike = None) -> EidState:
+    """(N+1, B) id/time/edge-id buffers plus write positions; row N is the dump row."""
+    dev = resolve_device(device)
+    n = num_nodes + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (
+        torch.full((n, buf_size), PADDED_NODE_ID, **i32),
+        torch.zeros((n, buf_size), **i32),
+        torch.full((n, buf_size), -1, **i32),
+        torch.zeros((n,), **i32),
+    )
+
+
+def recency_eid_query(
+    state: EidState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K most recent (nbr_id, time, edge_id) per seed strictly before its time."""
+    nbr_ids, nbr_times, nbr_eids, write_pos = state
+    num_nodes = nbr_ids.shape[0] - 1
+    seed_ok = (seeds >= 0) & (seeds < num_nodes)
+    rows = torch.where(seed_ok, seeds, num_nodes).long()  # dump row for invalid seeds
+    return recency_window_select_eid(
+        nbr_ids[rows], nbr_times[rows], nbr_eids[rows], write_pos[rows],
+        seed_times.int(), k,
+    )
+
+
+def gather_edge_feats(edge_x: Optional[torch.Tensor], eids: torch.Tensor) -> torch.Tensor:
+    """Features of selected edges; eid -1 (padding) yields zero rows."""
+    if edge_x is None:
+        return torch.zeros(eids.shape + (0,), dtype=torch.float32, device=eids.device)
+    valid = eids >= 0
+    rows = eids.clamp(0, edge_x.shape[0] - 1).long()
+    return torch.where(valid[..., None], edge_x[rows], 0.0)
+
+
+def _push_plan_dense(
+    B: int,
+    write_pos: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    time: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    directed: bool,
+    num_nodes: int,
+):
+    """Sort-free write plan of a ring-buffer push.
+
+    Each event's within-node recency rank ``r`` is the number of events of the
+    same node strictly later in (time, position) order, an (E, E)
+    compare-and-sum. Events with ``r < B`` are kept; write columns follow the
+    (write_pos + offset-from-start) % B layout of the sorted plan, so the
+    buffers come out identical. Payloads scatter in the original event order.
+
+    Returns ``(rows, cols, nbrs, t, rows_last, wp_last)``: int32 targets
+    (dropped events aim at the dump row), the neighbour and time of each
+    event, and each node's post-push write position set at its final event.
+    """
+    if valid is None:
+        valid = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+    if directed:
+        nodes, nbrs, t, v = src, dst, time, valid
+    else:
+        nodes = torch.cat([src, dst])
+        nbrs = torch.cat([dst, src])
+        t = torch.cat([time, time])
+        v = torch.cat([valid, valid])
+
+    nodes = torch.where(v, nodes, num_nodes)
+    E2 = nodes.shape[0]
+    idx = torch.arange(E2, device=nodes.device)
+
+    same = nodes[:, None] == nodes[None, :]  # (E2, E2)
+    # Stable (time, concat-position) order, as a stable argsort on time.
+    later = (t[None, :] > t[:, None]) | ((t[None, :] == t[:, None]) & (idx[None, :] > idx[:, None]))
+    r = (same & later).sum(dim=1)  # strictly-later same-node events
+    earlier = (same & ~later).sum(dim=1) - 1  # excludes self
+    cnt = earlier + r + 1
+
+    keep = r < B
+    kept_offset = torch.clamp_min(earlier - torch.clamp_min(cnt - B, 0), 0)
+    wp_nodes = write_pos[nodes.long()].long()
+    write_idx = torch.remainder(wp_nodes + kept_offset, B)
+    rows = torch.where(keep, nodes, num_nodes).int()
+    cols = torch.where(keep, write_idx, 0).int()
+
+    rows_last = torch.where(r == 0, nodes, num_nodes).int()
+    wp_last = (wp_nodes + torch.clamp_max(cnt, B)).int()
+    return rows, cols, nbrs.int(), t.int(), rows_last, wp_last
+
+
+def _recency_push(
+    nbr_ids: torch.Tensor,
+    nbr_times: torch.Tensor,
+    payload_buf: torch.Tensor,  # (N1, B) edge ids
+    write_pos: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    time: torch.Tensor,
+    payload: torch.Tensor,  # (E,) per-event edge ids
+    valid: Optional[torch.Tensor],
+    directed: bool,
+) -> EidState:
+    """Ring-buffer push over id/time/edge-id buffers, in place."""
+    N1, B = nbr_ids.shape
+    num_nodes = N1 - 1
+    rows, cols, s_nbrs, s_t, rows_last, wp_last = _push_plan_dense(
+        B, write_pos, src, dst, time, valid, directed, num_nodes
+    )
+    s_f = payload if directed else torch.cat([payload, payload])
+    # Each node's final event carries its new write position; every other
+    # event aims at the dump row, which is reset after.
+    write_pos.index_put_((rows_last.long(),), wp_last)
+    write_pos[num_nodes] = 0
+    # The plan writes each live (row, col) slot at most once, so the kernel
+    # may skip dump-row writes instead of writing then resetting them.
+    scatter_cells(nbr_ids, rows, cols, s_nbrs)
+    scatter_cells(nbr_times, rows, cols, s_t)
+    scatter_cells(payload_buf, rows, cols, s_f.int())
+    return nbr_ids, nbr_times, payload_buf, write_pos
+
+
+def recency_eid_update(
+    state: EidState,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    time: torch.Tensor,
+    eids: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    directed: bool,
+) -> EidState:
+    """Push a batch of edge events (by edge id) into the ring buffers, in place."""
+    nbr_ids, nbr_times, nbr_eids, write_pos = state
+    return _recency_push(nbr_ids, nbr_times, nbr_eids, write_pos,
+                         src, dst, time, eids, valid, directed)
+
+
+@hook
+class RecencyNeighborHook(SeedableHook, StatefulHook):
+    """K most-recent temporal neighbours per node, maintained incrementally.
+
+    Eid layout only: the ring buffers hold int32 edge ids and features are
+    gathered from ``edge_x_full``, the PRE-SPLIT dataset's feature table, so
+    the global ``edge_ids`` of every split's batches resolve.
+    """
+
+    _cls_requires = {"edge_src", "edge_dst", "edge_time"}
+    _cls_produces = {
+        "seed_nids",
+        "seed_times",
+        "nbr_nids",
+        "nbr_edge_time",
+        "nbr_edge_x",
+        "seed_node_nbr_mask",
+    }
+
+    def __init__(
+        self,
+        num_nodes: int,
+        num_nbrs: Sequence[int],
+        seed_nodes_keys: List[str],
+        seed_times_keys: List[str],
+        directed: bool = False,
+        edge_dim: Optional[int] = None,
+        edge_x_full: Optional[Any] = None,
+        packed_buffers: bool = False,
+        device: DeviceLike = None,
+        id: Optional[str] = None,
+    ) -> None:
+        if not len(num_nbrs):
+            raise ValueError("num_nbrs must be non-empty")
+        if not all(isinstance(x, int) and x > 0 for x in num_nbrs):
+            raise ValueError("Each value in num_nbrs must be a positive integer")
+        if len(seed_nodes_keys) != len(seed_times_keys):
+            raise ValueError(
+                f"len(seed_nodes_keys) ({len(seed_nodes_keys)}) != "
+                f"len(seed_times_keys) ({len(seed_times_keys)})"
+            )
+        if edge_x_full is None or packed_buffers:
+            raise NotImplementedError(
+                "tgm_tpu_torch ports the eid layout only (edge_x_full given, "
+                "packed_buffers=False); the feature and packed layouts are queued in ROADMAP.md"
+            )
+        if len(num_nbrs) != 1:
+            raise NotImplementedError(
+                "multi-hop recency queries are queued in ROADMAP.md (the TGAT slice)"
+            )
+        super().__init__(seed_keys=seed_nodes_keys, id=id)
+        self._num_nodes = num_nodes
+        self._num_nbrs = list(num_nbrs)
+        self._directed = directed
+        self._seed_nodes_keys = seed_nodes_keys
+        self._seed_times_keys = seed_times_keys
+        self.device = resolve_device(device)
+        self._edge_x_full = torch.as_tensor(edge_x_full, dtype=torch.float32, device=self.device)
+
+    @property
+    def num_nbrs(self) -> List[int]:
+        return self._num_nbrs
+
+    def init_state(self, dg: Optional[DGraph] = None) -> EidState:
+        return recency_eid_init(self._num_nodes, max(self._num_nbrs), self.device)
+
+    def _get_seeds(self, batch: DGBatch):
+        seeds, times, mask = [], [], {}
+        offset = 0
+        for nk, tk in zip(self._seed_nodes_keys, self._seed_times_keys):
+            if not batch.has(nk) or not batch.has(tk):
+                raise ValueError(f"Missing seed attributes {[nk, tk]} on batch")
+            s, t = getattr(batch, nk), getattr(batch, tk)
+            seeds.append(s.int())
+            times.append(t.int())
+            mask[nk] = torch.arange(offset, offset + s.shape[0], device=s.device)
+            offset += s.shape[0]
+        return torch.cat(seeds), torch.cat(times), mask
+
+    def apply(self, state: EidState, batch: DGBatch) -> Tuple[EidState, DGBatch]:
+        if not batch.has("edge_ids"):
+            raise ValueError(
+                "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
+                "(served by train.stream.DeviceEdgeStream)"
+            )
+        seeds, times, seed_mask = self._get_seeds(batch)
+        nbrs, nts, nes = recency_eid_query(state, seeds, times, self._num_nbrs[0])
+        nxs = gather_edge_feats(self._edge_x_full, nes)
+        state = recency_eid_update(
+            state, batch.edge_src, batch.edge_dst, batch.edge_time, batch.edge_ids,
+            batch.edge_valid, self._directed,
+        )
+        self.add_batch_attribute(batch, "seed_nids", [seeds])
+        self.add_batch_attribute(batch, "seed_times", [times])
+        self.add_batch_attribute(batch, "nbr_nids", [nbrs])
+        self.add_batch_attribute(batch, "nbr_edge_time", [nts])
+        self.add_batch_attribute(batch, "nbr_edge_x", [nxs])
+        self.add_batch_attribute(batch, "seed_node_nbr_mask", seed_mask)
+        return state, batch

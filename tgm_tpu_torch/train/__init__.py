@@ -1,0 +1,5 @@
+from .hook_pipeline import hook_epoch
+from .programs import build_tgn_hook_cores, tgn_eval_commit
+from .stream import DeviceEdgeStream
+
+__all__ = ["DeviceEdgeStream", "build_tgn_hook_cores", "hook_epoch", "tgn_eval_commit"]

@@ -1,0 +1,53 @@
+"""Hook-pipeline epochs (port of ``tgm_tpu/train/hook_pipeline.py``).
+
+``hook_epoch`` has the signature and return of the JAX ``scanned_hook_epoch``
+minus its XLA compile options: the epoch is a plain Python loop over the
+stream's batches, each batch going through the key's hook DAG and then the
+model step. PyTorch runs eagerly, so there is nothing to compile.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+from ..core.graph import DGraph
+
+
+def _stack(outs: List[Any]) -> Any:
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(list(col)) for col in zip(*outs))
+    return torch.stack(outs)
+
+
+def hook_epoch(
+    stream: Any,
+    hm: Any,
+    key: str,
+    dg: DGraph,
+    step_fn: Callable[[Any, Any], Tuple[Any, Any]],
+):
+    """One epoch over ``stream`` with ``key``'s hook pipeline.
+
+    Returns ``(epoch_fn, init_hook_states)`` with
+    ``epoch_fn(carry, hook_states) -> (carry, hook_states, outs)``, where
+    ``step_fn(carry, hook_enriched_batch) -> (carry, out)`` is the model step
+    and ``outs`` stacks each batch's ``out`` along a new first axis. Existing
+    hook state is reused; hooks without live state are initialized from ``dg``.
+    """
+    hook_fn, init_states = hm.as_transform(key, dg)
+
+    def epoch(carry, hook_states):
+        outs = []
+        for i in range(stream.num_batches):
+            batch = stream.batch_at(i)
+            hook_states, batch = hook_fn(hook_states, batch)
+            carry, out = step_fn(carry, batch)
+            outs.append(out)
+        return carry, hook_states, _stack(outs)
+
+    return epoch, init_states
+
+
+__all__ = ["hook_epoch"]
