@@ -90,8 +90,6 @@ def test_recency_hook_rejects_unported_layouts():
     edge_x = np.zeros((4, 2), np.float32)
     keys = (["edge_src"], ["edge_time"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecencyNeighborHook(N, [K], *keys, device="cpu")  # feature layout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecencyNeighborHook(N, [K], *keys, edge_x_full=edge_x, packed_buffers=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecencyNeighborHook(N, [K, 2], *keys, edge_x_full=edge_x, device="cpu")

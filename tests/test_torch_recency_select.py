@@ -2,7 +2,10 @@
 
 Ring buffers come from pushing chronological event streams (with time ties)
 through the JAX package; seeds include invalid ids, and nodes never pushed
-leave empty rows with wp = 0 and PAD slots. Tolerance: exact equality.
+leave empty rows with wp = 0 and PAD slots. On rows whose times are not
+chronological the plain version follows the Pallas kernels' rank rule, as
+K1 does, where the JAX jnp path takes the window ending at the last valid
+slot. Tolerance: exact equality.
 """
 
 import jax.numpy as jnp
@@ -83,3 +86,41 @@ def test_wrapper_checks_and_cpu_dispatch():
         port_select(args[0].long(), *args[1:], 3)
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
         port_select(*(a.to("meta") for a in args), 3)
+
+
+def test_plain_follows_the_pallas_rank_rule_on_non_chronological_rows():
+    """Slots (t = 5, 9, 3, 4) oldest to newest, query time 6, K = 3: the
+    Pallas kernels and the plain version skip the slot at t = 9; the jnp
+    path's window ending at the last valid slot keeps it."""
+    row = [np.array([[7, 8, 9, 10]], np.int32), np.array([[5, 9, 3, 4]], np.int32),
+           np.array([[70, 80, 90, 100]], np.int32), np.array([4], np.int32),
+           np.array([6], np.int32)]
+    plain = recency_window_select_eid_plain(*(torch.from_numpy(a) for a in row), 3)
+    kern = recency_window_select_eid(*(jnp.asarray(a) for a in row), k=3, block=8, interpret=True)
+    assert plain[0].tolist() == [[7, 9, 10]] == np.asarray(kern[0]).tolist()
+    ids, times, eids, wp, qt = row
+    state = (jnp.asarray(np.vstack([ids, np.full_like(ids, -1)])),  # node 0, then the dump row
+             jnp.asarray(np.vstack([times, np.zeros_like(times)])),
+             jnp.asarray(np.vstack([eids, np.full_like(eids, -1)])),
+             jnp.asarray(np.append(wp, 0)))
+    jnp_path = j_query(state, jnp.asarray([0]), jnp.asarray(qt), 3)
+    assert np.asarray(jnp_path[0]).tolist() == [[8, 9, 10]]
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_plain_matches_pallas_on_random_rows(k):
+    """Random rows in no time order, PAD slots, wp past B: exact against both
+    Pallas variants."""
+    rng = np.random.default_rng(k)
+    S, B = 90, 8
+    ids = rng.integers(-1, 6, (S, B)).astype(np.int32)
+    times = rng.integers(0, 20, (S, B)).astype(np.int32)
+    eids = rng.integers(0, 500, (S, B)).astype(np.int32)
+    wp = rng.integers(0, 4 * B, S).astype(np.int32)
+    qt = rng.integers(0, 24, S).astype(np.int32)
+    args = (ids, times, eids, wp, qt)
+    plain = recency_window_select_eid_plain(*(torch.from_numpy(a) for a in args), k)
+    for pallas in (recency_window_select_eid, recency_window_select_eid_lanes):
+        kern = pallas(*(jnp.asarray(a) for a in args), k=k, block=16, interpret=True)
+        for p, w in zip(plain, kern):
+            np.testing.assert_array_equal(p.numpy(), np.asarray(w))

@@ -15,7 +15,8 @@
 // What bounds them on an H100: launch latency. At the serving shapes (K2:
 // E = 400 cells into a (9228, 10) buffer; K3: E = 200 rows per role into
 // four (9228,) stores) each moves a few kilobytes, well under a microsecond
-// at 3.35 TB/s, while a launch costs microseconds.
+// at the H100 SXM's published 3.35 TB/s (700 W power limit), while a launch
+// costs microseconds.
 //
 // Design: one thread per write. The TPU kernels round-trip the whole buffer
 // through VMEM because Mosaic has no scalar store; here each thread stores

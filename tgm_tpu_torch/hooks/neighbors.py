@@ -1,18 +1,26 @@
-"""Recency neighbour hook, edge-id layout (port of ``tgm_tpu/hooks/neighbors.py``).
+"""Recency neighbour hook (port of ``tgm_tpu/hooks/neighbors.py``).
 
-State is ``(nbr_ids, nbr_times, nbr_eids, write_pos)``: (N+1, B) int32 ring
-buffers of each node's most recent events plus a write position per node.
-Row N is the dump row: invalid seeds read it and dropped writes aim at it,
-so every gather and scatter has a static shape. ``write_pos`` grows without
-bound and is reduced modulo B only where it is used.
+Two state layouts, as in the JAX package, each with N+1 rows whose row N is
+the dump row: invalid seeds read it and dropped writes aim at it, so every
+gather and scatter has a static shape. ``write_pos`` grows without bound and
+is reduced modulo B only where it is used.
 
-A query selects each seed's K most recent events strictly before its time
-(kernel K1 on the card). A push writes a batch of events with the dense,
-sort-free plan of the JAX package (bit-equal to its sorted plan) and three
-cell scatters (kernel K2 on the card). The buffers are updated in place.
+* feature layout (the default): ``(nbr_ids, nbr_times, nbr_feats,
+  write_pos)`` with (N+1, B) int32 ids and times and an (N+1, B, D) fp32
+  buffer holding each event's edge features by value. A query selects each
+  seed's K most recent events with their features (kernel K4 on the card).
+* eid layout (``edge_x_full`` given): ``(nbr_ids, nbr_times, nbr_eids,
+  write_pos)``, all int32; a query selects ids, times and edge ids (kernel
+  K1) and gathers the features from the static table.
 
-The feature-buffer and packed layouts, multi-hop queries and the uniform
-``NeighborSamplerHook`` are queued in ROADMAP.md.
+A push writes a batch of events with the dense, sort-free plan of the JAX
+package (bit-equal to its sorted plan): the int32 buffers through cell
+scatters (kernel K2 on the card), the feature buffer through PyTorch
+indexing plus a reset of the dump row, as the JAX package leaves it to XLA.
+The buffers are updated in place.
+
+The packed layout, multi-hop queries and the uniform ``NeighborSamplerHook``
+are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,15 +33,48 @@ from ..constants import PADDED_NODE_ID
 from ..core.batch import DGBatch
 from ..core.graph import DGraph
 from ..device import DeviceLike, resolve_device
-from ..ops.recency_select import recency_window_select_eid
+from ..ops.recency_select import recency_window_select, recency_window_select_eid
 from ..ops.scatter_cells import scatter_cells
 from .base import SeedableHook, StatefulHook
 from .registry import hook
 
-EidState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# (nbr_ids, nbr_times, nbr_feats or nbr_eids, write_pos)
+RecencyState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def recency_eid_init(num_nodes: int, buf_size: int, device: DeviceLike = None) -> EidState:
+def recency_init(num_nodes: int, buf_size: int, edge_dim: int,
+                 device: DeviceLike = None) -> RecencyState:
+    """(N+1, B) id/time buffers, an (N+1, B, D) fp32 feature buffer and write
+    positions; row N is the dump row."""
+    dev = resolve_device(device)
+    n = num_nodes + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (
+        torch.full((n, buf_size), PADDED_NODE_ID, **i32),
+        torch.zeros((n, buf_size), **i32),
+        torch.zeros((n, buf_size, edge_dim), dtype=torch.float32, device=dev),
+        torch.zeros((n,), **i32),
+    )
+
+
+def _seed_rows(seeds: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    seed_ok = (seeds >= 0) & (seeds < num_nodes)
+    return torch.where(seed_ok, seeds, num_nodes).long()  # dump row for invalid seeds
+
+
+def recency_query(
+    state: RecencyState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K most recent (nbr_id, time, features) per seed strictly before its time."""
+    nbr_ids, nbr_times, nbr_feats, write_pos = state
+    rows = _seed_rows(seeds, nbr_ids.shape[0] - 1)
+    return recency_window_select(
+        nbr_ids[rows], nbr_times[rows], nbr_feats[rows], write_pos[rows],
+        seed_times.int(), k,
+    )
+
+
+def recency_eid_init(num_nodes: int, buf_size: int, device: DeviceLike = None) -> RecencyState:
     """(N+1, B) id/time/edge-id buffers plus write positions; row N is the dump row."""
     dev = resolve_device(device)
     n = num_nodes + 1
@@ -47,13 +88,11 @@ def recency_eid_init(num_nodes: int, buf_size: int, device: DeviceLike = None) -
 
 
 def recency_eid_query(
-    state: EidState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
+    state: RecencyState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K most recent (nbr_id, time, edge_id) per seed strictly before its time."""
     nbr_ids, nbr_times, nbr_eids, write_pos = state
-    num_nodes = nbr_ids.shape[0] - 1
-    seed_ok = (seeds >= 0) & (seeds < num_nodes)
-    rows = torch.where(seed_ok, seeds, num_nodes).long()  # dump row for invalid seeds
+    rows = _seed_rows(seeds, nbr_ids.shape[0] - 1)
     return recency_window_select_eid(
         nbr_ids[rows], nbr_times[rows], nbr_eids[rows], write_pos[rows],
         seed_times.int(), k,
@@ -127,16 +166,17 @@ def _push_plan_dense(
 def _recency_push(
     nbr_ids: torch.Tensor,
     nbr_times: torch.Tensor,
-    payload_buf: torch.Tensor,  # (N1, B) edge ids
+    payload_buf: torch.Tensor,  # (N1, B) edge ids or (N1, B, D) features
+    payload_fill,
     write_pos: torch.Tensor,
     src: torch.Tensor,
     dst: torch.Tensor,
     time: torch.Tensor,
-    payload: torch.Tensor,  # (E,) per-event edge ids
+    payload: torch.Tensor,  # (E,) edge ids or (E, D) features
     valid: Optional[torch.Tensor],
     directed: bool,
-) -> EidState:
-    """Ring-buffer push over id/time/edge-id buffers, in place."""
+) -> RecencyState:
+    """Ring-buffer push over id/time/payload buffers, in place."""
     N1, B = nbr_ids.shape
     num_nodes = N1 - 1
     rows, cols, s_nbrs, s_t, rows_last, wp_last = _push_plan_dense(
@@ -151,22 +191,44 @@ def _recency_push(
     # may skip dump-row writes instead of writing then resetting them.
     scatter_cells(nbr_ids, rows, cols, s_nbrs)
     scatter_cells(nbr_times, rows, cols, s_t)
-    scatter_cells(payload_buf, rows, cols, s_f.int())
+    if payload_buf.dim() == 2:
+        scatter_cells(payload_buf, rows, cols, s_f.int())
+    else:
+        payload_buf.index_put_((rows.long(), cols.long()), s_f.to(payload_buf.dtype))
+        payload_buf[num_nodes] = payload_fill  # keep the dump row pristine
     return nbr_ids, nbr_times, payload_buf, write_pos
 
 
+def recency_update(
+    state: RecencyState,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    time: torch.Tensor,
+    feats: Optional[torch.Tensor],
+    valid: Optional[torch.Tensor],
+    directed: bool,
+) -> RecencyState:
+    """Push a batch of edge events with their feature rows into the buffers, in place."""
+    nbr_ids, nbr_times, nbr_feats, write_pos = state
+    if feats is None:
+        feats = torch.zeros((src.shape[0], nbr_feats.shape[-1]), dtype=torch.float32,
+                            device=src.device)
+    return _recency_push(nbr_ids, nbr_times, nbr_feats, 0.0, write_pos,
+                         src, dst, time, feats, valid, directed)
+
+
 def recency_eid_update(
-    state: EidState,
+    state: RecencyState,
     src: torch.Tensor,
     dst: torch.Tensor,
     time: torch.Tensor,
     eids: torch.Tensor,
     valid: Optional[torch.Tensor],
     directed: bool,
-) -> EidState:
+) -> RecencyState:
     """Push a batch of edge events (by edge id) into the ring buffers, in place."""
     nbr_ids, nbr_times, nbr_eids, write_pos = state
-    return _recency_push(nbr_ids, nbr_times, nbr_eids, write_pos,
+    return _recency_push(nbr_ids, nbr_times, nbr_eids, -1, write_pos,
                          src, dst, time, eids, valid, directed)
 
 
@@ -174,9 +236,15 @@ def recency_eid_update(
 class RecencyNeighborHook(SeedableHook, StatefulHook):
     """K most-recent temporal neighbours per node, maintained incrementally.
 
-    Eid layout only: the ring buffers hold int32 edge ids and features are
-    gathered from ``edge_x_full``, the PRE-SPLIT dataset's feature table, so
-    the global ``edge_ids`` of every split's batches resolve.
+    Two state layouts (one hop, unpacked):
+
+    * default: the ring buffers hold each event's edge features by value in
+      an (N+1, B, D) fp32 buffer (D = ``edge_dim``, else the graph's edge
+      feature width, else 0); pushes take ``batch.edge_x`` (zeros if absent).
+    * ``edge_x_full`` given: the ring buffers hold int32 edge ids and
+      features are gathered from ``edge_x_full``, the PRE-SPLIT dataset's
+      feature table, so the global ``edge_ids`` of every split's batches
+      resolve.
     """
 
     _cls_requires = {"edge_src", "edge_dst", "edge_time"}
@@ -211,10 +279,9 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
                 f"len(seed_nodes_keys) ({len(seed_nodes_keys)}) != "
                 f"len(seed_times_keys) ({len(seed_times_keys)})"
             )
-        if edge_x_full is None or packed_buffers:
+        if packed_buffers:
             raise NotImplementedError(
-                "tgm_tpu_torch ports the eid layout only (edge_x_full given, "
-                "packed_buffers=False); the feature and packed layouts are queued in ROADMAP.md"
+                "the packed recency layout (packed_buffers=True) is queued in ROADMAP.md"
             )
         if len(num_nbrs) != 1:
             raise NotImplementedError(
@@ -227,14 +294,20 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
         self._seed_nodes_keys = seed_nodes_keys
         self._seed_times_keys = seed_times_keys
         self.device = resolve_device(device)
-        self._edge_x_full = torch.as_tensor(edge_x_full, dtype=torch.float32, device=self.device)
+        self._edge_dim = edge_dim
+        self._edge_x_full = (None if edge_x_full is None else
+                             torch.as_tensor(edge_x_full, dtype=torch.float32, device=self.device))
 
     @property
     def num_nbrs(self) -> List[int]:
         return self._num_nbrs
 
-    def init_state(self, dg: Optional[DGraph] = None) -> EidState:
-        return recency_eid_init(self._num_nodes, max(self._num_nbrs), self.device)
+    def init_state(self, dg: Optional[DGraph] = None) -> Any:
+        if self._edge_x_full is not None:
+            return recency_eid_init(self._num_nodes, max(self._num_nbrs), self.device)
+        if self._edge_dim is None:
+            self._edge_dim = (dg.edge_x_dim if dg is not None else 0) or 0
+        return recency_init(self._num_nodes, max(self._num_nbrs), self._edge_dim, self.device)
 
     def _get_seeds(self, batch: DGBatch):
         seeds, times, mask = [], [], {}
@@ -249,19 +322,27 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
             offset += s.shape[0]
         return torch.cat(seeds), torch.cat(times), mask
 
-    def apply(self, state: EidState, batch: DGBatch) -> Tuple[EidState, DGBatch]:
-        if not batch.has("edge_ids"):
-            raise ValueError(
-                "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
-                "(served by train.stream.DeviceEdgeStream)"
-            )
+    def apply(self, state: Any, batch: DGBatch) -> Tuple[Any, DGBatch]:
         seeds, times, seed_mask = self._get_seeds(batch)
-        nbrs, nts, nes = recency_eid_query(state, seeds, times, self._num_nbrs[0])
-        nxs = gather_edge_feats(self._edge_x_full, nes)
-        state = recency_eid_update(
-            state, batch.edge_src, batch.edge_dst, batch.edge_time, batch.edge_ids,
-            batch.edge_valid, self._directed,
-        )
+        k = self._num_nbrs[0]
+        if self._edge_x_full is not None:
+            if not batch.has("edge_ids"):
+                raise ValueError(
+                    "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
+                    "(served by train.stream.DeviceEdgeStream)"
+                )
+            nbrs, nts, nes = recency_eid_query(state, seeds, times, k)
+            nxs = gather_edge_feats(self._edge_x_full, nes)
+            state = recency_eid_update(
+                state, batch.edge_src, batch.edge_dst, batch.edge_time, batch.edge_ids,
+                batch.edge_valid, self._directed,
+            )
+        else:
+            nbrs, nts, nxs = recency_query(state, seeds, times, k)
+            state = recency_update(
+                state, batch.edge_src, batch.edge_dst, batch.edge_time,
+                batch.edge_x if batch.has("edge_x") else None, batch.edge_valid, self._directed,
+            )
         self.add_batch_attribute(batch, "seed_nids", [seeds])
         self.add_batch_attribute(batch, "seed_times", [times])
         self.add_batch_attribute(batch, "nbr_nids", [nbrs])

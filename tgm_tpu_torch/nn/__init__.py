@@ -1,4 +1,5 @@
 from .decoder.decoders import LinkPredictor
+from .encoder.dygformer import DyGFormer, NeighborCooccurrenceEncoder, dygformer_stack_layers
 from .encoder.tgn import (
     GraphAttentionEmbeddingRowwise,
     TGNMemory,
@@ -13,12 +14,15 @@ from .modules.time_encoding import Time2Vec
 __all__ = [
     "Aggregator",
     "ConcatMerge",
+    "DyGFormer",
     "GraphAttentionEmbeddingRowwise",
     "LinkPredictor",
+    "NeighborCooccurrenceEncoder",
     "TGNMemory",
     "TGNMemoryState",
     "Time2Vec",
     "TorchGRUCell",
+    "dygformer_stack_layers",
     "tgn_init_state",
     "tgn_store_messages",
 ]

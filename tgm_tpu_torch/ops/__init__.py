@@ -1,4 +1,16 @@
-from .recency_select import recency_window_select_eid, recency_window_select_eid_plain
+from .dyg_transformer import (
+    StackWeights,
+    convert_flax_layer,
+    stack_weights,
+    transformer_stack_fwd,
+    transformer_stack_fwd_plain,
+)
+from .recency_select import (
+    recency_window_select,
+    recency_window_select_eid,
+    recency_window_select_eid_plain,
+    recency_window_select_plain,
+)
 from .scatter_cells import (
     scatter_cells,
     scatter_cells_plain,
@@ -8,11 +20,18 @@ from .scatter_cells import (
 from .segment import segment_max
 
 __all__ = [
+    "StackWeights",
+    "convert_flax_layer",
+    "recency_window_select",
     "recency_window_select_eid",
     "recency_window_select_eid_plain",
+    "recency_window_select_plain",
     "scatter_cells",
     "scatter_cells_plain",
     "segment_max",
+    "stack_weights",
     "tgn_store_scatter_1d",
     "tgn_store_scatter_1d_plain",
+    "transformer_stack_fwd",
+    "transformer_stack_fwd_plain",
 ]

@@ -30,6 +30,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# Shared memory one block of an H100 can use (opt-in, dynamic).
+MAX_SHARED_BYTES = 232_448
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # How long the last build's nvcc runs took.

@@ -1,5 +1,11 @@
 from .hook_pipeline import hook_epoch
-from .programs import build_tgn_hook_cores, tgn_eval_commit
+from .programs import build_dygformer_eval_core, build_tgn_hook_cores, tgn_eval_commit
 from .stream import DeviceEdgeStream
 
-__all__ = ["DeviceEdgeStream", "build_tgn_hook_cores", "hook_epoch", "tgn_eval_commit"]
+__all__ = [
+    "DeviceEdgeStream",
+    "build_dygformer_eval_core",
+    "build_tgn_hook_cores",
+    "hook_epoch",
+    "tgn_eval_commit",
+]

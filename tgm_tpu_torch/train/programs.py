@@ -1,10 +1,14 @@
-"""Per-batch TGN serving program (port of ``tgm_tpu/train/programs.py``).
+"""Per-batch serving programs (port of ``tgm_tpu/train/programs.py`` and of
+the DyGFormer example's ``eval_core``).
 
-The eval transition of the TGN link-prediction example: stored memory of the
-seeds and their recency neighbours, rowwise attention, ``LinkPredictor``
-scores of the positives and the TGB candidates, TGB MRR, then the eval-mode
-memory commit (store messages, then flush). Inference only; the train step
-is the next slice of the port (ROADMAP.md).
+* TGN: stored memory of the seeds and their recency neighbours, rowwise
+  attention, ``LinkPredictor`` scores of the positives and the TGB
+  candidates, TGB MRR, then the eval-mode memory commit (store messages,
+  then flush).
+* DyGFormer: the recency neighbour sequences of each (src, dst) and (src,
+  candidate) pair through the encoder, ``LinkPredictor`` scores, TGB MRR.
+
+Inference only; the train steps are later slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -107,4 +111,61 @@ def build_tgn_hook_cores(
     return eval_core
 
 
-__all__ = ["build_tgn_hook_cores", "tgn_eval_commit"]
+def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
+                             num_nodes: int) -> Callable:
+    """Return the DyGFormer ``eval_core(carry, batch) -> (carry, (mrr_sum, mrr_count))``.
+
+    Counterpart of ``examples/linkproppred/dygformer.py::eval_core``. Batches
+    carry the TGB hook's ``neg_batch_list`` and the recency hook's
+    ``seed_nids`` / ``nbr_*`` products (either recency layout), seeds laid out
+    [src | dst | unique candidates]. Each candidate's neighbour rows are found
+    through the seed lookup; the src rows are repeated Q times. The carry is
+    passed through untouched. The stack's weights are converted once, here.
+
+    The returned core has two attributes: ``embed(batch) -> (z_src, z_dst)``
+    for the B * (Q + 1) pairs, positives first, and ``score(batch, z_src,
+    z_dst) -> (mrr_sum, mrr_count)``; ``eval_core`` is ``score`` of ``embed``.
+    """
+    stack = encoder.stack_weights()
+
+    def embed(batch):
+        B = batch.edge_src.shape[0]
+        Q = batch.neg_batch_list.shape[1]
+        nbr = batch.nbr_nids[0]
+        negs = batch.neg_batch_list.reshape(-1)
+        lut = seed_lookup(batch.seed_nids[0], num_nodes)
+        rows_c, _ = candidate_rows(lut, negs, nbr.shape[0])
+        # Positives and candidates go through ONE encoder call of B * (Q + 1)
+        # pairs (the JAX code makes two), so equal pairs get equal embeddings
+        # on every device.
+        b = torch.arange(B, device=nbr.device)
+        src_rows = torch.cat([b, b.repeat_interleave(Q)])
+        rows = torch.cat([src_rows, B + b, rows_c.long()])
+        seeds_a = batch.edge_src[src_rows]
+        seeds_b = torch.cat([batch.edge_dst, negs])
+        times = batch.edge_time[src_rows]
+        return encoder(node_x, seeds_a, seeds_b, times, nbr[rows], batch.nbr_edge_time[0][rows],
+                       batch.nbr_edge_x[0][rows], stack=stack)
+
+    def score(batch, z_src, z_dst):
+        B = batch.edge_src.shape[0]
+        Q = batch.neg_batch_list.shape[1]
+        lut = seed_lookup(batch.seed_nids[0], num_nodes)
+        _, found = candidate_rows(lut, batch.neg_batch_list, batch.nbr_nids[0].shape[0])
+        scores = decoder(z_src, z_dst)  # one decoder call, as for the TGN core
+        return mrr_sum_count(
+            scores[:B], scores[B:].reshape(B, Q),
+            neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
+            edge_valid=batch.edge_valid,
+        )
+
+    @torch.no_grad()
+    def eval_core(carry, batch):
+        return carry, score(batch, *embed(batch))
+
+    eval_core.embed = torch.no_grad()(embed)
+    eval_core.score = torch.no_grad()(score)
+    return eval_core
+
+
+__all__ = ["build_dygformer_eval_core", "build_tgn_hook_cores", "tgn_eval_commit"]

@@ -1,9 +1,12 @@
-"""Load the JAX package's TGN parameters into the port's modules.
+"""Load the JAX package's parameters into the port's modules.
 
 ``load_tgn_params`` takes the flax parameter tree ``{"mem", "enc", "dec"}``
 as nested dicts of arrays (anything ``numpy.asarray`` reads), as the JAX TGN
 example builds it, and copies it into a ``TGNMemory``, a
-``GraphAttentionEmbeddingRowwise`` and a ``LinkPredictor``:
+``GraphAttentionEmbeddingRowwise`` and a ``LinkPredictor``.
+``load_dygformer_params`` takes ``{"enc", "dec"}`` as the JAX ``DyGFormer``
+and ``LinkPredictor`` ``init`` build it (flax-MHA attention layout) and copies
+it into a ``DyGFormer`` and a ``LinkPredictor``. The mappings:
 
 * Dense ``kernel (in, out)`` -> ``Linear.weight`` = kernel^T, ``bias`` -> ``bias``
   (``lin_edge`` has no bias);
@@ -11,7 +14,11 @@ example builds it, and copies it into a ``TGNMemory``, a
   ``weight_hh``^T / ``bias_hh``;
 * ``Time2Vec`` ``w (1, T)`` / ``b (T,)`` -> ``w.weight`` (T, 1) / ``w.bias``;
 * the ``LinkPredictor`` MLP's ``Dense_0``, ``Dense_1``, ... -> its Linear
-  layers in order.
+  layers in order (the same for the co-occurrence encoder's MLP);
+* ``LayerNorm_i`` ``scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``;
+* ``MultiHeadDotProductAttention_0`` ``query``/``key``/``value`` kernels
+  (D, H, dh) and ``out`` kernel (H, dh, D), flattened to (D, D), ->
+  ``Linear.weight`` = kernel^T; biases (H, dh) flattened to (D,).
 """
 
 from __future__ import annotations
@@ -62,9 +69,50 @@ def load_tgn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.Mo
     for name in ("lin_query", "lin_key", "lin_value", "lin_edge", "lin_skip"):
         _dense(getattr(encoder, name), enc[name])
 
-    mlp = params["dec"]["params"]["mlp"]
-    linears = [m for m in decoder.model if isinstance(m, nn.Linear)]
-    if len(linears) != len(mlp):
-        raise ValueError(f"decoder has {len(linears)} Linear layers, the tree {len(mlp)}")
+    _mlp(decoder.model, params["dec"]["params"]["mlp"])
+
+
+def _mlp(seq: nn.Sequential, p: Mapping[str, Any]) -> None:
+    linears = [m for m in seq if isinstance(m, nn.Linear)]
+    if len(linears) != len(p):
+        raise ValueError(f"the module has {len(linears)} Linear layers, the tree {len(p)}")
     for i, lin in enumerate(linears):
-        _dense(lin, mlp[f"Dense_{i}"])
+        _dense(lin, p[f"Dense_{i}"])
+
+
+def _layer_norm(ln: nn.LayerNorm, p: Mapping[str, Any]) -> None:
+    _copy(ln.weight, p["scale"])
+    _copy(ln.bias, p["bias"])
+
+
+def _attention_dense(lin: nn.Linear, p: Mapping[str, Any]) -> None:
+    D = lin.weight.shape[0]
+    _copy(lin.weight, np.asarray(p["kernel"]).reshape(D, D), transpose=True)
+    _copy(lin.bias, np.asarray(p["bias"]).reshape(D))
+
+
+@torch.no_grad()
+def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
+                          decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a DyGFormer and a LinkPredictor, in place."""
+    enc = params["enc"]["params"]
+    _time2vec(encoder.time_encoder, enc["time_encoder"])
+    _mlp(encoder.co_occurrence_encoder.enc, enc["co_occurrence_encoder"])
+    for name in ("proj_node", "proj_edge", "proj_time", "proj_cooc", "output_layer"):
+        _dense(getattr(encoder, name), enc[name])
+    n_tree = sum(1 for k in enc if k.startswith("transformers_"))
+    if n_tree != len(encoder.transformers):
+        raise ValueError(f"encoder has {len(encoder.transformers)} layers, the tree {n_tree}")
+    for i, layer in enumerate(encoder.transformers):
+        sub = enc[f"transformers_{i}"]
+        if "MultiHeadDotProductAttention_0" not in sub:
+            raise ValueError("load_dygformer_params needs the flax-MHA layout "
+                             "(fused_attn=False, bf16_stream=False)")
+        mha = sub["MultiHeadDotProductAttention_0"]
+        _layer_norm(layer.ln1, sub["LayerNorm_0"])
+        for name in ("query", "key", "value", "out"):
+            _attention_dense(getattr(layer, name), mha[name])
+        _layer_norm(layer.ln2, sub["LayerNorm_1"])
+        _dense(layer.ffn1, sub["Dense_0"])
+        _dense(layer.ffn2, sub["Dense_1"])
+    _mlp(decoder.model, params["dec"]["params"]["mlp"])
