@@ -12,7 +12,8 @@ CUDA kernels, in phases:
               version on the card (K1-K4 exact; K5 within 5e-3 * max |plain|),
               with its time, the plain version's, a single PyTorch call's
               where one computes the same thing, and the least time the card
-              could take (bound).
+              could take (bound); for K5 also the device time of each of its
+              five kernels per layer and their CTAs per SM.
 3. serve:     a tgbl-wiki-shaped stream (9,227 nodes, 157,474 edges, 172-dim
               features) split 70/15/15, TGN (dims 100, 2 heads, K = 10,
               batch 200, seeded random weights), val then test through
@@ -287,9 +288,13 @@ def k4_phase(rng, dev, card: str):
 def k5_phase(rng, stack, dev, card: str):
     """K5 at the DyGFormer eval shape: R = 4,200 joint sequences of (64, 200)."""
     from tgm_tpu_torch.ops.dyg_transformer import (
+        STAGE_NAMES,
+        _round_up,
         stack_flops,
         transformer_stack_fwd,
         transformer_stack_fwd_plain,
+        transformer_stack_occupancy,
+        transformer_stack_stage_ms,
     )
 
     H = DYG["num_heads"]
@@ -320,6 +325,20 @@ def k5_phase(rng, stack, dev, card: str):
                    f"{float((cw - cpu).abs().median()) / scale:.3g}; the kernel on the same "
                    f"sequences: max {float((got[:n].cpu() - cpu).abs().max()) / scale:.3g}, "
                    f"median {float((got[:n].cpu() - cpu).abs().median()) / scale:.3g} [{card}]")
+    # Where one call's time goes: each of the 5 kernels of each layer, from
+    # CUDA events between them in one diagnostic call, beside the bytes this
+    # design moves through device memory (h read 4 times and written twice per
+    # layer; qkv, o and U written once and read once, in bf16).
+    stage_ms = transformer_stack_stage_ms(x, stack)
+    occ = transformer_stack_occupancy(S, D, H, stack.F)
+    T, F, DHP = R * S, stack.F, _round_up(D // H, 16)
+    design_bytes = stack.num_layers * T * (6 * 4 * D + 2 * 2 * (3 * H * DHP + H * DHP + F))
+    log("kernels", "K5 stages, device ms of one call: " + "; ".join(
+        f"layer {i}: " + ", ".join(f"{n} {float(v):.3f}" for n, v in zip(STAGE_NAMES, row))
+        for i, row in enumerate(stage_ms)) + f"; sum {float(stage_ms.sum()):.3f} ms. CTAs per SM "
+        f"{occ}. Device-memory traffic of this design {design_bytes / 1e9:.3f} GB, "
+        f"{design_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+        f"[{card}]")
     lib = torch_transformer(stack.layers, H, dev)
     with torch.no_grad():
         lib_err = float((lib(x) - want).abs().max())
@@ -349,6 +368,8 @@ def k5_phase(rng, stack, dev, card: str):
         iters=K5_TIMING_ITERS, graph=False, ops_per_s=BF16_OPS_PER_S)
     entry["library_fp32_ms"] = lib_fp32_us / 1e3
     entry["max_rel_err"] = err / scale
+    entry["stage_ms"] = {n: [float(v) for v in stage_ms[:, i]] for i, n in enumerate(STAGE_NAMES)}
+    entry["ctas_per_sm"] = occ
     return entry
 
 

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -101,12 +101,13 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def launch(lib: str, name: str, tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
-    """Call the C launcher ``name`` of ``csrc/<lib>.cu`` on the tensors' device.
+def launch(lib: str, name: str, tensors: Sequence[Optional[torch.Tensor]],
+           ints: Sequence[int]) -> None:
+    """Call the C launcher ``name`` of ``csrc/<lib>.cu`` on the first tensor's device.
 
-    Every launcher takes the tensors' pointers, then ``int`` sizes, then the
-    CUDA stream (PyTorch's current one), and returns ``cudaGetLastError()``;
-    a non-zero error raises.
+    Every launcher takes the tensors' pointers (``None`` passes a null
+    pointer), then ``int`` sizes, then the CUDA stream (PyTorch's current
+    one), and returns ``cudaGetLastError()``; a non-zero error raises.
     """
     key = (lib, name)
     if key not in _fns:
@@ -116,7 +117,7 @@ def launch(lib: str, name: str, tensors: Sequence[torch.Tensor], ints: Sequence[
         fn.restype = ctypes.c_int
         _fns[key] = fn
     with torch.cuda.device(tensors[0].device):
-        err = _fns[key](*(t.data_ptr() for t in tensors), *ints,
+        err = _fns[key](*(None if t is None else t.data_ptr() for t in tensors), *ints,
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

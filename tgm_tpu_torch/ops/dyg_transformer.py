@@ -17,9 +17,13 @@ Layers are flat dicts with the Pallas kernel's keys (``LAYER_KEYS``):
 (D, D), ``w1`` (D, F), ``w2`` (F, D), the biases and LayerNorm parameters.
 ``stack_weights`` converts them once to the kernel's layout (bf16 weights
 padded with zeros to multiples of 16, fp32 biases and LayerNorm parameters).
-On a CUDA tensor the wrapper launches ``csrc/dyg_transformer.cu``; on a CPU
-tensor it runs the plain version, which batches over sequences and heads.
-Unlike the Pallas kernel it takes any number of sequences (no ``block_b``).
+On a CUDA tensor the wrapper launches ``csrc/dyg_transformer.cu``, five
+kernels per layer over all R * S token rows (LN1 -> QKV, attention per
+sequence and head, Wo with the residual add, LN2 -> W1 with gelu, W2 with
+the residual add), with bf16 scratch for q|k|v, the head concat and the
+gelu output; on a CPU tensor it runs the plain version, which batches over
+sequences and heads. Unlike the Pallas kernel it takes any number of
+sequences (no ``block_b``).
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ LAYER_KEYS = (
     "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2",
 )
 TILE = 16
-MAX_FFN_CHUNK_TILES = 10  # the kernel's FFN chunk is at most 160 hidden columns
 MAX_SEQ_LEN = 64
+# The kernel's five stages per layer: LN1 -> QKV, attention, Wo, LN2 -> W1, W2.
+STAGE_NAMES = ("ln1_qkv", "attention", "wo", "ln2_w1", "w2")
 
 Layer = Dict[str, torch.Tensor]
 
@@ -76,19 +81,18 @@ def _round_up(x: int, m: int) -> int:
 class StackWeights:
     """The stack's weights, converted once to the kernel's layout.
 
-    ``w`` packs each layer's bf16 [Wqkv | Wo | W1 | W2] and ``p`` its fp32
-    [ln1 scale | ln1 bias | bqkv | bo | ln2 scale | ln2 bias | b1 | b2], padded
-    with zeros: D to ``DP``, each head's dh to ``DHP`` (per head q | k | v
-    columns in Wqkv, per head rows in Wo), the FFN width to ``F`` (a multiple
-    of the kernel's chunk ``FC``). ``layers`` keeps the fp32 dicts, which the
-    plain version reads.
+    ``w`` packs each layer's bf16 [Wqkv | Wo | W1 | W2], each (K, N)
+    row-major, and ``p`` its fp32 [ln1 scale | ln1 bias | bqkv | bo | ln2
+    scale | ln2 bias | b1 | b2], padded with zeros: D to ``DP``, each head's
+    dh to ``DHP`` (per head q | k | v columns in Wqkv, per head rows in Wo),
+    the FFN width to ``F`` (a multiple of 16). ``layers`` keeps the fp32
+    dicts, which the plain version reads.
     """
 
     layers: List[Layer]
     num_heads: int
     D: int
     F: int
-    FC: int
     w: torch.Tensor
     p: torch.Tensor
 
@@ -115,8 +119,6 @@ def stack_weights(layers: Sequence[Layer], num_heads: int) -> StackWeights:
     dh = D // H
     DP, DHP = _round_up(D, TILE), _round_up(dh, TILE)
     FP = _round_up(F, TILE)
-    tiles = FP // TILE
-    FC = TILE * max(d for d in range(1, MAX_FFN_CHUNK_TILES + 1) if tiles % d == 0)
     ws, ps = [], []
     for lp in layers:
         dev = lp["wqkv"].device
@@ -135,7 +137,7 @@ def stack_weights(layers: Sequence[Layer], num_heads: int) -> StackWeights:
         ps += [_pad(lp["ln1_scale"], (DP,)), _pad(lp["ln1_bias"], (DP,)), bqkv,
                _pad(lp["bo"], (DP,)), _pad(lp["ln2_scale"], (DP,)), _pad(lp["ln2_bias"], (DP,)),
                _pad(lp["b1"], (FP,)), _pad(lp["b2"], (DP,))]
-    return StackWeights(layers=layers, num_heads=H, D=D, F=FP, FC=FC,
+    return StackWeights(layers=layers, num_heads=H, D=D, F=FP,
                         w=torch.cat(ws).to(torch.bfloat16), p=torch.cat(ps))
 
 
@@ -183,29 +185,16 @@ def transformer_stack_fwd_plain(x: torch.Tensor, layers: Stack, num_heads: int) 
     return h
 
 
-def _smem_bytes(S: int, D: int, H: int, F: int, FC: int) -> int:
-    """Shared memory one block of K5 needs, as the kernel's launcher computes it."""
+def _smem_bytes(S: int, D: int, H: int, F: int) -> int:
+    """Most shared memory one CTA of K5's kernels needs, as its launcher computes it."""
     fn = _native.load("dyg_transformer").dyg_transformer_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return fn(S, D, H, F, FC)
+    return fn(S, D, H, F)
 
 
-def transformer_stack_fwd(x: torch.Tensor, layers: Stack, num_heads: int) -> torch.Tensor:
-    """Fused forward of the whole stack over (R, S, D) fp32 sequences.
-
-    ``layers`` is a list of flat dicts or, converted once, ``StackWeights``.
-    Kernel K5 on CUDA tensors (S a multiple of 16, at most 64), the plain
-    version on CPU tensors; ``transformer_stack_fwd.launches`` counts kernel
-    launches.
-    """
-    if x.dim() != 3 or x.dtype != torch.float32:
-        raise ValueError(f"x must be (R, S, D) float32, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return transformer_stack_fwd_plain(x, layers, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    stack = _as_stack(layers, num_heads)
+def _check(x: torch.Tensor, stack: StackWeights) -> None:
+    """The kernel's limits on a CUDA input; raises ValueError."""
     R, S, D = x.shape
     if D != stack.D:
         raise ValueError(f"x has width {D}, the weights {stack.D}")
@@ -215,18 +204,74 @@ def transformer_stack_fwd(x: torch.Tensor, layers: Stack, num_heads: int) -> tor
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"weights {name} must be contiguous {dtype} on {x.device}, got "
                              f"{t.dtype} on {t.device}")
-    smem = _smem_bytes(S, D, num_heads, stack.F, stack.FC)
+    smem = _smem_bytes(S, D, stack.num_heads, stack.F)
     if smem > _native.MAX_SHARED_BYTES:
-        raise ValueError(f"one sequence needs {smem} bytes of shared memory, the card "
-                         f"gives a block {_native.MAX_SHARED_BYTES}")
-    out = torch.empty((R, S, D), dtype=torch.float32, device=x.device)
+        raise ValueError(f"a block of the stack's kernels needs {smem} bytes of shared memory, "
+                         f"the card gives a block {_native.MAX_SHARED_BYTES}")
+
+
+def _launch(x: torch.Tensor, stack: StackWeights, stage_ms=None) -> torch.Tensor:
+    """Run the kernels from ``x`` into a new residual stream h (layer 0 reads
+    ``x``, later stages update h in place) with bf16 scratch for q|k|v, the
+    head concat and the gelu output."""
+    R, S, D = x.shape
+    x = x.contiguous()
+    h = torch.empty_like(x)
     if R == 0:
-        return out
+        return h
+    T, DHP = R * S, _round_up(D // stack.num_heads, TILE)
+    scratch = [torch.empty((T, n), dtype=torch.bfloat16, device=x.device)
+               for n in (3 * stack.num_heads * DHP, stack.num_heads * DHP, stack.F)]
     _native.launch("dyg_transformer", "dyg_transformer_stack_fwd",
-                   [x.contiguous(), out, stack.w, stack.p],
-                   [R, S, D, num_heads, stack.F, stack.FC, stack.num_layers])
+                   [x, h, stack.w, stack.p, *scratch, stage_ms],
+                   [R, S, D, stack.num_heads, stack.F, stack.num_layers])
     transformer_stack_fwd.launches += 1
-    return out
+    return h
+
+
+def transformer_stack_fwd(x: torch.Tensor, layers: Stack, num_heads: int) -> torch.Tensor:
+    """Forward of the whole stack over (R, S, D) fp32 sequences.
+
+    ``layers`` is a list of flat dicts or, converted once, ``StackWeights``.
+    Kernel K5 on CUDA tensors (S a multiple of 16, at most 64), the plain
+    version on CPU tensors; ``transformer_stack_fwd.launches`` counts kernel
+    launches (one per call: the five kernels of every layer).
+    """
+    if x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (R, S, D) float32, got {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return transformer_stack_fwd_plain(x, layers, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    stack = _as_stack(layers, num_heads)
+    _check(x, stack)
+    return _launch(x, stack)
+
+
+def transformer_stack_stage_ms(x: torch.Tensor, stack: StackWeights) -> torch.Tensor:
+    """Device milliseconds of each kernel of one K5 call on a CUDA input, as
+    a CPU (num_layers, 5) tensor in ``STAGE_NAMES`` order, from CUDA events
+    recorded between the kernels. A diagnostic: it waits for the stream, and
+    counts as a launch."""
+    if x.device.type != "cuda" or x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"needs (R, S, D) float32 on a CUDA device, got {x.dtype} on {x.device}")
+    _check(x, stack)
+    ms = torch.zeros((stack.num_layers, len(STAGE_NAMES)), dtype=torch.float32)
+    _launch(x, stack, ms)
+    return ms
+
+
+def transformer_stack_occupancy(S: int, D: int, num_heads: int, F: int) -> Dict[str, int]:
+    """CTAs per SM of each of K5's kernels at this shape
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    fn = _native.load("dyg_transformer").dyg_transformer_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(S, D, num_heads, F, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"dyg_transformer_occupancy failed with cudaError_t {err}")
+    return dict(zip(("ln1_qkv", "attention", "wo_w2", "ln2_w1"), out))
 
 
 transformer_stack_fwd.launches = 0
