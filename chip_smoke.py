@@ -1,35 +1,45 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only-hook-step]
 
 Drives the port's two serving paths through the hook API, TGN and
-DyGFormer streaming link-prediction inference, and its five hand-written
-CUDA kernels, in phases:
+DyGFormer streaming link-prediction inference, and its hand-written CUDA
+kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
-              version on the card (K1-K4 exact; K5 within 5e-3 * max |plain|),
-              with its time, the plain version's, a single PyTorch call's
-              where one computes the same thing, and the least time the card
-              could take (bound); for K5 also the device time of each of its
-              five kernels per layer and their CTAs per SM.
-3. serve:     a tgbl-wiki-shaped stream (9,227 nodes, 157,474 edges, 172-dim
+              version on the card (K1-K4 and the recency push exact; K5
+              within 5e-3 * max |plain|), with its time, the plain version's,
+              a single PyTorch call's where one computes the same thing, and
+              the least time the card could take (bound): K1 on the ring
+              state with the feature rows fused (S = 600 and 4,400) and on
+              pre-gathered rows, the push into the TGN and DyGFormer states
+              (and at E2 = 8,192 events), the single-buffer K2, K3, K4, K5;
+              for K5 also the device time of each of its five kernels per
+              layer and their CTAs per SM.
+3. hook-step: one ``RecencyNeighborHook.apply`` on a serving batch per state
+              layout (eid: K = 10, TGN; feature: K = 20, DyGFormer), through
+              the hook's public API only: µs per call from Python and device
+              µs from a CUDA graph. ``--only-hook-step`` runs this phase
+              alone, so a copy of this script placed in an older tree of the
+              port measures that tree the same way.
+4. serve:     a tgbl-wiki-shaped stream (9,227 nodes, 157,474 edges, 172-dim
               features) split 70/15/15, TGN (dims 100, 2 heads, K = 10,
               batch 200, seeded random weights), val then test through
               ``hook_epoch``; MRR, edges/s and each kernel's launches.
-4. agree:     the first 3 val batches on the card (kernels) and on the CPU
+5. agree:     the first 3 val batches on the card (kernels) and on the CPU
               (plain versions) with the same weights and candidates: integer
               state exact, memory within atol 1e-4, per-batch MRR sums
               within 1e-4.
-5. dyg-serve: the same stream through DyGFormer at the JAX package's full
+6. dyg-serve: the same stream through DyGFormer at the JAX package's full
               width (channel 50, so D = 200, time dim 100, sequences of 32
               per side, 2 layers, 2 heads, FFN 800, output 172, K = 20
               recency neighbours in the feature-buffer layout, batch 200, 20
               candidates, seeded random weights), val then test through
               ``hook_epoch``; MRR, edges/s, distinct nodes active in val and
               each kernel's launches.
-6. dyg-agree: the first 2 val batches on the card and on the CPU with the
+7. dyg-agree: the first 2 val batches on the card and on the CPU with the
               same weights and candidates: recency state exact (the fp32
               feature buffer included), embeddings within 5e-3 * max |z|,
               per-batch MRR sums within 0.5.
@@ -62,6 +72,8 @@ BATCH = 200
 NUM_CANDIDATES = 20
 AGREE_BATCHES = 3
 TIMING_ITERS = 200  # calls per kernel timing
+HOOK_STEP_ITERS = 50  # hook steps per timing
+PUSH_LAUNCHES = 2  # kernels a recency push launches
 # DyGFormer at the JAX package's full width (examples/linkproppred/dygformer.py).
 DYG = dict(node_feat_dim=1, edge_x_dim=WIKI_EDGE_DIM, time_feat_dim=100,
            channel_embedding_dim=50, output_dim=172, patch_size=1, num_layers=2, num_heads=2,
@@ -175,10 +187,50 @@ def k1_inputs(rng, S: int, B: int, dev):
     return up(ids), up(times), up(eids), up(wp), up(qt)
 
 
+def k1_state(rng, S: int, B: int, dev):
+    """An eid-layout ring state over every node (rows as ``k1_inputs`` makes
+    them, the dump row pristine) and S seeds: 3% invalid (-1 or >= N), the
+    rest drawn from the nodes, with query times around each row's newest."""
+    N1 = WIKI_NODES + 1
+    ids, times, eids, wp, _ = k1_inputs(rng, N1, B, dev)
+    ids[-1], times[-1], eids[-1], wp[-1] = -1, 0, -1, 0
+    seeds = rng.integers(0, WIKI_NODES, S)
+    bad = rng.random(S) < 0.03
+    seeds[bad] = rng.choice([-1, WIKI_NODES, WIKI_NODES + 7], int(bad.sum()))
+    rows = torch.as_tensor(np.where(bad, WIKI_NODES, seeds), device=dev)
+    qt = times.max(dim=1).values[rows] + torch.as_tensor(rng.integers(-4, 3, S), device=dev)
+    return (ids, times, eids, wp), torch.as_tensor(seeds.astype(np.int32), device=dev), qt.int()
+
+
+def push_inputs(rng, B: int, D: int, dev, E: int = BATCH):
+    """One recency push at serving shape: a state of WIKI_NODES + 1 rows with
+    random contents (ring buffers of width B; edge ids, or D-wide fp32
+    features when D > 0) and E undirected edges, the last 5% padding, half
+    of them among 50 busy nodes (so some node exceeds B events when E is
+    large), time ties."""
+    N1 = WIKI_NODES + 1
+    up = lambda x: torch.as_tensor(x, device=dev)
+    state = [up(rng.integers(-1, WIKI_NODES, (N1, B)).astype(np.int32)),
+             up(rng.integers(0, 3000, (N1, B)).astype(np.int32)),
+             up(rng.normal(size=(N1, B, D)).astype(np.float32)) if D else
+             up(rng.integers(-1, WIKI_EDGES, (N1, B)).astype(np.int32)),
+             up(rng.integers(0, 50, N1).astype(np.int32))]
+    busy = rng.choice(WIKI_NODES, 50, replace=False)
+    src, dst = (np.where(rng.random(E) < 0.5, rng.choice(busy, E),
+                         rng.integers(0, WIKI_NODES, E)).astype(np.int32) for _ in range(2))
+    valid = np.arange(E) < E - E // 20
+    src[~valid], dst[~valid] = -1, -1
+    batch = [up(src), up(dst), up(np.sort(rng.integers(3000, 3000 + E, E)).astype(np.int32)),
+             up(rng.normal(size=(E, D)).astype(np.float32)) if D else
+             up(rng.integers(0, WIKI_EDGES, E).astype(np.int32)),
+             up(valid)]
+    return state, batch
+
+
 def k2_inputs(rng, dev):
-    """One recency push at serving shape: the dense plan of 200 undirected
-    edges (10 of them padding) into (9228, 10) buffers."""
-    from tgm_tpu_torch.hooks.neighbors import _push_plan_dense
+    """One int32 plane's cells at serving shape: the dense plan of 200
+    undirected edges (10 of them padding) into (9228, 10) buffers."""
+    from tgm_tpu_torch.ops.scatter_cells import push_plan_dense
 
     N1 = WIKI_NODES + 1
     wp = torch.as_tensor(rng.integers(0, 50, N1).astype(np.int32), device=dev)
@@ -186,8 +238,8 @@ def k2_inputs(rng, dev):
     dst = torch.as_tensor(rng.integers(0, WIKI_NODES, BATCH).astype(np.int32), device=dev)
     t = torch.as_tensor(np.sort(rng.integers(0, 3000, BATCH)).astype(np.int32), device=dev)
     valid = torch.arange(BATCH, device=dev) < BATCH - 10
-    rows, cols, nbrs, _, _, _ = _push_plan_dense(NUM_NBRS, wp, src, dst, t, valid, False,
-                                                 WIKI_NODES)
+    rows, cols, nbrs, _, _, _ = push_plan_dense(NUM_NBRS, wp, src, dst, t, valid, False,
+                                                WIKI_NODES)
     buf = torch.as_tensor(rng.integers(-1, WIKI_NODES, (N1, NUM_NBRS)).astype(np.int32),
                           device=dev)
     return buf, rows, cols, nbrs
@@ -210,8 +262,8 @@ def k3_inputs(rng, dev):
     return stores, role(), role()
 
 
-def _max_abs_err(got, want) -> int:
-    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+def _max_abs_err(got, want) -> float:
+    return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want))
 
 
@@ -230,6 +282,14 @@ def _time_and_report(label, run_kernel, run_plain, run_library, nbytes, ops, err
                    f"library {'none' if l_call is None else f'{l_call:.2f}'} us [{card}]")
     return dict(ms=k_dev / 1e3, plain_ms=p_dev / 1e3, bound_ms=b_us / 1e3, bound_by=b_by,
                 library_ms=None if l_dev is None else l_dev / 1e3, max_abs_err=err)
+
+
+def _measured(prefix: str, entry):
+    """A second case's measured numbers for its kernel's JSON entry: times
+    and error, prefixed. Its bound stays in its log line, as ``bound_ms`` is
+    the one computed number an entry carries."""
+    return {f"{prefix}_{k}": v for k, v in entry.items()
+            if k in ("ms", "plain_ms", "max_abs_err")}
 
 
 def torch_transformer(layers, num_heads: int, dev):
@@ -373,14 +433,49 @@ def k5_phase(rng, stack, dev, card: str):
     return entry
 
 
+def push_case(label: str, state, batch, card: str, iters: int = TIMING_ITERS):
+    """The recency push of ``batch`` (undirected) into ``state``: exact
+    against its plain version on all four tensors, the dump row untouched,
+    then timed on a copy of the state."""
+    from tgm_tpu_torch.ops.scatter_cells import recency_push, recency_push_plain
+
+    got, want = [x.clone() for x in state], [x.clone() for x in state]
+    recency_push(*got, *batch, False)
+    recency_push_plain(*want, *batch, False)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not all(torch.equal(g, w) and torch.equal(g[-1], s[-1])
+                      for g, w, s in zip(got, want, state)):
+        raise AssertionError(f"the push differs from its plain version ({label}): {err}")
+    src, payload = batch[0], batch[3]
+    E, E2 = src.shape[0], 2 * src.shape[0]
+    gained = got[3] - state[3]  # min(events, B) for each node the push touched
+    nodes, kept = int((gained > 0).sum()), int(gained.sum())
+    row_bytes = 4 * payload[0].numel()
+    # Bytes: the batch read once; each touched node's write_pos read and
+    # written; each kept cell's id, time and payload written. Operations: the
+    # plan's E2 x E2 compare-and-sums (node, time, position, sum).
+    nbytes = E * (13 + row_bytes) + 8 * nodes + kept * (8 + row_bytes)
+    work = [x.clone() for x in state]
+    return _time_and_report(
+        f"recency_push {label}: state {tuple(state[2].shape)}, {E} undirected edges (E2 = {E2}), "
+        f"{kept} cells kept on {nodes} nodes",
+        lambda: recency_push(*work, *batch, False),
+        lambda: recency_push_plain(*work, *batch, False),
+        None, nbytes, 4 * E2 * E2, err, card, iters=iters)
+
+
 def kernel_phase(rng, dev, card: str):
-    """K1-K3 at the TGN serving shapes: exact against their plain versions, timed.
+    """K1-K3 and the recency push at the serving shapes: exact against their
+    plain versions, timed.
 
     Times are device times (``TIMING_ITERS`` calls replayed from one CUDA graph),
     with the per-call time from Python beside them. The bound counts each
     input read once and each output written once.
     """
     from tgm_tpu_torch.ops.recency_select import (
+        recency_eid_select,
+        recency_eid_select_plain,
         recency_window_select_eid,
         recency_window_select_eid_plain,
     )
@@ -393,24 +488,62 @@ def kernel_phase(rng, dev, card: str):
 
     report = {}
     B = K = NUM_NBRS
-    # K1 at the train (600) and eval (4,400) seed counts; the serving path
-    # runs the eval count, whose entry is the one reported.
-    for S in (600, 2 * BATCH + BATCH * NUM_CANDIDATES):
-        args = k1_inputs(rng, S, B, dev)
-        got = recency_window_select_eid(*args, K)
-        want = recency_window_select_eid_plain(*args, K)
+    D = WIKI_EDGE_DIM
+    eval_seeds = 2 * BATCH + BATCH * NUM_CANDIDATES
+    # K1 on the ring state in place with the edge features fused, at the
+    # train (600) and eval (4,400) seed counts; the serving path runs the
+    # eval count, whose entry is the one reported.
+    edge_x = torch.as_tensor(rng.normal(size=(WIKI_EDGES, D)).astype(np.float32), device=dev)
+    for S in (600, eval_seeds):
+        state, seeds, qt = k1_state(rng, S, B, dev)
+        got = recency_eid_select(state, seeds, qt, K, edge_x)
+        want = recency_eid_select_plain(state, seeds, qt, K, edge_x)
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"K1 differs from its plain version at S={S}: {err}")
-        filled = int((got[0] != -1).sum())
-        report["recency_window_select_eid"] = _time_and_report(
-            f"K1 recency_window_select_eid S={S} B={B} K={K} (filled {filled}/{S * K})",
-            lambda: recency_window_select_eid(*args, K),
-            lambda: recency_window_select_eid_plain(*args, K),
-            None, 4 * (3 * S * B + 2 * S + 3 * S * K), 6 * S * B, err, card)
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"fused K1 differs from its plain version at S={S}: {err}")
+        eids = got[2]
+        selected = int((eids >= 0).sum())
+        edge_rows = int(torch.unique(eids[eids >= 0]).numel())
+        rows = int(torch.unique(torch.where((seeds >= 0) & (seeds < WIKI_NODES), seeds,
+                                            WIKI_NODES)).numel())
+        # Bytes: seeds and query times; each distinct row's ids, times and
+        # write_pos; the selected slots' edge ids; each distinct selected
+        # edge row; the (S, K) int outputs and the (S, K, D) features.
+        nbytes = 8 * S + 4 * rows * (2 * B + 1) + 4 * selected + 4 * D * edge_rows \
+            + 4 * S * K * (3 + D)
+        report["recency_eid_select"] = _time_and_report(
+            f"K1 fused recency_eid_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K}, "
+            f"{edge_rows} distinct edge rows, {rows} distinct state rows)",
+            lambda: recency_eid_select(state, seeds, qt, K, edge_x),
+            lambda: recency_eid_select_plain(state, seeds, qt, K, edge_x),
+            None, nbytes, 6 * S * B, err, card)
+    # K1 on pre-gathered rows (the Pallas function's contract), eval count.
+    args = k1_inputs(rng, eval_seeds, B, dev)
+    got = recency_window_select_eid(*args, K)
+    want = recency_window_select_eid_plain(*args, K)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K1 differs from its plain version: {err}")
+    S = eval_seeds
+    filled = int((got[0] != -1).sum())
+    pre = _time_and_report(
+        f"K1 recency_window_select_eid (pre-gathered rows) S={S} B={B} K={K} "
+        f"(filled {filled}/{S * K})",
+        lambda: recency_window_select_eid(*args, K),
+        lambda: recency_window_select_eid_plain(*args, K),
+        None, 4 * (3 * S * B + 2 * S + 3 * S * K), 6 * S * B, err, card)
+    report["recency_eid_select"].update(_measured("pregathered", pre))
 
-    # K2 on one push's cells.
+    # The recency push at the TGN (eid layout, B = 10) and DyGFormer (feature
+    # layout, B = 20, D = 172) serving shapes, then at E2 = 8,192 events.
+    report["recency_push"] = push_case("TGN", *push_inputs(rng, NUM_NBRS, 0, dev), card)
+    dyg = push_case("DyGFormer", *push_inputs(rng, DYG_NBRS, D, dev), card)
+    report["recency_push"].update(_measured("dygformer", dyg))
+    push_case("E2 = 8,192", *push_inputs(rng, NUM_NBRS, 0, dev, E=4096), card, iters=20)
+
+    # The single-buffer K2 on one push's cells of one plane.
     buf, rows, cols, vals = k2_inputs(rng, dev)
     got = scatter_cells(buf.clone(), rows, cols, vals)
     want = scatter_cells_plain(buf.clone(), rows, cols, vals)
@@ -447,6 +580,55 @@ def kernel_phase(rng, dev, card: str):
         lambda: tgn_store_scatter_1d_plain(*a, rs, vso, vst, rd, vdo, vdt, last_live),
         None, 4 * (6 * BATCH + 2 * live), 4 * BATCH, err, card)
     return report
+
+
+def hook_step_phase(seed: int, dev, card: str):
+    """One ``RecencyNeighborHook.apply`` (query, then push) on a serving batch
+    of 200 edges and 4,000 candidates, per state layout, after 20 batches
+    have filled the rows of 1,000 busy nodes: µs per call from Python and
+    device µs from ``HOOK_STEP_ITERS`` calls replayed from one CUDA graph.
+    Written against the hook's public API alone, so it measures any tree of
+    the port."""
+    from tgm_tpu_torch.core.batch import DGBatch
+    from tgm_tpu_torch.hooks import RecencyNeighborHook
+
+    rng = np.random.default_rng(seed)
+    up = lambda x: torch.as_tensor(x, device=dev)
+    edge_x_full = rng.normal(size=(WIKI_EDGES, WIKI_EDGE_DIM)).astype(np.float32)
+    busy = rng.choice(WIKI_NODES, 1000, replace=False)
+    keys = (["edge_src", "edge_dst", "neg"], ["edge_time", "edge_time", "neg_time"])
+
+    def batch(i):
+        src, dst = (rng.choice(busy, BATCH).astype(np.int32) for _ in range(2))
+        t = np.sort(rng.integers(1000 * i, 1000 * (i + 1), BATCH)).astype(np.int32)
+        eids = rng.integers(0, WIKI_EDGES, BATCH).astype(np.int32)
+        neg = rng.choice(busy, BATCH * NUM_CANDIDATES).astype(np.int32)
+        return DGBatch(up(src), up(dst), up(t), up(np.ones(BATCH, bool)), edge_ids=up(eids),
+                       edge_x=up(edge_x_full[eids]), neg=up(neg),
+                       neg_time=up(np.repeat(t, NUM_CANDIDATES)))
+
+    result = {}
+    for layout, k, kw in (("eid", NUM_NBRS, dict(edge_x_full=edge_x_full)),
+                          ("feature", DYG_NBRS, {})):
+        hook = RecencyNeighborHook(WIKI_NODES, [k], *keys, edge_dim=WIKI_EDGE_DIM, device=dev,
+                                   **kw)
+        state = hook.init_state(None)
+        for i in range(20):
+            state, _ = hook.apply(state, batch(i))
+        b = batch(20)
+        step = lambda: hook.apply(state, b)
+        _, call_us = cuda_time_us(step, HOOK_STEP_ITERS, graph=False)
+        try:
+            dev_us, _ = cuda_time_us(step, HOOK_STEP_ITERS)
+            device = f"device {dev_us:.1f} us"
+        except RuntimeError as e:  # e.g. a host-to-card copy, which a graph cannot hold
+            torch.cuda.synchronize()
+            dev_us, device = None, f"device not measured (no CUDA graph: {str(e)[:120]})"
+        result[layout] = dict(device_us=dev_us, call_us=call_us)
+        log("hook-step", f"RecencyNeighborHook.apply, {layout} layout (K = {k}, {BATCH} edges, "
+                         f"{2 * BATCH + BATCH * NUM_CANDIDATES} seeds): per call from Python "
+                         f"{call_us:.1f} us, {device} [{card}]")
+    return result
 
 
 # ---------------------------------------------------------------------- #
@@ -502,20 +684,25 @@ def make_pipeline(data, cands, models, device):
 
 
 def kernel_wrappers():
-    """The wrappers of the serving paths' kernels; each counts its launches."""
+    """The wrappers of the port's kernels; each counts its launches."""
     from tgm_tpu_torch.ops.dyg_transformer import transformer_stack_fwd
-    from tgm_tpu_torch.ops.recency_select import recency_window_select, recency_window_select_eid
-    from tgm_tpu_torch.ops.scatter_cells import scatter_cells, tgn_store_scatter_1d
+    from tgm_tpu_torch.ops.recency_select import (
+        recency_eid_select,
+        recency_window_select,
+        recency_window_select_eid,
+    )
+    from tgm_tpu_torch.ops.scatter_cells import recency_push, scatter_cells, tgn_store_scatter_1d
 
-    return (recency_window_select_eid, scatter_cells, tgn_store_scatter_1d,
-            recency_window_select, transformer_stack_fwd)
+    return (recency_eid_select, recency_window_select_eid, recency_push, scatter_cells,
+            tgn_store_scatter_1d, recency_window_select, transformer_stack_fwd)
 
 
 def check_launches(path: str, launches, need, n_batches: int) -> None:
-    for name, per_batch in need.items():
-        if launches[name] < per_batch * n_batches:
-            raise AssertionError(f"{path}: {name} launched {launches[name]} times "
-                                 f"for {n_batches} batches")
+    """Each wrapper's launches are exactly ``need[name]`` per batch (0 if unnamed)."""
+    for name, count in launches.items():
+        if count != need.get(name, 0) * n_batches:
+            raise AssertionError(f"{path}: {name} launched {count} times for {n_batches} "
+                                 f"batches, expected {need.get(name, 0)} per batch")
 
 
 def serve_phase(data, val, test, cands, models, dev, card):
@@ -544,7 +731,7 @@ def serve_phase(data, val, test, cands, models, dev, card):
         log("serve", f"{split}: {stream.num_edges} edges in {stream.num_batches} batches, "
                      f"{dt:.3f} s, {stream.num_edges / dt:.0f} edges/s, MRR {mrr[split]:.4f} [{card}]")
     launches = {f.__name__: f.launches for f in kernel_wrappers()}
-    check_launches("TGN serve", launches, {"recency_window_select_eid": 1, "scatter_cells": 3,
+    check_launches("TGN serve", launches, {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES,
                                            "tgn_store_scatter_1d": 1}, n_batches)
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"MRR out of range: {mrr}")
@@ -552,7 +739,7 @@ def serve_phase(data, val, test, cands, models, dev, card):
         raise AssertionError("non-finite memory after serving")
     log("serve", f"val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
                  f"serve_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
-                 f"launches={launches} per_batch="
+                 f"ms_per_batch={seconds / n_batches * 1e3:.2f} launches={launches} per_batch="
                  f"{ {k: v / n_batches for k, v in launches.items()} } [{card}]")
     return launches
 
@@ -655,13 +842,14 @@ def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms):
     launches = {f.__name__: f.launches for f in kernel_wrappers()}
     check_launches("DyGFormer serve", launches, {"recency_window_select": 1,
                                                  "transformer_stack_fwd": 1,
-                                                 "scatter_cells": 2}, n_batches)
+                                                 "recency_push": PUSH_LAUNCHES}, n_batches)
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"MRR out of range: {mrr}")
     torch.cuda.synchronize()
     # Each kernel's device time per call (kernels phase, same shapes) times its
-    # launches here, as a share of the serve wall time.
-    shares = {name: ms * launches[name] / 1e3 / seconds for name, ms in kernel_ms.items()}
+    # calls here, as a share of the serve wall time.
+    calls = dict(launches, recency_push=launches["recency_push"] // PUSH_LAUNCHES)
+    shares = {name: ms * calls[name] / 1e3 / seconds for name, ms in kernel_ms.items()}
     log("dyg-serve", f"wall {seconds:.3f} s, {seconds / n_batches * 1e3:.2f} ms per batch; "
                      f"share of the wall time in each kernel (kernels-phase device time x "
                      f"launches): " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
@@ -714,6 +902,8 @@ def dyg_agree_phase(val, cands, models, dev, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-hook-step", action="store_true",
+                    help="build, run the hook-step phase alone and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -735,12 +925,16 @@ def main() -> int:
                  f"torch {torch.__version__} cuda {torch.version.cuda} python "
                  f"{sys.version.split()[0]}; {nvcc_release} [{card}]")
 
+    if args.only_hook_step:
+        hook_step_phase(args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_window_select"] = k4_phase(rng, dev, card)
     dyg_models = make_dyg_models(args.seed)
     report["transformer_stack_fwd"] = k5_phase(rng, dyg_models[0].to(dev).stack_weights(), dev,
                                                card)
+    hook_step_phase(args.seed, dev, card)
 
     t0 = time.perf_counter()
     data, val, test, cands = build_stream(args.seed)
@@ -752,25 +946,35 @@ def main() -> int:
     agree_phase(data, val, cands, models, dev, card)
     dyg_launches = dyg_serve_phase(
         val, test, cands, dyg_models, dev, card,
-        {name: report[name]["ms"] for name in ("recency_window_select", "transformer_stack_fwd",
-                                               "scatter_cells")})
+        {"recency_window_select": report["recency_window_select"]["ms"],
+         "transformer_stack_fwd": report["transformer_stack_fwd"]["ms"],
+         "recency_push": report["recency_push"]["dygformer_ms"]})
     dyg_agree_phase(val, cands, dyg_models, dev, card)
 
-    # name: (source, Pallas function replaced, path whose serve run counts its launches)
+    # name: (source, Pallas function replaced, launches in the serve runs: TGN for
+    # K1 and the push, DyGFormer for K4 and K5). K1 is one kernel behind two
+    # wrappers; the single-buffer scatter_cells is off both paths.
     kernels_of = {
-        "recency_window_select_eid": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:209", launches),
-        "scatter_cells": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:53", launches),
-        "tgn_store_scatter_1d": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:111", launches),
+        "recency_eid_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:209",
+                               launches["recency_eid_select"]
+                               + launches["recency_window_select_eid"]),
+        "recency_push": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:53",
+                         launches["recency_push"]),
+        "scatter_cells": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:53",
+                          launches["scatter_cells"] + dyg_launches["scatter_cells"]),
+        "tgn_store_scatter_1d": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:111",
+                                 launches["tgn_store_scatter_1d"]),
         "recency_window_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:259",
-                                  dyg_launches),
+                                  dyg_launches["recency_window_select"]),
         "transformer_stack_fwd": (K5_SRC, "tgm_tpu/ops/pallas/dyg_transformer.py:167",
-                                  dyg_launches),
+                                  dyg_launches["transformer_stack_fwd"]),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": counts[name], **report[name]}
-               for name, (src, replaces, counts) in kernels_of.items()]
+                "launches": count, **report[name]}
+               for name, (src, replaces, count) in kernels_of.items()]
     kernels[0]["also_replaces"] = "tgm_tpu/ops/pallas/recency_select.py:156"
-    kernels[1]["launches_dygformer_serve"] = dyg_launches["scatter_cells"]
+    kernels[1]["launches_dygformer_serve"] = dyg_launches["recency_push"]
+    kernels[2]["on_serving_paths"] = False
     log("done", f"{time.perf_counter() - t_start:.1f} s from the build to here [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,8 @@ These tests need an NVIDIA GPU with ``nvcc`` (they build the kernels) and
 carry the ``cuda`` marker; without a card they skip. On the card:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py`` (the
 repo's conftest imports JAX, which the machine with the card need not have).
-Tolerances: exact equality for K1-K4 (integer select and scatter, fp32
-feature copy); K5 within 5e-3 * max |plain| (bf16 operands rounded at the
+Tolerances: exact equality for K1-K4 and the recency push (integer select,
+plan and scatter, fp32 feature copy); K5 within 5e-3 * max |plain| (bf16 operands rounded at the
 same places, fp32 sums in another order: a bf16 rounding that flips moves
 its sequence by up to a few 1e-3).
 """
@@ -16,6 +16,10 @@ import torch
 
 from tgm_tpu_torch.hooks.neighbors import recency_eid_init, recency_eid_update
 from tgm_tpu_torch.ops import (
+    recency_eid_select,
+    recency_eid_select_plain,
+    recency_push,
+    recency_push_plain,
     recency_window_select,
     recency_window_select_eid,
     recency_window_select_eid_plain,
@@ -119,6 +123,80 @@ def test_scatter_kernels_match_plain(card):
     tgn_store_scatter_1d_plain(*b, *ups, N1 - 2)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("E2", [2, 400, 8192])
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("B, D", [(10, 0), (20, 172), (20, 7)])  # D = 0: the eid layout
+def test_recency_push_kernel_matches_plain(card, B, D, directed, E2):
+    """Pushes with heavy node repetition (a pool of E2 / 40 nodes, so a node
+    has up to ~40 events and r >= B drops occur), invalid events, time ties
+    out of order and events at the last live node, into a state with random
+    contents, the dump row included: kernel and plain version agree on all
+    four tensors, the dump row is untouched, two runs are bit-equal, and a
+    push is two launches. D = 7 takes the scalar feature copy."""
+    rng = np.random.default_rng(E2 + D + directed)
+    num_nodes, N1 = 300, 301
+    E = E2 if directed else E2 // 2
+    up = lambda x: torch.as_tensor(x, device=card)
+    state = [up(rng.integers(-1, num_nodes, (N1, B)).astype(np.int32)),
+             up(rng.integers(0, 99, (N1, B)).astype(np.int32)),
+             up(rng.normal(size=(N1, B, D)).astype(np.float32)) if D else
+             up(rng.integers(-1, 999, (N1, B)).astype(np.int32)),
+             up(rng.integers(0, 50, N1).astype(np.int32))]
+    pool = rng.choice(num_nodes, max(2, E2 // 40), replace=False)
+    pool[0] = num_nodes - 1
+    src, dst = (rng.choice(pool, E).astype(np.int32) for _ in range(2))
+    cols = [up(src), up(dst), up(rng.integers(100, 100 + max(2, E // 8), E).astype(np.int32)),
+            up(rng.normal(size=(E, D)).astype(np.float32)) if D else
+            up(rng.integers(0, 10**6, E).astype(np.int32)),
+            up(rng.random(E) > 0.1)]
+    fresh = lambda: [x.clone() for x in state]
+    got, again, want = fresh(), fresh(), fresh()
+    before = recency_push.launches
+    recency_push(*got, *cols, directed)
+    assert recency_push.launches == before + 2
+    recency_push(*again, *cols, directed)
+    recency_push_plain(*want, *cols, directed)
+    torch.cuda.synchronize()
+    for g, a, w, s in zip(got, again, want, state):
+        assert torch.equal(g, w) and torch.equal(g, a)
+        assert torch.equal(g[N1 - 1], s[N1 - 1])  # the dump row
+    if E2 >= 400:  # some node kept only B of its events
+        kept = (got[3] - state[3]).cpu()
+        assert int(kept.max()) == B and int((kept > 0).sum()) > 1
+
+
+@pytest.mark.parametrize("k_of", ["3", "B"])
+@pytest.mark.parametrize("B", [10, 20, 64])
+@pytest.mark.parametrize("D", [172, 7])
+def test_fused_select_kernel_matches_plain(card, B, D, k_of):
+    """The eid select on the state in place with the feature rows copied,
+    at the TGN eval seed count: ring rows in no time order, PAD slots, wp
+    past B, invalid seeds on both sides, edge ids past the table (clamped,
+    as ``gather_edge_feats`` does). D = 7 takes the scalar copy."""
+    rng = np.random.default_rng(B + D)
+    S, N, E_all = 4400, 5000, 3000
+    k = 3 if k_of == "3" else B
+    up = lambda x: torch.as_tensor(x, device=card)
+    state = (up(rng.integers(-1, 9, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 30, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(-1, E_all + 3, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 5 * B, N + 1).astype(np.int32)))
+    seeds = up(rng.integers(-2, N + 3, S).astype(np.int32))
+    qt = up(rng.integers(0, 35, S).astype(np.int32))
+    edge_x = up(rng.normal(size=(E_all, D)).astype(np.float32))
+    before = recency_eid_select.launches
+    got = recency_eid_select(state, seeds, qt, k, edge_x)
+    bare = recency_eid_select(state, seeds, qt, k)
+    assert recency_eid_select.launches == before + 2
+    want = recency_eid_select_plain(state, seeds, qt, k, edge_x)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(bare[:3], want):
+        assert torch.equal(g, w)
+    assert bare[3].shape == (S, k, 0) and bool((got[2] == -1).any())
 
 
 @pytest.mark.parametrize("S, B, k, D", [(700, 10, 3, 172), (4400, 20, 20, 172), (300, 64, 64, 5),

@@ -6,21 +6,32 @@ leave empty rows with wp = 0 and PAD slots. On rows whose times are not
 chronological the plain version follows the Pallas kernels' rank rule, as
 K1 does, where the JAX jnp path takes the window ending at the last valid
 slot. Tolerance: exact equality.
+
+The fused entry ``recency_eid_select`` (rows read from the state in place,
+edge features copied) is held to the JAX ``recency_eid_query`` on its
+Pallas path (interpret mode, both kernel variants) followed by the JAX
+``gather_edge_feats``.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tgm_tpu.hooks import neighbors as j_neighbors
+from tgm_tpu.hooks.neighbors import gather_edge_feats as j_gather_edge_feats
 from tgm_tpu.hooks.neighbors import recency_eid_init as j_init
 from tgm_tpu.hooks.neighbors import recency_eid_query as j_query
 from tgm_tpu.hooks.neighbors import recency_eid_update as j_update
+from tgm_tpu.ops.pallas import recency_select as j_pallas
 from tgm_tpu.ops.pallas.recency_select import (
     recency_window_select_eid,
     recency_window_select_eid_lanes,
 )
 from tgm_tpu_torch.hooks.neighbors import recency_eid_query
+from tgm_tpu_torch.ops import recency_eid_select, recency_eid_select_plain
 from tgm_tpu_torch.ops import recency_window_select_eid as port_select
 from tgm_tpu_torch.ops import recency_window_select_eid_plain
 
@@ -124,3 +135,55 @@ def test_plain_matches_pallas_on_random_rows(k):
         kern = pallas(*(jnp.asarray(a) for a in args), k=k, block=16, interpret=True)
         for p, w in zip(plain, kern):
             np.testing.assert_array_equal(p.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("k", [1, 3, BUF])
+def test_fused_select_plain_matches_jax_pallas_query_and_gather(monkeypatch, k, lanes):
+    """The JAX query on its Pallas path (row-major or lane-major kernel, in
+    interpret mode) plus ``gather_edge_feats`` against the fused entry's
+    plain version and its wrapper on CPU tensors, with and without the edge
+    table. Seeds include -2, -1 and ids >= N; nodes >= 25 have empty rows."""
+    monkeypatch.setattr(j_neighbors, "USE_PALLAS_RECENCY", True)
+    monkeypatch.setattr(j_neighbors, "LANE_SELECT_MIN_SEEDS", 0 if lanes else 10**9)
+    for name in ("recency_window_select_eid", "recency_window_select_eid_lanes"):
+        monkeypatch.setattr(j_pallas, name, functools.partial(getattr(j_pallas, name), block=16,
+                                                              interpret=True))
+    state, seeds, qt = jax_state(seed=20 + k)
+    edge_x = np.random.default_rng(k).normal(size=(90, 7)).astype(np.float32)
+    j_ids, j_times, j_eids = j_query(state, jnp.asarray(seeds), jnp.asarray(qt), k)
+    want = [np.asarray(x) for x in (j_ids, j_times, j_eids,
+                                    j_gather_edge_feats(jnp.asarray(edge_x), j_eids))]
+    assert (want[2] == -1).any() and (want[2] >= 0).any() and np.abs(want[3]).max() > 0.5
+
+    port_state = tuple(to_torch(x) for x in state)
+    args = (port_state, torch.from_numpy(seeds), torch.from_numpy(qt), k)
+    before = recency_eid_select.launches
+    for got in (recency_eid_select_plain(*args, torch.from_numpy(edge_x)),
+                recency_eid_select(*args, torch.from_numpy(edge_x))):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+    assert recency_eid_select.launches == before  # the plain version ran: no launch
+    bare = recency_eid_select(*args)
+    assert bare[3].shape == (len(seeds), k, 0)
+    for g, w in zip(bare[:3], want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_fused_select_wrapper_checks():
+    state, seeds, qt = jax_state(seed=0)
+    port_state = tuple(to_torch(x) for x in state)
+    s, t = torch.from_numpy(seeds), torch.from_numpy(qt)
+    edge_x = torch.zeros((5, 3))
+    with pytest.raises(TypeError):
+        recency_eid_select(port_state, s.long(), t, 2, edge_x)
+    with pytest.raises(ValueError):
+        recency_eid_select(port_state, s, t[:-1], 2, edge_x)
+    with pytest.raises(ValueError):
+        recency_eid_select(port_state, s, t, BUF + 1, edge_x)  # k > B
+    with pytest.raises(ValueError):
+        recency_eid_select(port_state, s, t, 2, edge_x.double())
+    with pytest.raises(ValueError):
+        recency_eid_select(port_state, s, t, 2, edge_x[:0])  # no rows to read
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
+        recency_eid_select(tuple(x.to("meta") for x in port_state), s.to("meta"), t.to("meta"), 2)

@@ -5,25 +5,38 @@
 // bodies _kernel_eid and _kernel_eid_lanes). The two differ only in which
 // axis holds the seeds on the TPU's 128 lanes; one CUDA kernel serves both.
 //
-// Contract (same as the Pallas kernels): for each seed s, given its
-// pre-gathered B-slot ring row (ids, times, eids), its write position wp[s]
-// and its query time qt[s], return the K most recent valid slots (valid:
-// time < qt and id != PAD), oldest to newest, right-aligned in K columns,
-// the rest filled with PAD / 0 / -1. Slot j has age (wp - 1 - j) mod B,
-// age 0 being the newest. Integers only; exact.
+// Contract (same as the Pallas kernels): for each seed s, given its B-slot
+// ring row (ids, times, eids), its write position wp and its query time
+// qt[s], return the K most recent valid slots (valid: time < qt and id !=
+// PAD), oldest to newest, right-aligned in K columns, the rest filled with
+// PAD / 0 / -1. Slot j has age (wp - 1 - j) mod B, age 0 being the newest.
+// Integers only; exact.
 //
-// What bounds it on an H100: memory and launch. At the eval shape (S = 4,400
-// seeds, B = K = 10) the kernel reads 3*S*B + 2*S int32 and writes 3*S*K
-// int32, about 1.1 MB: 0.3 us at the H100 SXM's published 3.35 TB/s (700 W
-// power limit), far below the few microseconds a launch costs. So it is
-// launch-bound.
+// Beyond the Pallas contract, which takes rows the caller gathered per seed,
+// the kernel reads the ring state in place and fuses the feature gather that
+// follows the select in the hook (gather_edge_feats):
+// - given the seeds, it reads row seed of the (N1, B) state, an invalid seed
+//   (< 0 or >= N1 - 1) reading the dump row N1 - 1; without them row s of
+//   the pre-gathered (S, B) rows (the Pallas entry);
+// - given a static (E_all, D) fp32 edge table, it writes an (S, K, D)
+//   output: column c holds edge_x[min(eid, E_all - 1)] for the edge id eid
+//   of column c, or zeros where eid < 0, bit for bit what gather_edge_feats
+//   gives.
 //
-// Design: one thread per seed. The thread walks ages 0..B-1 (newest first),
-// counts valid slots r and writes the r-th valid slot straight to column
-// K-1-r, stopping after K. No rank matrix, no one-hot reduce: those were the
-// TPU's way to vectorise a gather-free select, and a scalar walk per thread
-// is cheaper here. wp grows without bound and CUDA's % truncates toward zero,
-// so the slot index uses ((x % B) + B) % B, the floor modulo of the JAX code.
+// What bounds it on an H100: memory. At the TGN eval shape (S = 4,400 seeds,
+// B = K = 10, D = 172) it writes an (S, K, D) fp32 block of 30.3 MB and
+// reads up to as many bytes of selected edge rows: about 18 us at the H100
+// SXM's published 3.35 TB/s (700 W power limit). Without features (the
+// Pallas entry) it moves about 1.1 MB and is launch-bound.
+//
+// Design: K4's (below), one warp per seed. Lane l looks at the slots of ages
+// l and l + 32 (B <= 64); a warp ballot gives the valid slots in age order,
+// a popcount each slot's rank. Selected lanes write id, time and edge id to
+// column K-1-rank and the edge id to a per-warp table in shared memory; the
+// warp then streams the K output rows, four float4 (or float) loads in
+// flight per lane before their stores. wp grows without bound and CUDA's %
+// truncates toward zero, so the slot index uses a floor modulo, as the JAX
+// code does.
 //
 // K4: the same select with an fp32 feature payload.
 //
@@ -58,40 +71,122 @@ namespace {
 constexpr int kPad = -1;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxSlots = 64;
+constexpr int kCopyUnroll = 4;  // K1's loads in flight per lane
+
+__device__ __forceinline__ int floor_mod(int x, int b) { return ((x % b) + b) % b; }
+
+// The rank rule over one seed's B-slot ring row (starting at `row`), for a
+// whole warp: lane l holds the slots of ages l and l + 32 (h = 0 and 1); a
+// ballot gives the valid slots in age order, a popcount each one's rank.
+struct WarpSlots {
+  bool valid[2];
+  int slot[2], id[2], time[2], rank[2];
+  int n_valid;
+};
+
+__device__ __forceinline__ WarpSlots rank_slots(const int* __restrict__ ids,
+                                                const int* __restrict__ times, long long row,
+                                                int wp, int qt, int B, int lane) {
+  WarpSlots w;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int age = lane + 32 * h;
+    w.valid[h] = false;
+    w.slot[h] = w.id[h] = w.time[h] = 0;
+    if (age < B) {
+      w.slot[h] = floor_mod(wp - 1 - age, B);
+      w.id[h] = ids[row + w.slot[h]];
+      w.time[h] = times[row + w.slot[h]];
+      w.valid[h] = w.time[h] < qt && w.id[h] != kPad;
+    }
+  }
+  const unsigned lo = __ballot_sync(0xffffffffu, w.valid[0]);
+  const unsigned hi = __ballot_sync(0xffffffffu, w.valid[1]);
+  const unsigned below = (1u << lane) - 1u;  // lane < 32, so the shift is defined
+  w.rank[0] = __popc(lo & below);
+  w.rank[1] = __popc(lo) + __popc(hi & below);
+  w.n_valid = __popc(lo) + __popc(hi);
+  return w;
+}
+
+// Copies the (K, W) output block of one seed, W = D (T = float) or D / 4
+// (T = float4): row c is edge_x[min(eid[c], E_all - 1)], or zeros where
+// eid[c] < 0.
+template <typename T>
+__device__ __forceinline__ void copy_edge_rows(const T* __restrict__ edge_x, T* __restrict__ out,
+                                               const int* eid, int K, int W, int E_all,
+                                               int lane) {
+  const int total = K * W;
+  for (int i0 = lane; i0 < total; i0 += 32 * kCopyUnroll) {
+    T v[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      const int i = i0 + 32 * u;
+      v[u] = T{};
+      if (i < total) {
+        const int c = i / W;
+        const int e = eid[c];
+        if (e >= 0) v[u] = edge_x[static_cast<long long>(min(e, E_all - 1)) * W + (i - c * W)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < total) out[i] = v[u];
+    }
+  }
+}
 
 __global__ void recency_select_eid_kernel(
     const int* __restrict__ ids, const int* __restrict__ times,
     const int* __restrict__ eids, const int* __restrict__ write_pos,
-    const int* __restrict__ query_times, int* __restrict__ out_ids,
-    int* __restrict__ out_times, int* __restrict__ out_eids, int S, int B,
-    int K) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const long row = static_cast<long>(s) * B;
-  const long out = static_cast<long>(s) * K;
-  const int wp = write_pos[s];
-  const int qt = query_times[s];
-  int r = 0;
-  for (int a = 0; a < B && r < K; ++a) {
-    const int j = (((wp - 1 - a) % B) + B) % B;
-    const int id = ids[row + j];
-    const int t = times[row + j];
-    if (t < qt && id != kPad) {
-      const int c = K - 1 - r;
-      out_ids[out + c] = id;
-      out_times[out + c] = t;
-      out_eids[out + c] = eids[row + j];
-      ++r;
+    const int* __restrict__ seeds, const int* __restrict__ query_times,
+    const float* __restrict__ edge_x, int* __restrict__ out_ids,
+    int* __restrict__ out_times, int* __restrict__ out_eids,
+    float* __restrict__ out_feats, int S, int N1, int B, int K, int E_all,
+    int D, bool vec) {
+  __shared__ int sel_eid[kWarpsPerBlock][kMaxSlots];  // edge id of each output column
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int s = blockIdx.x * kWarpsPerBlock + warp;
+  if (s >= S) return;  // warp-uniform: the whole warp leaves together
+  int node = s;
+  if (seeds != nullptr) {
+    const int seed = seeds[s];
+    node = (seed >= 0 && seed < N1 - 1) ? seed : N1 - 1;  // invalid seeds read the dump row
+  }
+  const long long row = static_cast<long long>(node) * B;
+  const long long out = static_cast<long long>(s) * K;
+  const WarpSlots w = rank_slots(ids, times, row, write_pos[node], query_times[s], B, lane);
+  const int n_fill = K - min(w.n_valid, K);  // columns [0, n_fill) stay empty
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (w.valid[h] && w.rank[h] < K) {
+      const int c = K - 1 - w.rank[h];
+      const int e = eids[row + w.slot[h]];
+      out_ids[out + c] = w.id[h];
+      out_times[out + c] = w.time[h];
+      out_eids[out + c] = e;
+      sel_eid[warp][c] = e;
     }
   }
-  for (int c = 0; c < K - r; ++c) {
+  for (int c = lane; c < n_fill; c += 32) {
     out_ids[out + c] = kPad;
     out_times[out + c] = 0;
     out_eids[out + c] = -1;
+    sel_eid[warp][c] = -1;
+  }
+  if (out_feats == nullptr) return;
+  __syncwarp();
+  if (vec) {
+    copy_edge_rows(reinterpret_cast<const float4*>(edge_x),
+                   reinterpret_cast<float4*>(out_feats + out * D), sel_eid[warp], K, D / 4,
+                   E_all, lane);
+  } else {
+    copy_edge_rows(edge_x, out_feats + out * D, sel_eid[warp], K, D, E_all, lane);
   }
 }
-
-__device__ __forceinline__ int floor_mod(int x, int b) { return ((x % b) + b) % b; }
 
 __global__ void recency_select_feats_kernel(
     const int* __restrict__ ids, const int* __restrict__ times,
@@ -106,44 +201,18 @@ __global__ void recency_select_feats_kernel(
   if (s >= S) return;  // warp-uniform: the whole warp leaves together
   const long row = static_cast<long>(s) * B;
   const long out = static_cast<long>(s) * K;
-  const int wp = write_pos[s];
-  const int qt = query_times[s];
-
-  // Ages a0 = lane and a1 = lane + 32; the slot of age a is (wp - 1 - a) mod B.
-  bool valid0 = false, valid1 = false;
-  int j0 = 0, j1 = 0, id0 = 0, id1 = 0, t0 = 0, t1 = 0;
-  if (lane < B) {
-    j0 = floor_mod(wp - 1 - lane, B);
-    id0 = ids[row + j0];
-    t0 = times[row + j0];
-    valid0 = t0 < qt && id0 != kPad;
-  }
-  if (lane + 32 < B) {
-    j1 = floor_mod(wp - 1 - (lane + 32), B);
-    id1 = ids[row + j1];
-    t1 = times[row + j1];
-    valid1 = t1 < qt && id1 != kPad;
-  }
-  const unsigned lo = __ballot_sync(0xffffffffu, valid0);
-  const unsigned hi = __ballot_sync(0xffffffffu, valid1);
-  const unsigned below = (1u << lane) - 1u;  // lane < 32, so the shift is defined
-  const int rank0 = __popc(lo & below);
-  const int rank1 = __popc(lo) + __popc(hi & below);
-  const int n_valid = __popc(lo) + __popc(hi);
-  const int n_sel = n_valid < K ? n_valid : K;
+  const WarpSlots w = rank_slots(ids, times, row, write_pos[s], query_times[s], B, lane);
+  const int n_sel = min(w.n_valid, K);
   const int n_fill = K - n_sel;  // columns [0, n_fill) stay empty
 
-  if (valid0 && rank0 < K) {
-    const int c = K - 1 - rank0;
-    out_ids[out + c] = id0;
-    out_times[out + c] = t0;
-    src_slot[warp][c] = j0;
-  }
-  if (valid1 && rank1 < K) {
-    const int c = K - 1 - rank1;
-    out_ids[out + c] = id1;
-    out_times[out + c] = t1;
-    src_slot[warp][c] = j1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (w.valid[h] && w.rank[h] < K) {
+      const int c = K - 1 - w.rank[h];
+      out_ids[out + c] = w.id[h];
+      out_times[out + c] = w.time[h];
+      src_slot[warp][c] = w.slot[h];
+    }
   }
   for (int c = lane; c < n_fill; c += 32) {
     out_ids[out + c] = kPad;
@@ -197,17 +266,27 @@ extern "C" int recency_window_select(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int recency_window_select_eid(
+// seeds null: the state is S pre-gathered rows, row s for seed s. edge_x and
+// out_feats both null: no features.
+extern "C" int recency_eid_select(
     const void* ids, const void* times, const void* eids,
-    const void* write_pos, const void* query_times, void* out_ids,
-    void* out_times, void* out_eids, int S, int B, int K, void* stream) {
-  const int threads = 128;
-  const int blocks = (S + threads - 1) / threads;
-  recency_select_eid_kernel<<<blocks, threads, 0,
+    const void* write_pos, const void* seeds, const void* query_times,
+    const void* edge_x, void* out_ids, void* out_times, void* out_eids,
+    void* out_feats, int S, int N1, int B, int K, int E_all, int D,
+    void* stream) {
+  if (B > kMaxSlots || K > B || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((edge_x == nullptr) != (out_feats == nullptr) || (edge_x != nullptr && E_all < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = (D % 4 == 0) && (reinterpret_cast<std::uintptr_t>(edge_x) % 16 == 0) &&
+                   (reinterpret_cast<std::uintptr_t>(out_feats) % 16 == 0);
+  const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  recency_select_eid_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ids), static_cast<const int*>(times),
       static_cast<const int*>(eids), static_cast<const int*>(write_pos),
-      static_cast<const int*>(query_times), static_cast<int*>(out_ids),
-      static_cast<int*>(out_times), static_cast<int*>(out_eids), S, B, K);
+      static_cast<const int*>(seeds), static_cast<const int*>(query_times),
+      static_cast<const float*>(edge_x), static_cast<int*>(out_ids),
+      static_cast<int*>(out_times), static_cast<int*>(out_eids),
+      static_cast<float*>(out_feats), S, N1, B, K, E_all, D, vec);
   return static_cast<int>(cudaGetLastError());
 }

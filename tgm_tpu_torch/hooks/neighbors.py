@@ -10,14 +10,14 @@ is reduced modulo B only where it is used.
   buffer holding each event's edge features by value. A query selects each
   seed's K most recent events with their features (kernel K4 on the card).
 * eid layout (``edge_x_full`` given): ``(nbr_ids, nbr_times, nbr_eids,
-  write_pos)``, all int32; a query selects ids, times and edge ids (kernel
-  K1) and gathers the features from the static table.
+  write_pos)``, all int32; a query selects ids, times and edge ids and
+  copies the selected edges' rows of the static feature table, in one
+  launch of kernel K1 that reads the state in place (``recency_eid_select``).
 
 A push writes a batch of events with the dense, sort-free plan of the JAX
-package (bit-equal to its sorted plan): the int32 buffers through cell
-scatters (kernel K2 on the card), the feature buffer through PyTorch
-indexing plus a reset of the dump row, as the JAX package leaves it to XLA.
-The buffers are updated in place.
+package (bit-equal to its sorted plan), planned and written on the card by
+the push kernel (``ops.recency_push``, two launches) for both layouts. The
+buffers are updated in place; the dump row is never written.
 
 The packed layout, multi-hop queries and the uniform ``NeighborSamplerHook``
 are queued in ROADMAP.md.
@@ -33,8 +33,8 @@ from ..constants import PADDED_NODE_ID
 from ..core.batch import DGBatch
 from ..core.graph import DGraph
 from ..device import DeviceLike, resolve_device
-from ..ops.recency_select import recency_window_select, recency_window_select_eid
-from ..ops.scatter_cells import scatter_cells
+from ..ops.recency_select import recency_eid_select, recency_window_select, seed_rows
+from ..ops.scatter_cells import recency_push
 from .base import SeedableHook, StatefulHook
 from .registry import hook
 
@@ -57,17 +57,12 @@ def recency_init(num_nodes: int, buf_size: int, edge_dim: int,
     )
 
 
-def _seed_rows(seeds: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    seed_ok = (seeds >= 0) & (seeds < num_nodes)
-    return torch.where(seed_ok, seeds, num_nodes).long()  # dump row for invalid seeds
-
-
 def recency_query(
     state: RecencyState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K most recent (nbr_id, time, features) per seed strictly before its time."""
     nbr_ids, nbr_times, nbr_feats, write_pos = state
-    rows = _seed_rows(seeds, nbr_ids.shape[0] - 1)
+    rows = seed_rows(seeds, nbr_ids.shape[0] - 1)
     return recency_window_select(
         nbr_ids[rows], nbr_times[rows], nbr_feats[rows], write_pos[rows],
         seed_times.int(), k,
@@ -91,112 +86,16 @@ def recency_eid_query(
     state: RecencyState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K most recent (nbr_id, time, edge_id) per seed strictly before its time."""
-    nbr_ids, nbr_times, nbr_eids, write_pos = state
-    rows = _seed_rows(seeds, nbr_ids.shape[0] - 1)
-    return recency_window_select_eid(
-        nbr_ids[rows], nbr_times[rows], nbr_eids[rows], write_pos[rows],
-        seed_times.int(), k,
-    )
+    return recency_eid_select(state, seeds.int(), seed_times.int(), k)[:3]
 
 
-def gather_edge_feats(edge_x: Optional[torch.Tensor], eids: torch.Tensor) -> torch.Tensor:
-    """Features of selected edges; eid -1 (padding) yields zero rows."""
-    if edge_x is None:
-        return torch.zeros(eids.shape + (0,), dtype=torch.float32, device=eids.device)
-    valid = eids >= 0
-    rows = eids.clamp(0, edge_x.shape[0] - 1).long()
-    return torch.where(valid[..., None], edge_x[rows], 0.0)
-
-
-def _push_plan_dense(
-    B: int,
-    write_pos: torch.Tensor,
-    src: torch.Tensor,
-    dst: torch.Tensor,
-    time: torch.Tensor,
-    valid: Optional[torch.Tensor],
-    directed: bool,
-    num_nodes: int,
-):
-    """Sort-free write plan of a ring-buffer push.
-
-    Each event's within-node recency rank ``r`` is the number of events of the
-    same node strictly later in (time, position) order, an (E, E)
-    compare-and-sum. Events with ``r < B`` are kept; write columns follow the
-    (write_pos + offset-from-start) % B layout of the sorted plan, so the
-    buffers come out identical. Payloads scatter in the original event order.
-
-    Returns ``(rows, cols, nbrs, t, rows_last, wp_last)``: int32 targets
-    (dropped events aim at the dump row), the neighbour and time of each
-    event, and each node's post-push write position set at its final event.
-    """
-    if valid is None:
-        valid = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
-    if directed:
-        nodes, nbrs, t, v = src, dst, time, valid
-    else:
-        nodes = torch.cat([src, dst])
-        nbrs = torch.cat([dst, src])
-        t = torch.cat([time, time])
-        v = torch.cat([valid, valid])
-
-    nodes = torch.where(v, nodes, num_nodes)
-    E2 = nodes.shape[0]
-    idx = torch.arange(E2, device=nodes.device)
-
-    same = nodes[:, None] == nodes[None, :]  # (E2, E2)
-    # Stable (time, concat-position) order, as a stable argsort on time.
-    later = (t[None, :] > t[:, None]) | ((t[None, :] == t[:, None]) & (idx[None, :] > idx[:, None]))
-    r = (same & later).sum(dim=1)  # strictly-later same-node events
-    earlier = (same & ~later).sum(dim=1) - 1  # excludes self
-    cnt = earlier + r + 1
-
-    keep = r < B
-    kept_offset = torch.clamp_min(earlier - torch.clamp_min(cnt - B, 0), 0)
-    wp_nodes = write_pos[nodes.long()].long()
-    write_idx = torch.remainder(wp_nodes + kept_offset, B)
-    rows = torch.where(keep, nodes, num_nodes).int()
-    cols = torch.where(keep, write_idx, 0).int()
-
-    rows_last = torch.where(r == 0, nodes, num_nodes).int()
-    wp_last = (wp_nodes + torch.clamp_max(cnt, B)).int()
-    return rows, cols, nbrs.int(), t.int(), rows_last, wp_last
-
-
-def _recency_push(
-    nbr_ids: torch.Tensor,
-    nbr_times: torch.Tensor,
-    payload_buf: torch.Tensor,  # (N1, B) edge ids or (N1, B, D) features
-    payload_fill,
-    write_pos: torch.Tensor,
-    src: torch.Tensor,
-    dst: torch.Tensor,
-    time: torch.Tensor,
-    payload: torch.Tensor,  # (E,) edge ids or (E, D) features
-    valid: Optional[torch.Tensor],
-    directed: bool,
-) -> RecencyState:
+def _recency_push(state: RecencyState, src: torch.Tensor, dst: torch.Tensor, time: torch.Tensor,
+                  payload: torch.Tensor, valid: Optional[torch.Tensor],
+                  directed: bool) -> RecencyState:
     """Ring-buffer push over id/time/payload buffers, in place."""
-    N1, B = nbr_ids.shape
-    num_nodes = N1 - 1
-    rows, cols, s_nbrs, s_t, rows_last, wp_last = _push_plan_dense(
-        B, write_pos, src, dst, time, valid, directed, num_nodes
-    )
-    s_f = payload if directed else torch.cat([payload, payload])
-    # Each node's final event carries its new write position; every other
-    # event aims at the dump row, which is reset after.
-    write_pos.index_put_((rows_last.long(),), wp_last)
-    write_pos[num_nodes] = 0
-    # The plan writes each live (row, col) slot at most once, so the kernel
-    # may skip dump-row writes instead of writing then resetting them.
-    scatter_cells(nbr_ids, rows, cols, s_nbrs)
-    scatter_cells(nbr_times, rows, cols, s_t)
-    if payload_buf.dim() == 2:
-        scatter_cells(payload_buf, rows, cols, s_f.int())
-    else:
-        payload_buf.index_put_((rows.long(), cols.long()), s_f.to(payload_buf.dtype))
-        payload_buf[num_nodes] = payload_fill  # keep the dump row pristine
-    return nbr_ids, nbr_times, payload_buf, write_pos
+    nbr_ids, nbr_times, payload_buf, write_pos = state
+    return recency_push(nbr_ids, nbr_times, payload_buf, write_pos, src.int(), dst.int(),
+                        time.int(), payload.to(payload_buf.dtype), valid, directed)
 
 
 def recency_update(
@@ -209,12 +108,10 @@ def recency_update(
     directed: bool,
 ) -> RecencyState:
     """Push a batch of edge events with their feature rows into the buffers, in place."""
-    nbr_ids, nbr_times, nbr_feats, write_pos = state
     if feats is None:
-        feats = torch.zeros((src.shape[0], nbr_feats.shape[-1]), dtype=torch.float32,
+        feats = torch.zeros((src.shape[0], state[2].shape[-1]), dtype=torch.float32,
                             device=src.device)
-    return _recency_push(nbr_ids, nbr_times, nbr_feats, 0.0, write_pos,
-                         src, dst, time, feats, valid, directed)
+    return _recency_push(state, src, dst, time, feats, valid, directed)
 
 
 def recency_eid_update(
@@ -227,9 +124,7 @@ def recency_eid_update(
     directed: bool,
 ) -> RecencyState:
     """Push a batch of edge events (by edge id) into the ring buffers, in place."""
-    nbr_ids, nbr_times, nbr_eids, write_pos = state
-    return _recency_push(nbr_ids, nbr_times, nbr_eids, -1, write_pos,
-                         src, dst, time, eids, valid, directed)
+    return _recency_push(state, src, dst, time, eids, valid, directed)
 
 
 @hook
@@ -331,8 +226,7 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
                     "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
                     "(served by train.stream.DeviceEdgeStream)"
                 )
-            nbrs, nts, nes = recency_eid_query(state, seeds, times, k)
-            nxs = gather_edge_feats(self._edge_x_full, nes)
+            nbrs, nts, _, nxs = recency_eid_select(state, seeds, times, k, self._edge_x_full)
             state = recency_eid_update(
                 state, batch.edge_src, batch.edge_dst, batch.edge_time, batch.edge_ids,
                 batch.edge_valid, self._directed,

@@ -6,6 +6,11 @@ Port of ``tgm_tpu/ops/pallas/recency_select.py``:
   and ``recency_window_select_eid_lanes``: for each seed's pre-gathered
   B-slot ring row, the K most recent (id, time, edge id) strictly before the
   seed's query time, oldest to newest, right-aligned, filled with PAD / 0 / -1.
+* ``recency_eid_select`` launches the same kernel K1 on the ring state
+  itself: it reads each seed's row in place (invalid seeds read the dump row)
+  and, given the static edge-feature table, writes the selected edges'
+  feature rows too, what ``gather_edge_feats`` would give. This is the hook's
+  eid-layout query: one launch, no gathered rows.
 * ``recency_window_select`` (K4) replaces ``recency_window_select``: the same
   select carrying an (S, B, D) fp32 feature payload, copied exactly, filled
   with PAD / 0 / 0.0.
@@ -25,7 +30,7 @@ stream leaves, the rule equals the JAX package's jnp path.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +40,23 @@ from . import _native
 MAX_BUFFER_SLOTS = 64
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Quad = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def seed_rows(seeds: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """State row of each seed: the seed itself, or the dump row ``num_nodes``
+    for an invalid seed (< 0 or >= num_nodes)."""
+    seed_ok = (seeds >= 0) & (seeds < num_nodes)
+    return torch.where(seed_ok, seeds, num_nodes).long()
+
+
+def gather_edge_feats(edge_x: Optional[torch.Tensor], eids: torch.Tensor) -> torch.Tensor:
+    """Features of selected edges; eid -1 (padding) yields zero rows."""
+    if edge_x is None:
+        return torch.zeros(eids.shape + (0,), dtype=torch.float32, device=eids.device)
+    valid = eids >= 0
+    rows = eids.clamp(0, edge_x.shape[0] - 1).long()
+    return torch.where(valid[..., None], edge_x[rows], 0.0)
 
 
 def _rank_columns(ids: torch.Tensor, times: torch.Tensor, write_pos: torch.Tensor,
@@ -87,19 +109,27 @@ def recency_window_select_plain(
             _select(feats, cols, k, 0.0))
 
 
-def _check(ids, times, payload, write_pos, query_times, k, payload_dtype) -> None:
-    S, B = ids.shape
-    if times.shape != (S, B):
-        raise ValueError(f"times must have shape {(S, B)}, got {tuple(times.shape)}")
-    if payload.shape[:2] != (S, B):
-        raise ValueError(f"the payload must start with shape {(S, B)}, got {tuple(payload.shape)}")
-    for name, t in (("write_pos", write_pos), ("query_times", query_times)):
-        if t.shape != (S,):
-            raise ValueError(f"{name} must have shape {(S,)}, got {tuple(t.shape)}")
-    for name, t, dtype in (("ids", ids, torch.int32), ("times", times, torch.int32),
-                           ("payload", payload, payload_dtype),
-                           ("write_pos", write_pos, torch.int32),
-                           ("query_times", query_times, torch.int32)):
+def _check(ids, times, payload, write_pos, query_times, k, payload_dtype, seeds=None) -> None:
+    """Checks (N, B) rows with their write positions, and one query time per
+    seed: per row without ``seeds``, per entry of ``seeds`` with them."""
+    N, B = ids.shape
+    S = N if seeds is None else seeds.shape[0]
+    if times.shape != (N, B):
+        raise ValueError(f"times must have shape {(N, B)}, got {tuple(times.shape)}")
+    if payload.shape[:2] != (N, B):
+        raise ValueError(f"the payload must start with shape {(N, B)}, got {tuple(payload.shape)}")
+    shaped = [("write_pos", write_pos, (N,)), ("query_times", query_times, (S,))]
+    if seeds is not None:
+        shaped.append(("seeds", seeds, (S,)))
+    for name, t, shape in shaped:
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    typed = [("ids", ids, torch.int32), ("times", times, torch.int32),
+             ("payload", payload, payload_dtype), ("write_pos", write_pos, torch.int32),
+             ("query_times", query_times, torch.int32)]
+    if seeds is not None:
+        typed.append(("seeds", seeds, torch.int32))
+    for name, t, dtype in typed:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != ids.device:
@@ -110,6 +140,20 @@ def _check(ids, times, payload, write_pos, query_times, k, payload_dtype) -> Non
         raise ValueError(f"the kernel takes at most {MAX_BUFFER_SLOTS} buffer slots, got {B}")
     if ids.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {ids.device}")
+
+
+def _launch_k1(rows: Sequence[torch.Tensor], seeds: Optional[torch.Tensor],
+               query_times: torch.Tensor, edge_x: Optional[torch.Tensor], outs: Triple,
+               out_feats: Optional[torch.Tensor], k: int) -> None:
+    """Launch K1 over (N1, B) rows (ids, times, eids, write_pos): row
+    ``seeds[s]`` for seed s (the dump row N1 - 1 if invalid), or row s
+    without seeds; features only with both ``edge_x`` and ``out_feats``."""
+    N1, B = rows[0].shape
+    E_all, D = (0, 0) if edge_x is None else edge_x.shape
+    ins = [None if t is None else t.contiguous()
+           for t in (*rows, seeds, query_times, edge_x)]
+    _native.launch("recency_select", "recency_eid_select", [*ins, *outs, out_feats],
+                   [query_times.shape[0], N1, B, k, E_all, D])
 
 
 def recency_window_select_eid(
@@ -128,17 +172,70 @@ def recency_window_select_eid(
     _check(ids, times, eids, write_pos, query_times, k, torch.int32)
     if ids.device.type == "cpu":
         return recency_window_select_eid_plain(ids, times, eids, write_pos, query_times, k)
-    S, B = ids.shape
+    S = ids.shape[0]
     outs = tuple(torch.empty((S, k), dtype=torch.int32, device=ids.device) for _ in range(3))
     if S == 0:
         return outs
-    ins = [t.contiguous() for t in (ids, times, eids, write_pos, query_times)]
-    _native.launch("recency_select", "recency_window_select_eid", [*ins, *outs], [S, B, k])
+    _launch_k1((ids, times, eids, write_pos), None, query_times, None, outs, None, k)
     recency_window_select_eid.launches += 1
     return outs
 
 
 recency_window_select_eid.launches = 0
+
+
+def recency_eid_select_plain(state: Sequence[torch.Tensor], seeds: torch.Tensor,
+                             seed_times: torch.Tensor, k: int,
+                             edge_x: Optional[torch.Tensor] = None) -> Quad:
+    """Plain version of ``recency_eid_select``: gather each seed's rows, K1's
+    plain select, then ``gather_edge_feats``."""
+    nbr_ids, nbr_times, nbr_eids, write_pos = state
+    rows = seed_rows(seeds, nbr_ids.shape[0] - 1)
+    ids, times, eids = recency_window_select_eid_plain(
+        nbr_ids[rows], nbr_times[rows], nbr_eids[rows], write_pos[rows], seed_times, k)
+    return ids, times, eids, gather_edge_feats(edge_x, eids)
+
+
+def recency_eid_select(
+    state: Sequence[torch.Tensor],  # (N1, B) int32 ids, times, edge ids; (N1,) int32 write_pos
+    seeds: torch.Tensor,  # (S,) int32 node ids; invalid ones read the dump row N1 - 1
+    seed_times: torch.Tensor,  # (S,) int32
+    k: int,
+    edge_x: Optional[torch.Tensor] = None,  # (E_all, D) float32 static edge features
+) -> Quad:
+    """K most recent (id, time, edge id, features) per seed before its time.
+
+    Reads the eid-layout ring state in place: no per-seed rows are gathered.
+    Returns (S, K) int32 ids, times and edge ids, filled with PAD / 0 / -1,
+    and (S, K, D) fp32 features of the selected edges (zero rows for edge
+    id -1; (S, K, 0) without ``edge_x``), equal to
+    ``gather_edge_feats(edge_x, eids)`` bit for bit. One launch of kernel K1
+    on CUDA tensors, the plain version on CPU tensors;
+    ``recency_eid_select.launches`` counts kernel launches.
+    """
+    nbr_ids, nbr_times, nbr_eids, write_pos = state
+    _check(nbr_ids, nbr_times, nbr_eids, write_pos, seed_times, k, torch.int32, seeds=seeds)
+    dev = nbr_ids.device
+    if edge_x is not None and (edge_x.dim() != 2 or edge_x.shape[0] == 0
+                               or edge_x.dtype != torch.float32 or edge_x.device != dev):
+        raise ValueError(f"edge_x must be a float32 table of at least one row on {dev}, got "
+                         f"{edge_x.dtype} {tuple(edge_x.shape)} on {edge_x.device}")
+    if dev.type == "cpu":
+        return recency_eid_select_plain(state, seeds, seed_times, k, edge_x)
+    S = seeds.shape[0]
+    D = 0 if edge_x is None else edge_x.shape[1]
+    outs = tuple(torch.empty((S, k), dtype=torch.int32, device=dev) for _ in range(3))
+    feats = torch.empty((S, k, D), dtype=torch.float32, device=dev)
+    if S == 0:
+        return (*outs, feats)
+    with_feats = D > 0  # a zero-width table has nothing to copy
+    _launch_k1(state, seeds, seed_times, edge_x if with_feats else None, outs,
+               feats if with_feats else None, k)
+    recency_eid_select.launches += 1
+    return (*outs, feats)
+
+
+recency_eid_select.launches = 0
 
 
 def recency_window_select(

@@ -1,17 +1,26 @@
-"""In-place int32 state scatters: kernels K2 and K3 and their plain versions.
+"""In-place state writes of the serving paths: the recency push, kernels K2
+and K3, and their plain versions.
 
-Port of ``tgm_tpu/ops/pallas/scatter_cells.py``. Where the JAX functions
-return a new array, these write into the tensor they are given and return it:
-the callers' state tensors are updated in place.
+Port of ``tgm_tpu/ops/pallas/scatter_cells.py`` and of the push that calls
+it (``tgm_tpu/hooks/neighbors.py::_recency_push`` with its dense plan).
+Where the JAX functions return new arrays, these write into the tensors they
+are given and return them: the callers' state tensors are updated in place.
 
-On CUDA tensors the wrappers launch the hand-written kernels in
-``csrc/scatter_cells.cu``; on CPU tensors they run the plain versions. Both
-skip targets past the last live row and leave every skipped row as it was.
+* ``recency_push``: one ring-buffer push of a batch of events, planned and
+  written on the card (two launches of ``csrc/scatter_cells.cu``), for both
+  recency state layouts. This is what the hook runs.
+* ``scatter_cells`` (K2): the Pallas function's own contract, one int32
+  plane's cell scatter. Off the serving paths since the push kernel.
+* ``tgn_store_scatter_1d`` (K3): the four TGN message-store writes.
+
+On CUDA tensors the wrappers launch the hand-written kernels; on CPU tensors
+they run the plain versions. Both skip targets at the last row (the dump row)
+and beyond and leave every skipped row as it was.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +46,149 @@ def _put_live(x: torch.Tensor, index: Tuple[torch.Tensor, ...], live: torch.Tens
     )
     x.index_put_(idx, vals)
     x[last] = saved
+
+
+def push_plan_dense(
+    B: int,
+    write_pos: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    time: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    directed: bool,
+    num_nodes: int,
+):
+    """Sort-free write plan of a ring-buffer push (the JAX ``_push_plan_dense``).
+
+    Each event's within-node recency rank ``r`` is the number of events of the
+    same node strictly later in (time, position) order, an (E, E)
+    compare-and-sum. Events with ``r < B`` are kept; write columns follow the
+    (write_pos + offset-from-start) % B layout of the sorted plan, so the
+    buffers come out identical. Payloads scatter in the original event order.
+
+    Returns ``(rows, cols, nbrs, t, rows_last, wp_last)``: int32 targets
+    (dropped events aim at the dump row), the neighbour and time of each
+    event, and each node's post-push write position set at its final event.
+    """
+    if valid is None:
+        valid = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+    if directed:
+        nodes, nbrs, t, v = src, dst, time, valid
+    else:
+        nodes = torch.cat([src, dst])
+        nbrs = torch.cat([dst, src])
+        t = torch.cat([time, time])
+        v = torch.cat([valid, valid])
+
+    nodes = torch.where(v, nodes, num_nodes)
+    E2 = nodes.shape[0]
+    idx = torch.arange(E2, device=nodes.device)
+
+    same = nodes[:, None] == nodes[None, :]  # (E2, E2)
+    # Stable (time, concat-position) order, as a stable argsort on time.
+    later = (t[None, :] > t[:, None]) | ((t[None, :] == t[:, None]) & (idx[None, :] > idx[:, None]))
+    r = (same & later).sum(dim=1)  # strictly-later same-node events
+    earlier = (same & ~later).sum(dim=1) - 1  # excludes self
+    cnt = earlier + r + 1
+
+    keep = r < B
+    kept_offset = torch.clamp_min(earlier - torch.clamp_min(cnt - B, 0), 0)
+    wp_nodes = write_pos[nodes.long()].long()
+    write_idx = torch.remainder(wp_nodes + kept_offset, B)
+    rows = torch.where(keep, nodes, num_nodes).int()
+    cols = torch.where(keep, write_idx, 0).int()
+
+    rows_last = torch.where(r == 0, nodes, num_nodes).int()
+    wp_last = (wp_nodes + torch.clamp_max(cnt, B)).int()
+    return rows, cols, nbrs.int(), t.int(), rows_last, wp_last
+
+
+def recency_push_plain(nbr_ids, nbr_times, payload_buf, write_pos, src, dst, time, payload,
+                       valid, directed: bool):
+    """Plain version of ``recency_push``: the dense plan, then masked
+    ``index_put_`` writes of the three planes and of ``write_pos``."""
+    N1, B = nbr_ids.shape
+    num_nodes = N1 - 1
+    rows, cols, s_nbrs, s_t, rows_last, wp_last = push_plan_dense(
+        B, write_pos, src, dst, time, valid, directed, num_nodes
+    )
+    s_f = payload if directed else torch.cat([payload, payload])
+    # The plan is built: write_pos may change now. Each node's final event
+    # carries its new write position; every other event aims at the dump row.
+    _put_live(write_pos, (rows_last,), (rows_last >= 0) & (rows_last < num_nodes), wp_last)
+    live = (rows >= 0) & (rows < num_nodes)
+    for buf, vals in ((nbr_ids, s_nbrs), (nbr_times, s_t), (payload_buf, s_f.to(payload_buf.dtype))):
+        _put_live(buf, (rows, cols), live, vals)
+    return nbr_ids, nbr_times, payload_buf, write_pos
+
+
+def recency_push(
+    nbr_ids: torch.Tensor,  # (N1, B) int32
+    nbr_times: torch.Tensor,  # (N1, B) int32
+    payload_buf: torch.Tensor,  # (N1, B) int32 edge ids or (N1, B, D) float32 features
+    write_pos: torch.Tensor,  # (N1,) int32
+    src: torch.Tensor,  # (E,) int32
+    dst: torch.Tensor,  # (E,) int32
+    time: torch.Tensor,  # (E,) int32
+    payload: torch.Tensor,  # (E,) int32 or (E, D) float32, as payload_buf
+    valid: Optional[torch.Tensor],  # (E,) bool, or None for all valid
+    directed: bool,
+):
+    """Push a batch of edge events into recency ring buffers, in place.
+
+    Event i is (src[i], dst[i]); an undirected push also pushes (dst[i],
+    src[i]). Each node keeps its last B events in (time, position) order,
+    exactly as the JAX push does; invalid events and rows at N1 - 1 and
+    beyond write nothing, so the dump row is never touched. On CUDA tensors
+    one call launches two kernels (plan and write, then the write positions)
+    and ``recency_push.launches`` counts both; on CPU tensors it runs the
+    plain version. Returns the four state tensors.
+    """
+    if nbr_ids.dim() != 2 or payload_buf.dim() not in (2, 3):
+        raise ValueError(f"nbr_ids must be (N1, B) and payload_buf (N1, B) or (N1, B, D), got "
+                         f"{tuple(nbr_ids.shape)} and {tuple(payload_buf.shape)}")
+    N1, B = nbr_ids.shape
+    E = src.shape[0]
+    feats = payload_buf.dim() == 3
+    pay_dtype = torch.float32 if feats else torch.int32
+    row = tuple(payload_buf.shape[2:])  # (D,) or ()
+    shaped = [("nbr_times", nbr_times, (N1, B)), ("payload_buf", payload_buf, (N1, B) + row),
+              ("write_pos", write_pos, (N1,)), ("src", src, (E,)), ("dst", dst, (E,)),
+              ("time", time, (E,)), ("payload", payload, (E,) + row)]
+    if valid is not None:
+        shaped.append(("valid", valid, (E,)))
+    for name, t, shape in shaped:
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    _require_int32(nbr_ids.device, nbr_ids=nbr_ids, nbr_times=nbr_times, write_pos=write_pos,
+                   src=src, dst=dst, time=time)
+    for name, t, dtype in (("payload_buf", payload_buf, pay_dtype),
+                           ("payload", payload, pay_dtype),
+                           ("valid", valid, torch.bool)):
+        if t is not None and (t.dtype != dtype or t.device != nbr_ids.device):
+            raise TypeError(f"{name} must be {dtype} on {nbr_ids.device}, got {t.dtype} on "
+                            f"{t.device}")
+    args = (nbr_ids, nbr_times, payload_buf, write_pos, src, dst, time, payload, valid, directed)
+    if nbr_ids.device.type == "cpu":
+        return recency_push_plain(*args)
+    if nbr_ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {nbr_ids.device}")
+    if not all(t.is_contiguous() for t in (nbr_ids, nbr_times, payload_buf, write_pos)):
+        raise ValueError("the state must be contiguous: the kernels write it in place")
+    if E == 0:
+        return nbr_ids, nbr_times, payload_buf, write_pos
+    E2 = E if directed else 2 * E
+    stash = torch.empty(2 * E2, dtype=torch.int32, device=nbr_ids.device)
+    ins = [None if t is None else t.contiguous() for t in (src, dst, time, valid, payload)]
+    D = payload_buf.shape[2] if feats else 0
+    _native.launch("scatter_cells", "recency_push",
+                   [nbr_ids, nbr_times, payload_buf, write_pos, *ins, stash],
+                   [E, int(directed), N1, B, int(feats), D])
+    recency_push.launches += 2
+    return nbr_ids, nbr_times, payload_buf, write_pos
+
+
+recency_push.launches = 0
 
 
 def scatter_cells_plain(buf: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
