@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--only-hook-step]
+    python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
 
 Drives the port's two serving paths through the hook API, TGN and
 DyGFormer streaming link-prediction inference, and its hand-written CUDA
@@ -9,15 +9,16 @@ kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
-              version on the card (K1-K4 and the recency push exact; K5
-              within 5e-3 * max |plain|), with its time, the plain version's,
-              a single PyTorch call's where one computes the same thing, and
-              the least time the card could take (bound): K1 on the ring
-              state with the feature rows fused (S = 600 and 4,400) and on
-              pre-gathered rows, the push into the TGN and DyGFormer states
-              (and at E2 = 8,192 events), the single-buffer K2, K3, K4, K5;
-              for K5 also the device time of each of its five kernels per
-              layer and their CTAs per SM.
+              version on the card (K1-K4, the recency push and the TGN store
+              commit exact; K5 within 5e-3 * max |plain|), with its time, the
+              plain version's, a single PyTorch call's where one computes the
+              same thing, and the least time the card could take (bound): K1
+              on the ring state with the feature rows fused (S = 600 and
+              4,400) and on pre-gathered rows, the push into the TGN and
+              DyGFormer states (and at E2 = 8,192 events), the TGN store
+              commit (E = 200 and 8,192 events), the single-buffer K2, K3,
+              K4, K5; for K5 also the device time of each of its five kernels
+              per layer and their CTAs per SM.
 3. hook-step: one ``RecencyNeighborHook.apply`` on a serving batch per state
               layout (eid: K = 10, TGN; feature: K = 20, DyGFormer), through
               the hook's public API only: µs per call from Python and device
@@ -43,6 +44,12 @@ kernels, in phases:
               same weights and candidates: recency state exact (the fp32
               feature buffer included), embeddings within 5e-3 * max |z|,
               per-batch MRR sums within 0.5.
+8. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+              public signature only: µs per call from Python, device µs from
+              a CUDA graph and the CUDA kernels one call runs (torch.profiler;
+              last, so no serve phase runs after the profiler).
+              ``--only-store-step`` runs this phase alone, as
+              ``--only-hook-step`` does.
 
 It exits non-zero without a CUDA device. The last line is the device JSON
 object; the line before it the kernels JSON object, and the one before that
@@ -72,7 +79,7 @@ BATCH = 200
 NUM_CANDIDATES = 20
 AGREE_BATCHES = 3
 TIMING_ITERS = 200  # calls per kernel timing
-HOOK_STEP_ITERS = 50  # hook steps per timing
+STEP_ITERS = 50  # hook or store steps per timing
 PUSH_LAUNCHES = 2  # kernels a recency push launches
 # DyGFormer at the JAX package's full width (examples/linkproppred/dygformer.py).
 DYG = dict(node_feat_dim=1, edge_x_dim=WIKI_EDGE_DIM, time_feat_dim=100,
@@ -260,6 +267,36 @@ def k3_inputs(rng, dev):
     stores = [torch.as_tensor(rng.integers(-1, 10**6, N1).astype(np.int32), device=dev)
               for _ in range(4)]
     return stores, role(), role()
+
+
+def store_inputs(rng, E: int, dev):
+    """One TGN message-store commit at serving shape: a state of WIKI_NODES +
+    1 rows with random contents (the dump row included; 172-dim raw rows)
+    and E events, half of their owners among max(8, E / 8) busy nodes (many
+    duplicates), unsorted times with ties, 20% invalid (half of those with
+    padded ids), 2% self-loops."""
+    from tgm_tpu_torch.nn import TGNMemoryState
+
+    N1, R = WIKI_NODES + 1, WIKI_EDGE_DIM
+    up = lambda x: torch.as_tensor(x, device=dev)
+    ints = lambda lo, hi: up(rng.integers(lo, hi, N1).astype(np.int32))
+    state = TGNMemoryState(
+        mem=up(rng.normal(size=(N1, DIMS)).astype(np.float32)), last_update=ints(0, 3000),
+        s_other=ints(-1, WIKI_NODES), s_t=ints(0, 3000),
+        s_raw=up(rng.normal(size=(N1, R)).astype(np.float32)), s_valid=up(rng.random(N1) < 0.5),
+        d_other=ints(-1, WIKI_NODES), d_t=ints(0, 3000),
+        d_raw=up(rng.normal(size=(N1, R)).astype(np.float32)), d_valid=up(rng.random(N1) < 0.5))
+    busy = rng.choice(WIKI_NODES, max(8, E // 8), replace=False)
+    src, dst = (np.where(rng.random(E) < 0.5, rng.choice(busy, E),
+                         rng.integers(0, WIKI_NODES, E)).astype(np.int32) for _ in range(2))
+    loop = rng.random(E) < 0.02
+    dst[loop] = src[loop]
+    valid = rng.random(E) >= 0.2
+    pad = ~valid & (rng.random(E) < 0.5)
+    src[pad], dst[pad] = -1, -1
+    t = rng.integers(3000, 3000 + max(2, E // 4), E).astype(np.int32)
+    batch = [up(src), up(dst), up(t), up(rng.normal(size=(E, R)).astype(np.float32)), up(valid)]
+    return state, batch
 
 
 def _max_abs_err(got, want) -> float:
@@ -465,9 +502,46 @@ def push_case(label: str, state, batch, card: str, iters: int = TIMING_ITERS):
         None, nbytes, 4 * E2 * E2, err, card, iters=iters)
 
 
+def store_commit_case(rng, E: int, dev, card: str):
+    """The TGN message-store commit of E events (``store_inputs``): exact
+    against its plain version on all ten state fields, the dump row and
+    mem/last_update untouched, then timed on a copy of the state."""
+    from tgm_tpu_torch.nn import TGNMemoryState
+    from tgm_tpu_torch.ops.scatter_cells import tgn_store_commit, tgn_store_commit_plain
+
+    state, batch = store_inputs(rng, E, dev)
+    fresh = lambda: TGNMemoryState(*(x.clone() for x in state))
+    got, want = fresh(), fresh()
+    tgn_store_commit(got, *batch)
+    tgn_store_commit_plain(want, *batch)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not all(torch.equal(g, w) and torch.equal(g[-1], s[-1])
+                      for g, w, s in zip(got, want, state)):
+        raise AssertionError(f"the store commit differs from its plain version (E={E}): {err}")
+    if not (torch.equal(got.mem, state.mem) and torch.equal(got.last_update, state.last_update)):
+        raise AssertionError("the store commit wrote mem or last_update")
+    src, dst, t, raw, valid = batch
+    R = raw.shape[1]
+    # Winners: one per live owner and role.
+    winners = sum(int(torch.unique(o[valid & (o >= 0) & (o < WIKI_NODES) & (t >= -1)]).numel())
+                  for o in (src, dst))
+    # Bytes: src, dst, t and valid read once; each winner's raw row read and
+    # its other, t, valid flag and raw row written. Operations: the plan's
+    # 2E x E compare-and-votes (owner, time, position, or), as the push counts.
+    nbytes = 13 * E + winners * (4 * R + 9 + 4 * R)
+    work = fresh()
+    return _time_and_report(
+        f"tgn_store_commit E={E} R={R} state ({WIKI_NODES + 1},): {winners} rows written "
+        f"over both roles",
+        lambda: tgn_store_commit(work, *batch),
+        lambda: tgn_store_commit_plain(work, *batch),
+        None, nbytes, 4 * 2 * E * E, err, card)
+
+
 def kernel_phase(rng, dev, card: str):
-    """K1-K3 and the recency push at the serving shapes: exact against their
-    plain versions, timed.
+    """K1-K3, the recency push and the TGN store commit at the serving shapes:
+    exact against their plain versions, timed.
 
     Times are device times (``TIMING_ITERS`` calls replayed from one CUDA graph),
     with the per-call time from Python beside them. The bound counts each
@@ -543,6 +617,10 @@ def kernel_phase(rng, dev, card: str):
     report["recency_push"].update(_measured("dygformer", dyg))
     push_case("E2 = 8,192", *push_inputs(rng, NUM_NBRS, 0, dev, E=4096), card, iters=20)
 
+    # The TGN message-store commit at the serving batch and at E = 8,192.
+    report["tgn_store_commit"] = store_commit_case(rng, BATCH, dev, card)
+    report["tgn_store_commit"].update(_measured("e8192", store_commit_case(rng, 8192, dev, card)))
+
     # The single-buffer K2 on one push's cells of one plane.
     buf, rows, cols, vals = k2_inputs(rng, dev)
     got = scatter_cells(buf.clone(), rows, cols, vals)
@@ -586,7 +664,7 @@ def hook_step_phase(seed: int, dev, card: str):
     """One ``RecencyNeighborHook.apply`` (query, then push) on a serving batch
     of 200 edges and 4,000 candidates, per state layout, after 20 batches
     have filled the rows of 1,000 busy nodes: µs per call from Python and
-    device µs from ``HOOK_STEP_ITERS`` calls replayed from one CUDA graph.
+    device µs from ``STEP_ITERS`` calls replayed from one CUDA graph.
     Written against the hook's public API alone, so it measures any tree of
     the port."""
     from tgm_tpu_torch.core.batch import DGBatch
@@ -617,9 +695,9 @@ def hook_step_phase(seed: int, dev, card: str):
             state, _ = hook.apply(state, batch(i))
         b = batch(20)
         step = lambda: hook.apply(state, b)
-        _, call_us = cuda_time_us(step, HOOK_STEP_ITERS, graph=False)
+        _, call_us = cuda_time_us(step, STEP_ITERS, graph=False)
         try:
-            dev_us, _ = cuda_time_us(step, HOOK_STEP_ITERS)
+            dev_us, _ = cuda_time_us(step, STEP_ITERS)
             device = f"device {dev_us:.1f} us"
         except RuntimeError as e:  # e.g. a host-to-card copy, which a graph cannot hold
             torch.cuda.synchronize()
@@ -629,6 +707,68 @@ def hook_step_phase(seed: int, dev, card: str):
                          f"{2 * BATCH + BATCH * NUM_CANDIDATES} seeds): per call from Python "
                          f"{call_us:.1f} us, {device} [{card}]")
     return result
+
+
+def device_kernels(fn):
+    """The CUDA kernels (memsets and copies included) one call of ``fn``
+    runs, from torch.profiler: ({name: count}, summed device µs of those
+    kernels). Empty and 0 if the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts, busy_us = {}, 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+            busy_us += ev.time_range.elapsed_us()
+    return counts, busy_us
+
+
+def store_step_phase(seed: int, dev, card: str):
+    """One ``tgn_store_messages`` on a TGN serving batch (200 edges, 172-dim
+    messages, the last 5% padding) into a memory state that 20 batches over
+    1,000 busy nodes have filled: µs per call from Python, device µs from
+    ``STEP_ITERS`` calls replayed from one CUDA graph, and the CUDA kernels
+    one call runs with their summed device µs (torch.profiler; the gaps
+    between kernels not counted). Written against the function's public
+    signature alone, so it measures any tree of the port."""
+    from tgm_tpu_torch.nn import TGNMemory, tgn_store_messages
+
+    rng = np.random.default_rng(seed)
+    up = lambda x: torch.as_tensor(x, device=dev)
+    busy = rng.choice(WIKI_NODES, 1000, replace=False)
+
+    def batch(i):
+        src, dst = (rng.choice(busy, BATCH).astype(np.int32) for _ in range(2))
+        t = np.sort(rng.integers(1000 * i, 1000 * (i + 1), BATCH)).astype(np.int32)
+        valid = np.arange(BATCH) < BATCH - BATCH // 20
+        src[~valid], dst[~valid] = -1, -1
+        raw = rng.normal(size=(BATCH, WIKI_EDGE_DIM)).astype(np.float32)
+        return up(src), up(dst), up(t), up(raw), up(valid)
+
+    state = TGNMemory(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS).init_state(dev)
+    for i in range(20):
+        tgn_store_messages(state, *batch(i))
+    b = batch(20)
+    step = lambda: tgn_store_messages(state, *b)
+    _, call_us = cuda_time_us(step, STEP_ITERS, graph=False)
+    try:
+        dev_us, _ = cuda_time_us(step, STEP_ITERS)
+        device = f"device {dev_us:.2f} us"
+    except RuntimeError as e:  # e.g. a host-to-card copy, which a graph cannot hold
+        torch.cuda.synchronize()
+        device = f"device not measured (no CUDA graph: {str(e)[:120]})"
+    kernels, busy_us = device_kernels(step)
+    launches = sum(kernels.values())
+    names = "; ".join(f"{n[:70]} x{c}" for n, c in sorted(kernels.items(), key=lambda kv: -kv[1]))
+    log("store-step", f"tgn_store_messages ({BATCH} edges, raw dim {WIKI_EDGE_DIM}): per call "
+                      f"from Python {call_us:.1f} us, {device}, "
+                      + (f"{launches} device launches a call summing {busy_us:.2f} us of kernel "
+                         f"time ({names})" if launches else
+                         "device launches not measured (the profiler saw no device activity)")
+                      + f" [{card}]")
 
 
 # ---------------------------------------------------------------------- #
@@ -691,10 +831,15 @@ def kernel_wrappers():
         recency_window_select,
         recency_window_select_eid,
     )
-    from tgm_tpu_torch.ops.scatter_cells import recency_push, scatter_cells, tgn_store_scatter_1d
+    from tgm_tpu_torch.ops.scatter_cells import (
+        recency_push,
+        scatter_cells,
+        tgn_store_commit,
+        tgn_store_scatter_1d,
+    )
 
     return (recency_eid_select, recency_window_select_eid, recency_push, scatter_cells,
-            tgn_store_scatter_1d, recency_window_select, transformer_stack_fwd)
+            tgn_store_scatter_1d, tgn_store_commit, recency_window_select, transformer_stack_fwd)
 
 
 def check_launches(path: str, launches, need, n_batches: int) -> None:
@@ -732,7 +877,7 @@ def serve_phase(data, val, test, cands, models, dev, card):
                      f"{dt:.3f} s, {stream.num_edges / dt:.0f} edges/s, MRR {mrr[split]:.4f} [{card}]")
     launches = {f.__name__: f.launches for f in kernel_wrappers()}
     check_launches("TGN serve", launches, {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES,
-                                           "tgn_store_scatter_1d": 1}, n_batches)
+                                           "tgn_store_commit": 1}, n_batches)
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"MRR out of range: {mrr}")
     if not torch.isfinite(mem_state.mem).all():
@@ -904,6 +1049,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only-hook-step", action="store_true",
                     help="build, run the hook-step phase alone and stop (no result lines)")
+    ap.add_argument("--only-store-step", action="store_true",
+                    help="build, run the store-step phase alone and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -925,8 +1072,11 @@ def main() -> int:
                  f"torch {torch.__version__} cuda {torch.version.cuda} python "
                  f"{sys.version.split()[0]}; {nvcc_release} [{card}]")
 
-    if args.only_hook_step:
-        hook_step_phase(args.seed, dev, card)
+    if args.only_hook_step or args.only_store_step:
+        if args.only_hook_step:
+            hook_step_phase(args.seed, dev, card)
+        if args.only_store_step:
+            store_step_phase(args.seed, dev, card)
         return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
@@ -950,10 +1100,14 @@ def main() -> int:
          "transformer_stack_fwd": report["transformer_stack_fwd"]["ms"],
          "recency_push": report["recency_push"]["dygformer_ms"]})
     dyg_agree_phase(val, cands, dyg_models, dev, card)
+    # Last: once torch.profiler has traced the card, later launches in this
+    # process may cost more, so no serve phase may follow it.
+    store_step_phase(args.seed, dev, card)
 
     # name: (source, Pallas function replaced, launches in the serve runs: TGN for
-    # K1 and the push, DyGFormer for K4 and K5). K1 is one kernel behind two
-    # wrappers; the single-buffer scatter_cells is off both paths.
+    # K1, the push and the store commit, DyGFormer for K4 and K5). K1 is one
+    # kernel behind two wrappers; the single-buffer scatter_cells and K3 are
+    # off both paths.
     kernels_of = {
         "recency_eid_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:209",
                                launches["recency_eid_select"]
@@ -963,7 +1117,10 @@ def main() -> int:
         "scatter_cells": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:53",
                           launches["scatter_cells"] + dyg_launches["scatter_cells"]),
         "tgn_store_scatter_1d": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:111",
-                                 launches["tgn_store_scatter_1d"]),
+                                 launches["tgn_store_scatter_1d"]
+                                 + dyg_launches["tgn_store_scatter_1d"]),
+        "tgn_store_commit": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:111",
+                             launches["tgn_store_commit"]),
         "recency_window_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:259",
                                   dyg_launches["recency_window_select"]),
         "transformer_stack_fwd": (K5_SRC, "tgm_tpu/ops/pallas/dyg_transformer.py:167",
@@ -975,6 +1132,7 @@ def main() -> int:
     kernels[0]["also_replaces"] = "tgm_tpu/ops/pallas/recency_select.py:156"
     kernels[1]["launches_dygformer_serve"] = dyg_launches["recency_push"]
     kernels[2]["on_serving_paths"] = False
+    kernels[3]["on_serving_paths"] = False
     log("done", f"{time.perf_counter() - t_start:.1f} s from the build to here [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))

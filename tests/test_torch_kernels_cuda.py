@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tgm_tpu_torch.hooks.neighbors import recency_eid_init, recency_eid_update
+from tgm_tpu_torch.nn import TGNMemoryState
 from tgm_tpu_torch.ops import (
     recency_eid_select,
     recency_eid_select_plain,
@@ -26,6 +27,8 @@ from tgm_tpu_torch.ops import (
     recency_window_select_plain,
     scatter_cells,
     scatter_cells_plain,
+    tgn_store_commit,
+    tgn_store_commit_plain,
     tgn_store_scatter_1d,
     tgn_store_scatter_1d_plain,
     stack_weights,
@@ -165,6 +168,52 @@ def test_recency_push_kernel_matches_plain(card, B, D, directed, E2):
     if E2 >= 400:  # some node kept only B of its events
         kept = (got[3] - state[3]).cpu()
         assert int(kept.max()) == B and int((kept > 0).sum()) > 1
+
+
+@pytest.mark.parametrize("E, R", [(200, 172), (8192, 172), (2500, 7), (200, 0), (1, 172)])
+def test_store_commit_kernel_matches_plain(card, E, R):
+    """The TGN message-store commit into a state with random contents (the
+    dump row included): owners from a pool of E / 8 nodes (the last live one
+    among them), tied and unsorted times with some below -1, 20% invalid
+    events, self-loops and valid owners outside [0, N1 - 2]. Kernel and
+    plain version agree on all ten fields, the dump row and mem/last_update
+    are untouched, two runs are bit-equal, and a commit is one launch. R = 7
+    takes the scalar row copy; E = 2,500 crosses a 1,024-event tile."""
+    rng = np.random.default_rng(E + R)
+    num_nodes, N1 = 9227, 9228
+    up = lambda x: torch.as_tensor(x, device=card)
+    ints = lambda lo, hi: up(rng.integers(lo, hi, N1).astype(np.int32))
+    state = TGNMemoryState(
+        mem=up(rng.normal(size=(N1, 4)).astype(np.float32)), last_update=ints(0, 99),
+        s_other=ints(-1, num_nodes), s_t=ints(0, 99),
+        s_raw=up(rng.normal(size=(N1, R)).astype(np.float32)), s_valid=up(rng.random(N1) < 0.5),
+        d_other=ints(-1, num_nodes), d_t=ints(0, 99),
+        d_raw=up(rng.normal(size=(N1, R)).astype(np.float32)), d_valid=up(rng.random(N1) < 0.5))
+    pool = rng.choice(num_nodes, max(2, E // 8), replace=False)
+    pool[0] = num_nodes - 1
+    src, dst = (rng.choice(pool, E).astype(np.int32) for _ in range(2))
+    loop = rng.random(E) < 0.05
+    dst[loop] = src[loop]
+    bad = rng.random(E) < 0.02
+    src[bad] = rng.choice([-1, num_nodes, N1 + 5], int(bad.sum()))
+    t = rng.integers(100, 100 + max(2, E // 16), E).astype(np.int32)
+    t[rng.random(E) < 0.02] = -5
+    valid = rng.random(E) >= 0.2
+    cols = [up(src), up(dst), up(t), up(rng.normal(size=(E, R)).astype(np.float32)), up(valid)]
+    fresh = lambda: TGNMemoryState(*(x.clone() for x in state))
+    got, again, want = fresh(), fresh(), fresh()
+    before = tgn_store_commit.launches
+    tgn_store_commit(got, *cols)
+    assert tgn_store_commit.launches == before + 1
+    tgn_store_commit(again, *cols)
+    tgn_store_commit_plain(want, *cols)
+    torch.cuda.synchronize()
+    for g, a, w, s in zip(got, again, want, state):
+        assert torch.equal(g, w) and torch.equal(g, a)
+        assert torch.equal(g[N1 - 1], s[N1 - 1])  # the dump row
+    assert torch.equal(got.mem, state.mem) and torch.equal(got.last_update, state.last_update)
+    if E > 1:  # winners wrote times above the state's
+        assert not torch.equal(got.s_t, state.s_t) and not torch.equal(got.d_t, state.d_t)
 
 
 @pytest.mark.parametrize("k_of", ["3", "B"])

@@ -58,6 +58,32 @@
 // undirected events, E2 = 400) the plan is 160,000 compares and the writes
 // a few kilobytes; the DyGFormer push adds 400 feature rows of 688 bytes,
 // 0.28 MB. Both are far under a microsecond of the card's published rates.
+//
+// tgn_store_commit: the whole TGN LastAggregator message store of a batch
+// (tgm_tpu/nn/encoder/tgn.py, tgn_store_messages), planned and written on
+// the card in one launch. On the TPU the winners are planned by XLA (two
+// segment_max per role) and K3 writes only the four int32 stores; the fp32
+// raw rows and the valid flags stay XLA scatters. Here one warp per (event,
+// role), 2E warps: the CTA stages (owner, time) of the role's events through
+// shared memory in tiles, as the push does, and the warp's lanes test
+// whether any event of the same owner beats it: a later time, or the same
+// time at an earlier batch position (the JAX plan's max time, then earliest
+// position, integer for integer). A warp whose event is beaten stops
+// comparing after the tile that showed it. The winner of each live owner
+// writes `other` (dst for the src role, src for the dst role), `t`, the valid
+// flag and its raw row, copied float4 per lane when R % 4 == 0 and the rows
+// are 16-byte aligned. Invalid events, owners outside [0, N1 - 2] and times
+// below -1 (the JAX plan's segment_max floor) never win. The plan reads
+// only the batch and each live (row, role) has one writer, so one launch
+// has no race, no atomics and a deterministic result; the dump row and rows
+// without a winner are never written.
+//
+// What bounds it on an H100: the launch. At the TGN serving shape (E =
+// 200, R = 172) it reads 2.6 KB of ids, times and flags plus the winners'
+// raw rows and writes at most 400 store rows of 697 bytes, 0.3 MB: about
+// 0.1 µs at 3.35 TB/s. The plan is 2E * E = 80,000 compares. At large E the
+// plan's pair tests, one shared-memory load each, take over (1.3e8 at E =
+// 8,192); CTAs of the push's 8 warps keep the serving shape's launch small.
 
 #include <cuda_runtime.h>
 
@@ -100,7 +126,7 @@ __global__ void store_scatter_1d_kernel(
 }
 
 constexpr int kThreads = 256;
-constexpr int kPushWarps = 8;    // events (one a warp) per CTA of plan_write
+constexpr int kPushWarps = 8;    // events (one a warp) per CTA of plan_write and store_commit
 constexpr int kPushTile = 1024;  // events staged in shared memory per pass
 
 // The E2 events of a push: event j < E is (src[j], dst[j]); for an
@@ -200,6 +226,66 @@ __global__ void recency_push_store_wp_kernel(int* __restrict__ write_pos,
   if (row >= 0) write_pos[row] = stash[2 * e + 1];
 }
 
+// One role's message store: (N1,) int32 other and t, (N1, R) fp32 raw rows,
+// (N1,) bool valid.
+struct StoreRole {
+  int* other;
+  int* t;
+  float* raw;
+  bool* valid;
+};
+
+// Grid (ceil(E / kPushWarps), 2): blockIdx.y is the role, 0 for the src-role
+// store and 1 for the dst-role store. In PushEvents numbering the role's
+// event i is role * E + i, so node() is its owner and nbr() its `other`.
+__global__ void __launch_bounds__(kPushWarps * 32) tgn_store_commit_kernel(
+    StoreRole src_store, StoreRole dst_store, PushEvents ev,
+    const float* __restrict__ raw_msg, int R, bool vec) {
+  __shared__ int2 tile[kPushTile];  // (owner, time) of the role's events [base, base + kPushTile)
+  const int role = blockIdx.y;
+  const int E = ev.E;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * kPushWarps + warp;
+  const int e = role * E + i;
+  const int owner = i < E ? ev.node(e) : ev.dump;  // invalid events own the dump row
+  const int t = i < E ? ev.time[i] : 0;
+  // Warp-uniform; idle warps still stage tiles. ev.dump is N1 - 1.
+  const bool live = owner >= 0 && owner < ev.dump && t >= -1;
+
+  bool beaten = false;  // warp-uniform: some event of this owner wins over i
+  for (int base = 0; base < E; base += kPushTile) {
+    const int n = min(kPushTile, E - base);
+    __syncthreads();  // every warp is done with the previous tile
+    for (int jj = threadIdx.x; jj < n; jj += blockDim.x) {
+      const int j = base + jj;
+      tile[jj] = make_int2(ev.node(role * E + j), ev.time[j]);
+    }
+    __syncthreads();
+    if (live && !beaten) {
+      bool b = false;
+      for (int jj = lane; jj < n; jj += 32) {
+        const int2 o = tile[jj];
+        b |= o.x == owner && (o.y > t || (o.y == t && base + jj < i));
+      }
+      beaten = __any_sync(0xffffffffu, b);
+    }
+  }
+  if (!live || beaten) return;
+  const StoreRole s = role ? dst_store : src_store;
+  if (lane == 0) s.other[owner] = ev.nbr(e);
+  if (lane == 1) s.t[owner] = t;
+  if (lane == 2) s.valid[owner] = true;
+  float* out = s.raw + static_cast<long long>(owner) * R;
+  const float* in = raw_msg + static_cast<long long>(i) * R;
+  if (vec) {
+    for (int q = lane; q < R / 4; q += 32)
+      reinterpret_cast<float4*>(out)[q] = reinterpret_cast<const float4*>(in)[q];
+  } else {
+    for (int q = lane; q < R; q += 32) out[q] = in[q];
+  }
+}
+
 }  // namespace
 
 extern "C" int scatter_cells(void* buf, const void* rows, const void* cols,
@@ -264,5 +350,28 @@ extern "C" int recency_push(void* ids, void* times, void* payload_buf, void* wri
   if (err != cudaSuccess) return static_cast<int>(err);
   recency_push_store_wp_kernel<<<(E2 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       static_cast<int*>(write_pos), stash_p, E2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The eight store tensors are written in place; raw rows are R fp32 wide
+// (R may be 0); valid stores and the batch's valid are bool (one byte).
+extern "C" int tgn_store_commit(void* s_other, void* s_t, void* s_raw, void* s_valid,
+                                void* d_other, void* d_t, void* d_raw, void* d_valid,
+                                const void* src, const void* dst, const void* time,
+                                const void* raw_msg, const void* valid, int E, int N1, int R,
+                                void* stream) {
+  const PushEvents ev{static_cast<const int*>(src), static_cast<const int*>(dst),
+                      static_cast<const int*>(time), static_cast<const bool*>(valid), E,
+                      N1 - 1};
+  const StoreRole src_store{static_cast<int*>(s_other), static_cast<int*>(s_t),
+                            static_cast<float*>(s_raw), static_cast<bool*>(s_valid)};
+  const StoreRole dst_store{static_cast<int*>(d_other), static_cast<int*>(d_t),
+                            static_cast<float*>(d_raw), static_cast<bool*>(d_valid)};
+  const bool vec = R % 4 == 0 && reinterpret_cast<std::uintptr_t>(s_raw) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(d_raw) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(raw_msg) % 16 == 0;
+  const dim3 grid((E + kPushWarps - 1) / kPushWarps, 2);
+  tgn_store_commit_kernel<<<grid, kPushWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      src_store, dst_store, ev, static_cast<const float*>(raw_msg), R, vec);
   return static_cast<int>(cudaGetLastError());
 }

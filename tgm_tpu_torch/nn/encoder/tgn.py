@@ -4,8 +4,9 @@
   message-store slot per node and role (src->dst, dst->src); row N is the dump
   row. Exact for the LastAggregator, since stores are overwritten per batch.
 * ``tgn_store_messages``: per node and role, the earliest batch position
-  among the max-time messages wins. Its int32 stores go through kernel K3;
-  the state's tensors are updated in place.
+  among the max-time messages wins. The whole store, planned and written,
+  is one launch of ``ops.tgn_store_commit``; the state's tensors are
+  updated in place.
 * ``TGNMemory``: Time2Vec + GRU message update with ``stage`` (eval mode
   returns stored rows), ``flush`` and ``flush_all``.
 * ``GraphAttentionEmbeddingRowwise``: each seed attends over its own K
@@ -24,8 +25,7 @@ from torch import nn
 
 from ...constants import PADDED_NODE_ID
 from ...device import DeviceLike, resolve_device
-from ...ops.scatter_cells import tgn_store_scatter_1d
-from ...ops.segment import segment_max
+from ...ops.scatter_cells import tgn_store_commit
 from ..modules.gru import TorchGRUCell
 from ..modules.time_encoding import Time2Vec
 
@@ -81,39 +81,11 @@ def tgn_store_messages(
     """Overwrite per-node message stores with this batch's events, in place.
 
     Keeps, per node and role, the earliest-position message among those with
-    the maximum timestamp (the LastAggregator's choice).
+    the maximum timestamp (the LastAggregator's choice). ``src``, ``dst``,
+    ``t`` are (E,) int32, ``raw_msg`` (E, R) float32, ``valid`` (E,) bool;
+    the dump row is left as it was (see ``ops.tgn_store_commit``).
     """
-    n = state.mem.shape[0] - 1
-    E = t.shape[0]
-    t = t.int()
-    idx = torch.arange(E, dtype=torch.int32, device=t.device)
-
-    def plan(owner):
-        rows = torch.where(valid, owner, n)
-        tmax = segment_max(t, rows, n + 1, mask=valid, initial=-1)
-        is_max = valid & (t == tmax[rows.long()])
-        # Earliest batch position among the max-time messages, as an integer
-        # max over -idx (the JAX code takes the same max in float).
-        first = -segment_max(-idx, rows, n + 1, mask=is_max, initial=-E)
-        winner = is_max & (idx == first[rows.long()])
-        return winner, torch.where(winner, rows, n).int()
-
-    win_s, w_s = plan(src)
-    win_d, w_d = plan(dst)
-    tgn_store_scatter_1d(
-        state.s_other, state.s_t, state.d_other, state.d_t,
-        w_s, dst.int(), t, w_d, src.int(), t, last_live_row=n - 1,
-    )
-    for winner, w_rows, store_raw, store_valid in (
-        (win_s, w_s, state.s_raw, state.s_valid),
-        (win_d, w_d, state.d_raw, state.d_valid),
-    ):
-        rows = w_rows.long()
-        store_raw.index_put_((rows,), raw_msg)
-        store_raw[n] = 0.0
-        store_valid.index_put_((rows,), winner)
-        store_valid[n] = False
-    return state
+    return tgn_store_commit(state, src, dst, t, raw_msg, valid)
 
 
 class TGNMemory(nn.Module):

@@ -20,6 +20,8 @@ from .scatter_cells import (
     recency_push_plain,
     scatter_cells,
     scatter_cells_plain,
+    tgn_store_commit,
+    tgn_store_commit_plain,
     tgn_store_scatter_1d,
     tgn_store_scatter_1d_plain,
 )
@@ -42,6 +44,8 @@ __all__ = [
     "scatter_cells_plain",
     "segment_max",
     "stack_weights",
+    "tgn_store_commit",
+    "tgn_store_commit_plain",
     "tgn_store_scatter_1d",
     "tgn_store_scatter_1d_plain",
     "transformer_stack_fwd",

@@ -1,17 +1,23 @@
-"""In-place state writes of the serving paths: the recency push, kernels K2
-and K3, and their plain versions.
+"""In-place state writes of the serving paths: the recency push, the TGN
+message-store commit, kernels K2 and K3, and their plain versions.
 
-Port of ``tgm_tpu/ops/pallas/scatter_cells.py`` and of the push that calls
-it (``tgm_tpu/hooks/neighbors.py::_recency_push`` with its dense plan).
+Port of ``tgm_tpu/ops/pallas/scatter_cells.py`` and of the code that calls
+it: the push (``tgm_tpu/hooks/neighbors.py::_recency_push`` with its dense
+plan) and the TGN store (``tgm_tpu/nn/encoder/tgn.py::tgn_store_messages``).
 Where the JAX functions return new arrays, these write into the tensors they
 are given and return them: the callers' state tensors are updated in place.
 
 * ``recency_push``: one ring-buffer push of a batch of events, planned and
   written on the card (two launches of ``csrc/scatter_cells.cu``), for both
   recency state layouts. This is what the hook runs.
+* ``tgn_store_commit``: the whole TGN LastAggregator message store of a
+  batch, planned and written on the card in one launch. This is what
+  ``tgn_store_messages`` runs.
 * ``scatter_cells`` (K2): the Pallas function's own contract, one int32
   plane's cell scatter. Off the serving paths since the push kernel.
-* ``tgn_store_scatter_1d`` (K3): the four TGN message-store writes.
+* ``tgn_store_scatter_1d`` (K3): the Pallas function's own contract, the
+  four int32 TGN message-store writes. Off the serving paths since the
+  store-commit kernel.
 
 On CUDA tensors the wrappers launch the hand-written kernels; on CPU tensors
 they run the plain versions. Both skip targets at the last row (the dump row)
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _native
+from .segment import segment_max
 
 
 def _require_int32(device: torch.device, **tensors: torch.Tensor) -> None:
@@ -286,3 +293,89 @@ def tgn_store_scatter_1d(s_other, s_t, d_other, d_t, rows_s, vals_s_other, vals_
 
 
 tgn_store_scatter_1d.launches = 0
+
+# The message-store fields of a TGN memory state that the commit writes.
+STORE_FIELDS = ("s_other", "s_t", "s_raw", "s_valid", "d_other", "d_t", "d_raw", "d_valid")
+
+
+def tgn_store_commit_plain(state, src, dst, t, raw_msg, valid):
+    """Plain version of ``tgn_store_commit``: per role, the winners by two
+    ``segment_max`` calls (the JAX plan), then K3's plain stores and masked
+    ``index_put_`` writes of the raw rows and valid flags."""
+    N1 = state.s_other.shape[0]
+    n = N1 - 1
+    E = t.shape[0]
+    idx = torch.arange(E, dtype=torch.int32, device=t.device)
+
+    def plan(owner):
+        live = valid & (owner >= 0) & (owner < n)
+        rows = torch.where(live, owner, n)
+        tmax = segment_max(t, rows, N1, mask=live, initial=-1)
+        is_max = live & (t == tmax[rows.long()])
+        # Earliest batch position among the max-time messages, as an integer
+        # max over -idx (the JAX code takes the same max in float).
+        first = -segment_max(-idx, rows, N1, mask=is_max, initial=-E)
+        winner = is_max & (idx == first[rows.long()])
+        return winner, torch.where(winner, rows, n)
+
+    win_s, w_s = plan(src)
+    win_d, w_d = plan(dst)
+    tgn_store_scatter_1d_plain(state.s_other, state.s_t, state.d_other, state.d_t,
+                               w_s, dst, t, w_d, src, t, n - 1)
+    for winner, rows, store_raw, store_valid in ((win_s, w_s, state.s_raw, state.s_valid),
+                                                 (win_d, w_d, state.d_raw, state.d_valid)):
+        _put_live(store_raw, (rows,), winner, raw_msg)
+        _put_live(store_valid, (rows,), winner, winner)
+    return state
+
+
+def tgn_store_commit(state, src: torch.Tensor, dst: torch.Tensor, t: torch.Tensor,
+                     raw_msg: torch.Tensor, valid: torch.Tensor):
+    """Store a batch's TGN messages, in place on a ``TGNMemoryState``.
+
+    Per role (the src role into ``s_*``, the dst role into ``d_*``), among
+    the valid events whose owner lies in [0, N1 - 2], the event with the
+    largest time wins, the earliest batch position on equal times (the
+    LastAggregator's choice, as ``tgm_tpu``'s ``tgn_store_messages``). The
+    winner writes its counterpart (``dst`` for the src role, ``src`` for the
+    dst role), its time, its ``raw_msg`` row and ``valid = True``. Rows
+    without a winner, the dump row N1 - 1 and ``mem``/``last_update`` are
+    not written. ``src``, ``dst``, ``t`` are (E,) int32, ``raw_msg`` (E, R)
+    float32 (R may be 0), ``valid`` (E,) bool. On CUDA tensors one launch
+    plans and writes everything and ``tgn_store_commit.launches`` counts it;
+    on CPU tensors it runs the plain version. Returns ``state``.
+    """
+    N1 = state.s_other.shape[0]
+    E = t.shape[0]
+    if raw_msg.dim() != 2:
+        raise ValueError(f"raw_msg must be (E, R), got shape {tuple(raw_msg.shape)}")
+    R = raw_msg.shape[1]
+    dev = state.s_other.device
+    stores = [getattr(state, name) for name in STORE_FIELDS]
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    specs = list(zip(STORE_FIELDS, stores, (i32, i32, f32, b) * 2,
+                     ((N1,), (N1,), (N1, R), (N1,)) * 2))
+    specs += [("src", src, i32, (E,)), ("dst", dst, i32, (E,)), ("t", t, i32, (E,)),
+              ("raw_msg", raw_msg, f32, (E, R)), ("valid", valid, b, (E,))]
+    for name, x, dtype, shape in specs:
+        if x.shape != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if dev.type == "cpu":
+        return tgn_store_commit_plain(state, src, dst, t, raw_msg, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(x.is_contiguous() for x in stores):
+        raise ValueError("the stores must be contiguous: the kernel writes them in place")
+    if E == 0:
+        return state
+    ins = [x.contiguous() for x in (src, dst, t, raw_msg, valid)]
+    _native.launch("scatter_cells", "tgn_store_commit", [*stores, *ins], [E, N1, R])
+    tgn_store_commit.launches += 1
+    return state
+
+
+tgn_store_commit.launches = 0

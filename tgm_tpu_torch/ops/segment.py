@@ -1,7 +1,8 @@
 """Segment primitives (port of ``tgm_tpu/ops/segment.py``).
 
-Only ``segment_max`` is on the serving path (the TGN LastAggregator's winner
-plan). The other segment ops are queued in ROADMAP.md.
+Only ``segment_max`` is ported: the plain version of ``tgn_store_commit``
+plans the TGN LastAggregator's winners with it. The other segment ops are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ def segment_max(
 ) -> torch.Tensor:
     """Per-segment max of ``data``; empty segments and masked entries give ``initial``.
 
-    ``initial`` takes ``data``'s dtype, so integer data stays integer.
+    ``initial`` takes ``data``'s dtype, so integer data stays integer. It is
+    passed as a Python scalar, never a host tensor, so a CUDA graph can
+    capture the call.
     """
     ids = segment_ids.long()
     if mask is not None:
-        data = torch.where(mask, data, torch.as_tensor(initial, dtype=data.dtype))
+        data = torch.where(mask, data, initial)
         ids = torch.where(mask, ids, num_segments)
     out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), initial,
                      dtype=data.dtype, device=data.device)
