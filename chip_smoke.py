@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
 
-Drives the port's two serving paths through the hook API, TGN and
-DyGFormer streaming link-prediction inference, and its hand-written CUDA
-kernels, in phases:
+Drives the port's paths through the hook API (TGN and DyGFormer streaming
+link-prediction inference, and TGN link-prediction training) and its
+hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -44,10 +44,23 @@ kernels, in phases:
               same weights and candidates: recency state exact (the fp32
               feature buffer included), embeddings within 5e-3 * max |z|,
               per-batch MRR sums within 0.5.
-8. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+8. train:     one TGN train epoch over the train split (550 batches at seed 0)
+              at the serve phase's width: random negatives, dropout 0.1 drawn
+              from a CUDA generator seeded by ``--seed``, BCE, Adam (lr
+              1e-4), the train-mode memory commit; then ``flush_all`` and a
+              val eval. Train ms per batch and edges/s, the first and last
+              loss, val MRR, peak device memory, each kernel's launches, and
+              one batch split into hook step, forward+backward, commit and
+              optimizer step (medians over 50 batches, µs from Python).
+9. train-agree: the first 10 train batches on the card and on the CPU with
+              the same weights and seeded negatives, no dropout (no
+              generator in the carry): recency
+              state and integer memory fields exact, the first loss within
+              1e-5 and every loss within 5e-3.
+10. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs (torch.profiler;
-              last, so no serve phase runs after the profiler).
+              last, so no serve or train phase runs after the profiler).
               ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
 
@@ -87,6 +100,10 @@ DYG = dict(node_feat_dim=1, edge_x_dim=WIKI_EDGE_DIM, time_feat_dim=100,
            max_input_sequence_length=32)
 DYG_NBRS = 20
 DYG_AGREE_BATCHES = 2
+TRAIN_LR = 1e-4  # the TGN example's default
+TRAIN_DROPOUT = 0.1
+TRAIN_AGREE_BATCHES = 10
+SPLIT_BATCHES = 50  # train batches timed stage by stage
 K5_TIMING_ITERS = 10  # K5 runs for milliseconds: events around eager calls suffice
 K5_TOL = 5e-3  # max |kernel - plain| <= K5_TOL * max |plain|
 
@@ -788,10 +805,10 @@ def build_stream(seed: int):
     t = np.sort(rng.integers(0, 2_678_373, size=WIKI_EDGES))
     edge_x = rng.normal(size=(WIKI_EDGES, WIKI_EDGE_DIM)).astype(np.float32)
     data = DGData.from_raw(t, np.stack([src, dst], 1).astype(np.int32), edge_x, time_delta="s")
-    _, val, test = data.split()
+    train, val, test = data.split()
     cands = {name: rng.choice(WIKI_NODES, size=(d.num_edge_events, NUM_CANDIDATES), p=pop)
              for name, d in (("val", val), ("test", test))}
-    return data, val, test, cands
+    return data, train, val, test, cands
 
 
 def make_models(seed: int):
@@ -800,7 +817,7 @@ def make_models(seed: int):
     torch.manual_seed(seed)
     memory = TGNMemory(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS)
     encoder = GraphAttentionEmbeddingRowwise(DIMS, DIMS, WIKI_EDGE_DIM, DIMS, n_heads=2,
-                                             dropout=0.1)
+                                             dropout=TRAIN_DROPOUT)
     decoder = LinkPredictor(node_dim=DIMS, hidden_dim=DIMS)
     return [m.eval() for m in (memory, encoder, decoder)]
 
@@ -819,7 +836,8 @@ def make_pipeline(data, cands, models, device):
         edge_x_full=data.edge_x, device=device,
     )
     hm.register_shared(rec)
-    eval_core = build_tgn_hook_cores(memory, encoder, decoder, WIKI_NODES)
+    _, eval_core = build_tgn_hook_cores(memory, encoder, decoder, None, WIKI_NODES,
+                                        style="rowwise")
     return hm, rec, memory, eval_core
 
 
@@ -1044,6 +1062,161 @@ def dyg_agree_phase(val, cands, models, dev, card):
                      f"card {g_s:.1f} s, CPU {c_s:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------- #
+# The TGN train path
+# ---------------------------------------------------------------------- #
+def make_train_pipeline(data, train, cands, models, device, seed: int):
+    """Hooks (random negatives on ``train``, TGB candidates on ``val``, the
+    shared eid-layout recency hook), Adam and the rowwise cores, as the TGN
+    example builds them."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import (
+        HookManager,
+        RandomNegativeEdgeSamplerHook,
+        RecencyNeighborHook,
+        TGBNegativeEdgeSamplerHook,
+    )
+    from tgm_tpu_torch.train import build_tgn_hook_cores
+
+    memory, encoder, decoder = (m.to(device) for m in models)
+    dst = DGraph(train).edge_dst
+    hm = HookManager(keys=["train", "val"])
+    hm.register("train", RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()),
+                                                       device=device, seed=seed))
+    hm.register("val", TGBNegativeEdgeSamplerHook(cands["val"], device=device))
+    rec = RecencyNeighborHook(
+        WIKI_NODES, [NUM_NBRS], ["edge_src", "edge_dst", "neg"],
+        ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
+        edge_x_full=data.edge_x, device=device,
+    )
+    hm.register_shared(rec)
+    opt = torch.optim.Adam([p for m in (memory, encoder, decoder) for p in m.parameters()],
+                           lr=TRAIN_LR)
+    train_core, eval_core = build_tgn_hook_cores(memory, encoder, decoder, opt, WIKI_NODES,
+                                                 style="rowwise")
+    return hm, rec, memory, opt, train_core, eval_core
+
+
+def train_phase(data, train, val, cands, seed: int, dev, card: str):
+    """One train epoch, ``flush_all``, a val eval, then the stage split."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
+
+    models = make_models(seed)
+    hm, _, memory, opt, train_core, eval_core = make_train_pipeline(data, train, cands, models,
+                                                                    dev, seed)
+    dg, vdg = DGraph(train), DGraph(val)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    mem_state = memory.init_state(dev)
+    epoch, states = hook_epoch(stream, hm, "train", dg, train_core)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernel_wrappers():
+        f.launches = 0
+    t0 = time.perf_counter()
+    (mem_state, generator), states, losses = epoch((mem_state, generator), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kernel_wrappers()}
+    peak = torch.cuda.max_memory_allocated()
+    hm.adopt_states("train", states)
+    n = stream.num_batches
+    check_launches("TGN train", launches, {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES,
+                                           "tgn_store_commit": 1}, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"train losses not finite or of the wrong shape: {losses}")
+    mem_state = memory.flush_all(mem_state)
+    vstream = DeviceEdgeStream(vdg, BATCH, device=dev)
+    epoch, states = hook_epoch(vstream, hm, "val", vdg, eval_core)
+    mem_state, states, (s, c) = epoch(mem_state, states)
+    val_mrr = float(s.sum() / c.sum())
+    if not (np.isfinite(val_mrr) and 0.0 < val_mrr <= 1.0):
+        raise AssertionError(f"val MRR after training out of range: {val_mrr}")
+    if not torch.isfinite(mem_state.mem).all():
+        raise AssertionError("non-finite memory after training")
+    log("train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                 f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                 f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                 f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; val_mrr after "
+                 f"flush_all={val_mrr:.6f}; max_memory_allocated={peak / 2**30:.3f} GiB; "
+                 f"launches={launches} per_batch={ {k: v / n for k, v in launches.items()} } "
+                 f"[{card}]")
+
+    # Where one batch's time goes: each stage ends in a synchronize, so a
+    # stage's time is its Python dispatch and its card work.
+    hm.reset_state()
+    fn, states = hm.as_transform("train", dg)
+    mem_state = memory.init_state(dev)
+    stages = {k: [] for k in ("hook", "forward_backward", "commit", "optimizer")}
+    for i in range(SPLIT_BATCHES):
+        b = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        _, staged = train_core.loss_and_grad(mem_state, batch, generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        mem_state = train_core.commit(mem_state, batch, staged)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log("train", f"one batch split, medians over {SPLIT_BATCHES} batches, us from Python with a "
+                 f"synchronize after each stage: " + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f} [{card}]")
+    return launches
+
+
+def train_agree_phase(data, train, cands, seed: int, dev, card: str):
+    """The first train batches on the card and on the CPU; no generator in
+    the carry, so no dropout."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    base = make_models(seed)
+    dg = DGraph(train)
+    runs = []  # the card's run, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        mods = [copy.deepcopy(m) for m in base]
+        hm, rec, memory, _, train_core, _ = make_train_pipeline(data, train, cands, mods, device,
+                                                                seed)
+        stream = DeviceEdgeStream(dg, BATCH, device=device)
+        fn, states = hm.as_transform("train", dg)
+        mem_state = memory.init_state(device)
+        losses = []
+        for i in range(TRAIN_AGREE_BATCHES):
+            states, batch = fn(states, stream.batch_at(i))
+            (mem_state, _), loss = train_core((mem_state, None), batch)
+            losses.append(float(loss))
+        # The recency buffers are updated in place: the hook's state is the final one.
+        runs.append(([t.cpu() for t in rec.state], mem_state, losses,
+                     [p.detach().cpu() for m in mods for p in m.parameters()]))
+    (g_rec, g_mem, g_loss, g_w), (c_rec, c_mem, c_loss, c_w) = runs
+    for name, g, c in zip(("nbr_ids", "nbr_times", "nbr_eids", "write_pos"), g_rec, c_rec):
+        if not torch.equal(g, c):
+            raise AssertionError(f"train: recency {name} differs between card and CPU")
+    for name in ("last_update", "s_other", "s_t", "s_valid", "d_other", "d_t", "d_valid"):
+        if not torch.equal(getattr(g_mem, name).cpu(), getattr(c_mem, name)):
+            raise AssertionError(f"train: memory state {name} differs between card and CPU")
+    loss_err = [abs(a - b) for a, b in zip(g_loss, c_loss)]
+    mem_err = float((g_mem.mem.cpu() - c_mem.mem).abs().max())
+    w_err = max(float((g - c).abs().max()) for g, c in zip(g_w, c_w))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3):
+        raise AssertionError(f"train card vs CPU losses: {g_loss} against {c_loss}")
+    log("train-agree", f"{TRAIN_AGREE_BATCHES} train batches: recency and integer memory state "
+                       f"exact, first-loss diff {loss_err[0]:.3g}, max loss diff "
+                       f"{max(loss_err):.3g}, max |mem| diff {mem_err:.3g}, max |weight| diff "
+                       f"{w_err:.3g} (card losses {g_loss}, CPU {c_loss}) [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1087,7 +1260,7 @@ def main() -> int:
     hook_step_phase(args.seed, dev, card)
 
     t0 = time.perf_counter()
-    data, val, test, cands = build_stream(args.seed)
+    data, train, val, test, cands = build_stream(args.seed)
     models = make_models(args.seed)
     log("serve", f"stream {WIKI_NODES} nodes, {WIKI_EDGES} edges, edge dim {WIKI_EDGE_DIM}, "
                  f"val {val.num_edge_events} / test {test.num_edge_events} edges, "
@@ -1100,14 +1273,16 @@ def main() -> int:
          "transformer_stack_fwd": report["transformer_stack_fwd"]["ms"],
          "recency_push": report["recency_push"]["dygformer_ms"]})
     dyg_agree_phase(val, cands, dyg_models, dev, card)
+    train_launches = train_phase(data, train, val, cands, args.seed, dev, card)
+    train_agree_phase(data, train, cands, args.seed, dev, card)
     # Last: once torch.profiler has traced the card, later launches in this
-    # process may cost more, so no serve phase may follow it.
+    # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
 
     # name: (source, Pallas function replaced, launches in the serve runs: TGN for
     # K1, the push and the store commit, DyGFormer for K4 and K5). K1 is one
     # kernel behind two wrappers; the single-buffer scatter_cells and K3 are
-    # off both paths.
+    # off the serving and train paths.
     kernels_of = {
         "recency_eid_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:209",
                                launches["recency_eid_select"]
@@ -1126,8 +1301,11 @@ def main() -> int:
         "transformer_stack_fwd": (K5_SRC, "tgm_tpu/ops/pallas/dyg_transformer.py:167",
                                   dyg_launches["transformer_stack_fwd"]),
     }
+    # launches_tgn_train: the train epoch's launches (K1 through its fused wrapper).
+    train_count = dict(train_launches, recency_eid_select=train_launches["recency_eid_select"]
+                       + train_launches["recency_window_select_eid"])
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": count, **report[name]}
+                "launches": count, "launches_tgn_train": train_count[name], **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]
     kernels[0]["also_replaces"] = "tgm_tpu/ops/pallas/recency_select.py:156"
     kernels[1]["launches_dygformer_serve"] = dyg_launches["recency_push"]

@@ -23,6 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") or m.startswith("tgm_tpu."))
 assert not bad, bad
 assert len(names) > 20, names
+assert "tgm_tpu_torch.examples.linkproppred.tgn" in names, names
 print("imported", len(names))
 """
 

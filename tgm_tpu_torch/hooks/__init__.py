@@ -1,7 +1,7 @@
 from .base import BaseDGHook, DGHook, SeedableHook, StatefulHook, StatelessHook
 from .dedup import candidate_rows, map_to_local, seed_lookup
 from .manager import HookManager
-from .negatives import TGBNegativeEdgeSamplerHook
+from .negatives import RandomNegativeEdgeSamplerHook, TGBNegativeEdgeSamplerHook
 from .neighbors import RecencyNeighborHook
 from .registry import hook, list_hooks
 
@@ -9,6 +9,7 @@ __all__ = [
     "BaseDGHook",
     "DGHook",
     "HookManager",
+    "RandomNegativeEdgeSamplerHook",
     "RecencyNeighborHook",
     "SeedableHook",
     "StatefulHook",

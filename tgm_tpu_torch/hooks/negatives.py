@@ -1,9 +1,14 @@
-"""TGB evaluation negatives (port of ``tgm_tpu/hooks/negatives.py``).
+"""Negative edge samplers (port of ``tgm_tpu/hooks/negatives.py``).
 
-``TGBNegativeEdgeSamplerHook`` serves pre-generated per-edge candidate lists
-in order, given as a dense ``(E_eval, Q)`` array. Loading them from the TGB
-package, the THG/TKG variants and the training samplers are queued in
-ROADMAP.md.
+* ``RandomNegativeEdgeSamplerHook``: uniform random destination ids in
+  [low, high) for training, ``neg_time = edge_time``.
+* ``TGBNegativeEdgeSamplerHook`` serves pre-generated per-edge candidate
+  lists in order, given as a dense ``(E_eval, Q)`` array.
+
+Random draws come from seeded CPU ``torch.Generator`` objects and are moved
+to the hook's device, so the card and the CPU see the same numbers. Loading
+candidates from the TGB package, the THG/TKG variants and the historical
+sampler are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,6 +41,72 @@ def unique_padded(x: torch.Tensor) -> torch.Tensor:
     first[1:] = s[1:] != s[:-1]
     s, _ = torch.sort(torch.where(first, s, _INT32_MAX))
     return torch.where(s == _INT32_MAX, PADDED_NODE_ID, s)
+
+
+@hook
+class RandomNegativeEdgeSamplerHook(StatefulHook):
+    """Uniform random negative destinations for link-prediction training.
+
+    Each batch of B edges gets ``size = max(1, round(neg_ratio * B))`` ids
+    uniform in [low, high) (``high`` exclusive), PAD where the batch row is
+    padding, with ``neg_time = edge_time[:size]`` and ``neg_valid =
+    edge_valid[:size]``. The state is the seeded generator :meth:`draw_neg`
+    draws from; ``reset_state`` re-seeds it.
+    """
+
+    _cls_requires = {"edge_src", "edge_dst", "edge_time"}
+    _cls_produces = {"neg", "neg_time"}
+
+    def __init__(
+        self,
+        low: int,
+        high: int,
+        neg_ratio: float = 1.0,
+        device: DeviceLike = None,
+        seed: int = 0,
+        id: Optional[str] = None,
+    ) -> None:
+        super().__init__(id=id)
+        if not 0 < neg_ratio <= 1:
+            raise ValueError(f"neg_ratio must be in (0, 1], got: {neg_ratio}")
+        if not low < high:
+            raise ValueError(f"low ({low}) must be strictly less than high ({high})")
+        self.low = low
+        self.high = high
+        self.neg_ratio = neg_ratio
+        self.device = resolve_device(device)
+        self._seed = seed
+        self._generator: Optional[torch.Generator] = None
+
+    def init_state(self, dg: Optional[DGraph] = None) -> Any:
+        self._generator = torch.Generator().manual_seed(self._seed)
+        return self._generator
+
+    def draw_neg(self, size: int) -> torch.Tensor:
+        """``size`` int32 ids uniform in [low, high), on the hook's device.
+
+        Tests replace this method to inject ids.
+        """
+        if self._generator is None:
+            self.init_state()
+        r = torch.randint(self.low, self.high, (size,), generator=self._generator,
+                          dtype=torch.int32)
+        return r.to(self.device)
+
+    def apply(self, state: Any, batch: DGBatch) -> Tuple[Any, DGBatch]:
+        size = max(1, round(self.neg_ratio * batch.edge_dst.shape[0]))
+        neg = self.draw_neg(size)
+        if batch.edge_valid is not None:
+            # A real id on a padded row would add a live seed to the batch.
+            neg = torch.where(batch.edge_valid[:size], neg, PADDED_NODE_ID)
+            self.add_batch_attribute(batch, "neg_valid", batch.edge_valid[:size])
+        self.add_batch_attribute(batch, "neg", neg)
+        self.add_batch_attribute(batch, "neg_time", batch.edge_time[:size])
+        return state, batch
+
+    def reset_state(self) -> None:
+        self.state = None
+        self._generator = None
 
 
 @hook

@@ -4,6 +4,7 @@ from .encoder.tgn import (
     GraphAttentionEmbeddingRowwise,
     TGNMemory,
     TGNMemoryState,
+    tgn_commit_staged,
     tgn_init_state,
     tgn_store_messages,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "Time2Vec",
     "TorchGRUCell",
     "dygformer_stack_layers",
+    "tgn_commit_staged",
     "tgn_init_state",
     "tgn_store_messages",
 ]

@@ -7,18 +7,22 @@
   among the max-time messages wins. The whole store, planned and written,
   is one launch of ``ops.tgn_store_commit``; the state's tensors are
   updated in place.
-* ``TGNMemory``: Time2Vec + GRU message update with ``stage`` (eval mode
-  returns stored rows), ``flush`` and ``flush_all``.
+* ``TGNMemory``: Time2Vec + GRU message update with ``stage`` (train mode
+  returns the staged rows, differentiable in the GRU and Time2Vec weights;
+  eval mode the stored rows), ``flush``, ``flush_all`` and ``store``.
+* ``tgn_commit_staged``: writes staged rows, detached, into the stored
+  memory (the train-mode commit of rows the forward already staged).
 * ``GraphAttentionEmbeddingRowwise``: each seed attends over its own K
-  recent neighbours as dense (S, K) products.
+  recent neighbours as dense (S, K) products, with dropout on the attention
+  weights drawn from an explicit generator.
 
-The mean aggregator, the packed state, ``tgn_commit_staged`` and the segment
+The mean aggregator, the packed state and the segment
 ``GraphAttentionEmbedding`` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -159,15 +163,9 @@ class TGNMemory(nn.Module):
 
     def flush(self, state: TGNMemoryState, nids: torch.Tensor) -> TGNMemoryState:
         """Apply pending messages for ``nids`` into stored memory, in place."""
-        n = state.mem.shape[0] - 1
         with torch.no_grad():
             new_mem, new_last = self._staged(state, nids)
-        rows = _safe_rows(nids, n)
-        state.mem.index_put_((rows,), new_mem)
-        state.mem[n] = 0.0
-        state.last_update.index_put_((rows,), new_last)
-        state.last_update[n] = 0
-        return state
+        return tgn_commit_staged(state, nids, new_mem, new_last)
 
     def flush_all(self, state: TGNMemoryState) -> TGNMemoryState:
         """Train->eval transition: flush every node, clear the stores."""
@@ -182,6 +180,42 @@ class TGNMemory(nn.Module):
     def forward(self, state: TGNMemoryState, nids: torch.Tensor):
         return self.stage(state, nids, training=True)
 
+    def store(self, state: TGNMemoryState, src: torch.Tensor, dst: torch.Tensor,
+              t: torch.Tensor, raw_msg: torch.Tensor, valid: torch.Tensor) -> TGNMemoryState:
+        """Message-store write of a batch, in place (LastAggregator)."""
+        return tgn_store_messages(state, src, dst, t, raw_msg, valid)
+
+
+def tgn_commit_staged(state: TGNMemoryState, nodes: torch.Tensor, st_mem: torch.Tensor,
+                      st_last: torch.Tensor) -> TGNMemoryState:
+    """Write staged (memory, last_update) rows for ``nodes`` into the stored
+    state, in place, then reset the dump row.
+
+    The flush-equivalent commit for callers that staged ``nodes`` in their
+    forward: a staged row is a per-row function of the pre-commit state, so
+    duplicate ids carry equal rows and the write order does not matter.
+    Invalid or out-of-range ids go to the dump row. ``st_mem`` is detached.
+    """
+    n = state.mem.shape[0] - 1
+    rows = _safe_rows(nodes, n)
+    with torch.no_grad():
+        state.mem.index_put_((rows,), st_mem.detach().to(state.mem.dtype))
+        state.mem[n] = 0.0
+        state.last_update.index_put_((rows,), st_last.to(state.last_update.dtype))
+        state.last_update[n] = 0
+    return state
+
+
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p, scaled by 1 / (1 - p);
+    the identity without a generator or at p = 0, zeros at p = 1."""
+    if generator is None or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
 
 class GraphAttentionEmbeddingRowwise(nn.Module):
     """Dense per-seed attention over each seed's K recent neighbours.
@@ -189,8 +223,11 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
     Query = seed memory; keys/values = neighbour memory plus a projection of
     [Time2Vec(relative time) | edge message]. Scores are laid out (S, K, H)
     (the JAX ``kmajor`` layout; its ``lanesv`` layout is the same math with
-    seeds on the TPU lanes). Dropout on the attention weights is active only
-    in training mode.
+    seeds on the TPU lanes). Dropout on the attention weights (after the
+    mask: keep with probability 1 - p, scale by 1 / (1 - p)) is drawn from the
+    ``generator`` passed to ``forward``, and only when one is passed and p >
+    0, so a train run is reproducible from its seed and a call without a
+    generator is deterministic whatever the module's train/eval mode.
     """
 
     def __init__(
@@ -214,7 +251,7 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
         self.lin_value = nn.Linear(in_channels, out_channels)
         self.lin_edge = nn.Linear(time_dim + msg_dim, out_channels, bias=False)
         self.lin_skip = nn.Linear(in_channels, out_channels)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
     def forward(
         self,
@@ -224,6 +261,7 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
         nbr_time: torch.Tensor,  # (S, K)
         nbr_msg: torch.Tensor,  # (S, K, msg_dim)
         nbr_valid: torch.Tensor,  # (S, K) bool
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         S, K = nbr_valid.shape
         H, C = self.n_heads, self.head_dim
@@ -241,7 +279,7 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
         logits = torch.einsum("shc,skhc->skh", q, k) * (C ** -0.5)
         logits = torch.where(mask, logits, -1e10)
         alpha = torch.softmax(logits, dim=1)
-        alpha = self.drop(torch.where(mask, alpha, 0.0))
+        alpha = _dropout(torch.where(mask, alpha, 0.0), self.dropout, generator)
         out = torch.einsum("skh,skhc->shc", alpha, v).reshape(S, self.out_channels)
         return out + self.lin_skip(x_seed)
 
@@ -250,6 +288,7 @@ __all__ = [
     "GraphAttentionEmbeddingRowwise",
     "TGNMemory",
     "TGNMemoryState",
+    "tgn_commit_staged",
     "tgn_init_state",
     "tgn_store_messages",
 ]

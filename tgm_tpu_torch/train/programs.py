@@ -1,26 +1,41 @@
-"""Per-batch serving programs (port of ``tgm_tpu/train/programs.py`` and of
-the DyGFormer example's ``eval_core``).
+"""Per-batch programs (port of ``tgm_tpu/train/programs.py`` and of the
+DyGFormer example's ``eval_core``).
 
-* TGN: stored memory of the seeds and their recency neighbours, rowwise
-  attention, ``LinkPredictor`` scores of the positives and the TGB
+* TGN train: staged memory of the seeds [src | dst | neg] and their recency
+  neighbours, rowwise attention with dropout, ``LinkPredictor`` scores of
+  the positives and the random negatives, masked BCE, backward, then the
+  train-mode memory commit (commit the staged src/dst rows, then store the
+  messages) with the old parameters, then the optimizer step.
+* TGN eval: stored memory of the seeds and their recency neighbours,
+  rowwise attention, ``LinkPredictor`` scores of the positives and the TGB
   candidates, TGB MRR, then the eval-mode memory commit (store messages,
   then flush).
-* DyGFormer: the recency neighbour sequences of each (src, dst) and (src,
-  candidate) pair through the encoder, ``LinkPredictor`` scores, TGB MRR.
+* DyGFormer eval: the recency neighbour sequences of each (src, dst) and
+  (src, candidate) pair through the encoder, ``LinkPredictor`` scores, TGB
+  MRR.
 
-Inference only; the train steps are later slices of the port (ROADMAP.md).
+The memory state is updated in place. The segment-style TGN cores and the
+DyGFormer train step are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..constants import PADDED_NODE_ID
 from ..eval.metrics import mrr_sum_count
 from ..hooks.dedup import candidate_rows, seed_lookup
-from ..nn.encoder.tgn import TGNMemory, TGNMemoryState, tgn_store_messages
+from ..nn.encoder.tgn import TGNMemory, TGNMemoryState, tgn_commit_staged, tgn_store_messages
+
+
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy``, mean over ``mask`` (at least 1)."""
+    loss = -target * F.logsigmoid(logits) - (1.0 - target) * F.logsigmoid(-logits)
+    w = mask.to(loss.dtype)
+    return (loss * w).sum() / w.sum().clamp_min(1.0)
 
 
 def _raw_msg(batch) -> torch.Tensor:
@@ -32,6 +47,22 @@ def _raw_msg(batch) -> torch.Tensor:
 def _batch_nodes(batch, num_nodes: int) -> torch.Tensor:
     nodes = torch.cat([batch.edge_src, batch.edge_dst])
     return torch.where(torch.cat([batch.edge_valid, batch.edge_valid]), nodes, num_nodes)
+
+
+def tgn_train_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch, num_nodes: int,
+                     staged: Tuple[torch.Tensor, torch.Tensor]) -> TGNMemoryState:
+    """Train-mode memory update: apply the pending messages of the batch's
+    src and dst nodes, THEN store this batch's messages, in place.
+
+    ``staged``: the (memory, last_update) rows the forward staged for the
+    batch's src | dst seeds, which equal what ``flush`` would compute, so
+    committing them skips re-running the GRU. (The JAX function also
+    flushes when no staged rows are given; only its segment-style core,
+    not ported, does that.)
+    """
+    mem_state = tgn_commit_staged(mem_state, _batch_nodes(batch, num_nodes), *staged)
+    return memory.store(mem_state, batch.edge_src, batch.edge_dst, batch.edge_time,
+                        _raw_msg(batch), batch.edge_valid)
 
 
 def tgn_eval_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch,
@@ -49,45 +80,91 @@ def build_tgn_hook_cores(
     memory: TGNMemory,
     encoder: Any,
     decoder: Any,
+    opt: Optional[torch.optim.Optimizer],
     num_nodes: int,
-    style: str = "rowwise",
-    train: bool = False,
-) -> Callable:
-    """Return the rowwise ``eval_core``.
+    style: str = "segment",
+) -> Tuple[Callable, Callable]:
+    """Return the rowwise ``(train_core, eval_core)``.
 
-    ``eval_core(mem_state, batch) -> (mem_state, (mrr_sum, mrr_count))``,
-    with batches carrying the TGB hook's ``neg``/``neg_batch_list`` and the
-    recency hook's ``seed_nids``/``nbr_*`` products, seeds laid out
-    [src | dst | unique candidates]. The memory state is updated in place.
+    * ``train_core((mem_state, generator), batch) -> ((mem_state, generator),
+      loss)``; the JAX carry ``(params, opt_state, mem_state, rng)`` maps to
+      the modules' parameters, ``opt``'s state, ``mem_state`` and the
+      ``torch.Generator`` that draws the attention dropout (``None``: no
+      dropout). ``loss`` is detached. Batches carry the random-negative
+      hook's ``neg`` (B ids) and the recency hook's products, seeds laid out
+      [src | dst | neg].
+    * ``eval_core(mem_state, batch) -> (mem_state, (mrr_sum, mrr_count))``;
+      the JAX carry ``(params, mem_state)`` maps to the modules' parameters
+      and ``mem_state``. Batches carry the TGB hook's ``neg``/``neg_batch_list``
+      and the recency hook's products, seeds laid out [src | dst | unique
+      candidates]. No dropout, whatever the modules' train/eval mode.
+
+    ``opt`` is an optimizer over the three modules' parameters (``None`` for
+    eval-only callers; ``train_core`` then raises). ``train_core`` zeroes the
+    gradients in place and gives each of ``opt``'s parameters one, so every
+    parameter steps every time, as optax updates every leaf. ``train_core.loss_and_grad(mem_state, batch,
+    generator) -> (loss, staged)`` and ``train_core.commit(mem_state, batch,
+    staged)`` are its first two stages; ``opt.step()`` is the third. Only
+    ``style="rowwise"`` is ported.
     """
     if style != "rowwise":
         raise NotImplementedError(
             f"style={style!r}: only the rowwise cores are ported; the segment style "
-            "is queued in ROADMAP.md"
-        )
-    if train:
-        raise NotImplementedError(
-            "the TGN train step (BCE, Adam, random negatives, tgn_train_commit) is the "
-            "next slice of the port; see ROADMAP.md"
+            "is ROADMAP.md queue 1 item 6"
         )
 
-    def encode(mem_state, batch):
+    def encode(mem_state, batch, training: bool, generator=None):
         seeds = batch.seed_nids[0]  # (S,)
         nbrs = batch.nbr_nids[0]  # (S, K)
         S, K = nbrs.shape
         rows = torch.cat([seeds, nbrs.reshape(-1)])
-        z_mem, last_upd = memory.stage(mem_state, rows, training=False)
+        z_mem, last_upd = memory.stage(mem_state, rows, training=training)
         M = z_mem.shape[-1]
-        return encoder(
+        z = encoder(
             z_mem[:S], z_mem[S:].reshape(S, K, M), last_upd[:S],
             batch.nbr_edge_time[0], batch.nbr_edge_x[0], nbrs != PADDED_NODE_ID,
+            generator=generator,
         )
+        return z, (z_mem, last_upd)
+
+    def loss_and_grad(mem_state, batch, generator):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        B = batch.edge_src.shape[0]
+        opt.zero_grad(set_to_none=False)
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with torch.enable_grad():
+            z, (st_mem, st_last) = encode(mem_state, batch, True, generator)
+            pos = decoder(z[:B], z[B : 2 * B])
+            neg = decoder(z[:B], z[2 * B : 3 * B])
+            m = batch.edge_valid
+            loss = bce_with_logits(pos, torch.ones_like(pos), m) + bce_with_logits(
+                neg, torch.zeros_like(neg), m
+            )
+            loss.backward()
+        # Seed layout [src | dst | neg]: rows :2B are the commit set.
+        return loss.detach(), (st_mem[: 2 * B].detach(), st_last[: 2 * B])
+
+    def commit(mem_state, batch, staged):
+        return tgn_train_commit(memory, mem_state, batch, num_nodes, staged)
+
+    def train_core(carry, batch):
+        mem_state, generator = carry
+        loss, staged = loss_and_grad(mem_state, batch, generator)
+        # The reference order: the commit runs with the old parameters,
+        # before the optimizer step.
+        mem_state = commit(mem_state, batch, staged)
+        opt.step()
+        return (mem_state, generator), loss
 
     @torch.no_grad()
     def eval_core(mem_state, batch):
         B = batch.edge_src.shape[0]
         Q = batch.neg_batch_list.shape[1]
-        z = encode(mem_state, batch)
+        z, _ = encode(mem_state, batch, False)
         # Candidates live in the trailing unique-candidate seed section;
         # locate each candidate's row through the seed lookup.
         lut = seed_lookup(batch.seed_nids[0], num_nodes)
@@ -108,7 +185,9 @@ def build_tgn_hook_cores(
         mem_state = tgn_eval_commit(memory, mem_state, batch, num_nodes)
         return mem_state, (s, c)
 
-    return eval_core
+    train_core.loss_and_grad = loss_and_grad
+    train_core.commit = commit
+    return train_core, eval_core
 
 
 def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
@@ -168,4 +247,10 @@ def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
     return eval_core
 
 
-__all__ = ["build_dygformer_eval_core", "build_tgn_hook_cores", "tgn_eval_commit"]
+__all__ = [
+    "bce_with_logits",
+    "build_dygformer_eval_core",
+    "build_tgn_hook_cores",
+    "tgn_eval_commit",
+    "tgn_train_commit",
+]
