@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
-link-prediction inference, and TGN link-prediction training) and its
-hand-written CUDA kernels, in phases:
+link-prediction inference, and TGN link-prediction training), TGN through
+the fused ``TGNPipeline`` (train, eval, a checkpointed serving flow), and
+its hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -14,11 +15,13 @@ hand-written CUDA kernels, in phases:
               plain version's, a single PyTorch call's where one computes the
               same thing, and the least time the card could take (bound): K1
               on the ring state with the feature rows fused (S = 600 and
-              4,400) and on pre-gathered rows, the push into the TGN and
-              DyGFormer states (and at E2 = 8,192 events), the TGN store
-              commit (E = 200 and 8,192 events), the single-buffer K2, K3,
-              K4, K5; for K5 also the device time of each of its five kernels
-              per layer and their CTAs per SM.
+              4,400; and 4,400 over the pre-projected D = 100 table) and on
+              pre-gathered rows, the push into the TGN and DyGFormer states
+              (and at E2 = 8,192 events), the TGN store commit (E = 200 and
+              8,192 events), the single-buffer K2, K3, K4 (B = K = 20 at S =
+              600 and 4,400; B = K = 10 at S = 600, the pipeline's feature
+              layout), K5; for K5 also the device time of each of its five
+              kernels per layer and their CTAs per SM.
 3. hook-step: one ``RecencyNeighborHook.apply`` on a serving batch per state
               layout (eid: K = 10, TGN; feature: K = 20, DyGFormer), through
               the hook's public API only: µs per call from Python and device
@@ -57,7 +60,30 @@ hand-written CUDA kernels, in phases:
               generator in the carry): recency
               state and integer memory fields exact, the first loss within
               1e-5 and every loss within 5e-3.
-10. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+10. pipe-train: one train epoch through the fused ``TGNPipeline``
+              (``jit_scan_epoch`` over ``train_step``; ``bench.py``'s
+              configuration: the serve phase's width, Adam at 1e-4, no
+              dropout, eid layout): ms per batch, edges/s, first and last
+              loss, peak device memory, launches.
+11. pipe-eval: ``flush_all``, then val and test through ``eval_step`` with
+              20 candidates per edge and the pre-projected feature table
+              (``eval_proj_table``, D = 100): ms per batch, edges/s, MRR,
+              launches; then val again from the same state with the raw
+              features: counts equal, per-batch MRR sums within 1e-4.
+12. pipe-agree: the pipeline's first 10 train batches and 3 eval batches on
+              the card and on the CPU (same weights, the card's negatives
+              fed to the CPU): recency and integer memory state exact, the
+              first loss within 1e-5, every loss within 5e-3, MRR sums
+              within 1e-4; the pipeline against the hook path's
+              ``train_core`` on the card over 10 batches (integer state
+              exact, losses within 1e-6); 3 train batches in the feature
+              layout (K4 in the path), card against CPU.
+13. pipe-serve: the serving example's flow at full width in the feature
+              layout: 50 train batches, ``flush_all``, the carry saved,
+              restored into a fresh pipeline, val served from both (link
+              probabilities, then ``eval_step``): scores equal bit for bit,
+              events/s.
+14. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs (torch.profiler;
               last, so no serve or train phase runs after the profiler).
@@ -368,34 +394,41 @@ def torch_transformer(layers, num_heads: int, dev):
     return enc.to(dev).eval()
 
 
-def k4_phase(rng, dev, card: str):
-    """K4 at the DyGFormer train (600) and eval (4,400) seed counts, B = K = 20,
-    D = 172; the serving path runs the eval count, whose entry is reported."""
+def k4_case(rng, S: int, B: int, dev, card: str):
+    """K4 at S seeds, B = K slots, D = 172: exact against its plain version, timed."""
     from tgm_tpu_torch.ops.recency_select import (
         recency_window_select,
         recency_window_select_plain,
     )
 
-    B = K = DYG_NBRS
-    D = WIKI_EDGE_DIM
-    for S in (600, 2 * BATCH + BATCH * NUM_CANDIDATES):
-        ids, times, _, wp, qt = k1_inputs(rng, S, B, dev)
-        feats = torch.as_tensor(rng.normal(size=(S, B, D)).astype(np.float32), device=dev)
-        args = (ids, times, feats, wp, qt)
-        got = recency_window_select(*args, K)
-        want = recency_window_select_plain(*args, K)
-        torch.cuda.synchronize()
-        err = max(_max_abs_err(got[:2], want[:2]), float((got[2] - want[2]).abs().max()))
-        if err or not torch.equal(got[2], want[2]):
-            raise AssertionError(f"K4 differs from its plain version at S={S}: {err}")
-        selected = int((got[0] != -1).sum())
-        # Bytes: ids, times, wp, qt read; the selected feature rows read; all outputs written.
-        nbytes = 4 * (2 * S * B + 2 * S + 2 * S * K) + 4 * D * (selected + S * K)
-        entry = _time_and_report(
-            f"K4 recency_window_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K})",
-            lambda: recency_window_select(*args, K),
-            lambda: recency_window_select_plain(*args, K),
-            None, nbytes, 6 * S * B, err, card)
+    K, D = B, WIKI_EDGE_DIM
+    ids, times, _, wp, qt = k1_inputs(rng, S, B, dev)
+    feats = torch.as_tensor(rng.normal(size=(S, B, D)).astype(np.float32), device=dev)
+    args = (ids, times, feats, wp, qt)
+    got = recency_window_select(*args, K)
+    want = recency_window_select_plain(*args, K)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(got[:2], want[:2]), float((got[2] - want[2]).abs().max()))
+    if err or not torch.equal(got[2], want[2]):
+        raise AssertionError(f"K4 differs from its plain version at S={S} B={B}: {err}")
+    selected = int((got[0] != -1).sum())
+    # Bytes: ids, times, wp, qt read; the selected feature rows read; all outputs written.
+    nbytes = 4 * (2 * S * B + 2 * S + 2 * S * K) + 4 * D * (selected + S * K)
+    return _time_and_report(
+        f"K4 recency_window_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K})",
+        lambda: recency_window_select(*args, K),
+        lambda: recency_window_select_plain(*args, K),
+        None, nbytes, 6 * S * B, err, card)
+
+
+def k4_phase(rng, dev, card: str):
+    """K4 at the DyGFormer train (600) and eval (4,400) seed counts, B = K = 20,
+    D = 172, whose eval entry (the DyGFormer serving path) is reported; then
+    at the TGN pipeline's feature layout (S = 600, B = K = 10), reported
+    with the prefix ``tgn_feature``."""
+    k4_case(rng, 600, DYG_NBRS, dev, card)
+    entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
+    entry.update(_measured("tgn_feature", k4_case(rng, 600, NUM_NBRS, dev, card)))
     return entry
 
 
@@ -556,6 +589,38 @@ def store_commit_case(rng, E: int, dev, card: str):
         None, nbytes, 4 * 2 * E * E, err, card)
 
 
+def k1_fused_case(rng, S: int, edge_x, dev, card: str):
+    """Fused K1 (``recency_eid_select``) at S seeds over an (E, D) table:
+    exact against its plain version, timed."""
+    from tgm_tpu_torch.ops.recency_select import recency_eid_select, recency_eid_select_plain
+
+    B = K = NUM_NBRS
+    D = edge_x.shape[1]
+    state, seeds, qt = k1_state(rng, S, B, dev)
+    got = recency_eid_select(state, seeds, qt, K, edge_x)
+    want = recency_eid_select_plain(state, seeds, qt, K, edge_x)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"fused K1 differs from its plain version at S={S} D={D}: {err}")
+    eids = got[2]
+    selected = int((eids >= 0).sum())
+    edge_rows = int(torch.unique(eids[eids >= 0]).numel())
+    rows = int(torch.unique(torch.where((seeds >= 0) & (seeds < WIKI_NODES), seeds,
+                                        WIKI_NODES)).numel())
+    # Bytes: seeds and query times; each distinct row's ids, times and
+    # write_pos; the selected slots' edge ids; each distinct selected edge
+    # row; the (S, K) int outputs and the (S, K, D) features.
+    nbytes = 8 * S + 4 * rows * (2 * B + 1) + 4 * selected + 4 * D * edge_rows \
+        + 4 * S * K * (3 + D)
+    return _time_and_report(
+        f"K1 fused recency_eid_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K}, "
+        f"{edge_rows} distinct edge rows, {rows} distinct state rows)",
+        lambda: recency_eid_select(state, seeds, qt, K, edge_x),
+        lambda: recency_eid_select_plain(state, seeds, qt, K, edge_x),
+        None, nbytes, 6 * S * B, err, card)
+
+
 def kernel_phase(rng, dev, card: str):
     """K1-K3, the recency push and the TGN store commit at the serving shapes:
     exact against their plain versions, timed.
@@ -565,8 +630,6 @@ def kernel_phase(rng, dev, card: str):
     input read once and each output written once.
     """
     from tgm_tpu_torch.ops.recency_select import (
-        recency_eid_select,
-        recency_eid_select_plain,
         recency_window_select_eid,
         recency_window_select_eid_plain,
     )
@@ -579,36 +642,18 @@ def kernel_phase(rng, dev, card: str):
 
     report = {}
     B = K = NUM_NBRS
-    D = WIKI_EDGE_DIM
     eval_seeds = 2 * BATCH + BATCH * NUM_CANDIDATES
     # K1 on the ring state in place with the edge features fused, at the
     # train (600) and eval (4,400) seed counts; the serving path runs the
-    # eval count, whose entry is the one reported.
-    edge_x = torch.as_tensor(rng.normal(size=(WIKI_EDGES, D)).astype(np.float32), device=dev)
+    # eval count, whose entry is the one reported. Then at the eval count
+    # with the pre-projected (E, 100) table of the pipeline's eval route.
+    edge_x = torch.as_tensor(rng.normal(size=(WIKI_EDGES, WIKI_EDGE_DIM)).astype(np.float32),
+                             device=dev)
     for S in (600, eval_seeds):
-        state, seeds, qt = k1_state(rng, S, B, dev)
-        got = recency_eid_select(state, seeds, qt, K, edge_x)
-        want = recency_eid_select_plain(state, seeds, qt, K, edge_x)
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
-        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"fused K1 differs from its plain version at S={S}: {err}")
-        eids = got[2]
-        selected = int((eids >= 0).sum())
-        edge_rows = int(torch.unique(eids[eids >= 0]).numel())
-        rows = int(torch.unique(torch.where((seeds >= 0) & (seeds < WIKI_NODES), seeds,
-                                            WIKI_NODES)).numel())
-        # Bytes: seeds and query times; each distinct row's ids, times and
-        # write_pos; the selected slots' edge ids; each distinct selected
-        # edge row; the (S, K) int outputs and the (S, K, D) features.
-        nbytes = 8 * S + 4 * rows * (2 * B + 1) + 4 * selected + 4 * D * edge_rows \
-            + 4 * S * K * (3 + D)
-        report["recency_eid_select"] = _time_and_report(
-            f"K1 fused recency_eid_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K}, "
-            f"{edge_rows} distinct edge rows, {rows} distinct state rows)",
-            lambda: recency_eid_select(state, seeds, qt, K, edge_x),
-            lambda: recency_eid_select_plain(state, seeds, qt, K, edge_x),
-            None, nbytes, 6 * S * B, err, card)
+        report["recency_eid_select"] = k1_fused_case(rng, S, edge_x, dev, card)
+    proj = torch.as_tensor(rng.normal(size=(WIKI_EDGES, DIMS)).astype(np.float32), device=dev)
+    report["recency_eid_select"].update(
+        _measured("proj_d100", k1_fused_case(rng, eval_seeds, proj, dev, card)))
     # K1 on pre-gathered rows (the Pallas function's contract), eval count.
     args = k1_inputs(rng, eval_seeds, B, dev)
     got = recency_window_select_eid(*args, K)
@@ -630,7 +675,7 @@ def kernel_phase(rng, dev, card: str):
     # The recency push at the TGN (eid layout, B = 10) and DyGFormer (feature
     # layout, B = 20, D = 172) serving shapes, then at E2 = 8,192 events.
     report["recency_push"] = push_case("TGN", *push_inputs(rng, NUM_NBRS, 0, dev), card)
-    dyg = push_case("DyGFormer", *push_inputs(rng, DYG_NBRS, D, dev), card)
+    dyg = push_case("DyGFormer", *push_inputs(rng, DYG_NBRS, WIKI_EDGE_DIM, dev), card)
     report["recency_push"].update(_measured("dygformer", dyg))
     push_case("E2 = 8,192", *push_inputs(rng, NUM_NBRS, 0, dev, E=4096), card, iters=20)
 
@@ -1217,6 +1262,338 @@ def train_agree_phase(data, train, cands, seed: int, dev, card: str):
                        f"{w_err:.3g} (card losses {g_loss}, CPU {c_loss}) [{card}]")
 
 
+# ---------------------------------------------------------------------- #
+# The fused TGN route (TGNPipeline)
+# ---------------------------------------------------------------------- #
+PIPE_EVAL_BATCHES = 3  # eval batches after the 10 train batches of pipe-agree
+PIPE_SERVE_TRAIN_BATCHES = 50
+TGN_STEP = {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+
+
+def make_tgn_pipeline(data, train, device, feature_layout: bool = False):
+    """``TGNPipeline`` as ``bench.py`` builds it: dims 100, 2 heads, K = 10,
+    Adam at 1e-4, negatives over the train split's destination range, the
+    eid layout over the pre-split feature table (or the feature layout)."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import TGNPipeline
+
+    dst = DGraph(train).edge_dst
+    return TGNPipeline(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS, DIMS, NUM_NBRS, TRAIN_LR,
+                       int(dst.min()), int(dst.max()),
+                       edge_x_full=None if feature_layout else data.edge_x, device=device)
+
+
+def split_stream(d, device):
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    return DeviceEdgeStream(DGraph(d), BATCH, device=device)
+
+
+def cand_rows(cands, stream, device):
+    """(batches * B, Q) int32 candidates on ``device``, PAD past the split's edges."""
+    rows = np.full((stream.num_batches * BATCH, NUM_CANDIDATES), -1, np.int32)
+    rows[: len(cands)] = cands
+    return torch.as_tensor(rows, device=device)
+
+
+def record_negatives(pipe, store):
+    """Keep every negative batch ``pipe`` draws in ``store``."""
+    draw = pipe.draw_neg
+
+    def recorded(rng, size):
+        store.append(draw(rng, size))
+        return store[-1]
+
+    pipe.draw_neg = recorded
+
+
+def inject_negatives(pipe, negs, device):
+    it = iter(negs)
+    pipe.draw_neg = lambda rng, size: next(it).to(device)
+
+
+def pipe_eval_epoch(pipe, carry, stream, rows, table):
+    """``eval_step`` over a split through ``jit_scan_epoch``; (carry, (sums, counts))."""
+    from tgm_tpu_torch.train import jit_scan_epoch
+
+    epoch = jit_scan_epoch(
+        lambda c, bc: pipe.eval_step(c, bc[0], bc[1], nbr_proj_table=table),
+        lambda i: (stream.batch_at(i), rows[i * BATCH : (i + 1) * BATCH]), stream.num_batches)
+    return epoch(carry)
+
+
+def clone_state(carry):
+    from tgm_tpu_torch.nn import TGNMemoryState
+
+    return carry._replace(mem_state=TGNMemoryState(*(x.clone() for x in carry.mem_state)),
+                          rec_state=tuple(x.clone() for x in carry.rec_state))
+
+
+def reset_launches() -> None:
+    for f in kernel_wrappers():
+        f.launches = 0
+
+
+def read_launches():
+    return {f.__name__: f.launches for f in kernel_wrappers()}
+
+
+def compare_states(path: str, got, want) -> float:
+    """Recency state and integer memory fields exact; returns max |mem| diff."""
+    for i, (g, w) in enumerate(zip(got.rec_state, want.rec_state)):
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{path}: recency state tensor {i} differs")
+    for name in ("last_update", "s_other", "s_t", "s_valid", "d_other", "d_t", "d_valid"):
+        if not torch.equal(getattr(got.mem_state, name).cpu(), getattr(want.mem_state, name).cpu()):
+            raise AssertionError(f"{path}: memory state {name} differs")
+    return float((got.mem_state.mem.cpu() - want.mem_state.mem.cpu()).abs().max())
+
+
+def pipe_train_phase(data, train, seed: int, dev, card: str):
+    """One train epoch through ``jit_scan_epoch(pipe.train_step, ...)``."""
+    from tgm_tpu_torch.train import jit_scan_epoch
+
+    pipe = make_tgn_pipeline(data, train, dev)
+    carry = pipe.init_carry(seed)
+    stream = split_stream(train, dev)
+    n = stream.num_batches
+    epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, losses = epoch(carry)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("TGNPipeline train", launches, TGN_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"pipeline train losses not finite or of the wrong shape: {losses}")
+    log("pipe-train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                      f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                      f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                      f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; "
+                      f"max_memory_allocated={peak / 2**30:.3f} GiB; launches={launches} "
+                      f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
+    return pipe, carry, launches
+
+
+def pipe_eval_phase(pipe, carry, val, test, cands, dev, card: str):
+    """``flush_all``, then val and test through ``eval_step`` with the
+    pre-projected table; then val again from the same state without it."""
+    carry = pipe.flush_all(carry)
+    start = clone_state(carry)
+    table = pipe.eval_proj_table(carry.params)
+    splits = {}
+    for name, d in (("val", val), ("test", test)):
+        stream = split_stream(d, dev)
+        splits[name] = (stream, cand_rows(cands[name], stream, dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    out, n_batches, n_edges, seconds = {}, 0, 0, 0.0
+    for name, (stream, rows) in splits.items():
+        t0 = time.perf_counter()
+        carry, (s, c) = pipe_eval_epoch(pipe, carry, stream, rows, table)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = (s.cpu(), c.cpu())
+        n_batches += stream.num_batches
+        n_edges += stream.num_edges
+        seconds += dt
+        log("pipe-eval", f"{name}: {stream.num_edges} edges in {stream.num_batches} batches, "
+                         f"{dt:.3f} s, {stream.num_edges / dt:.0f} edges/s, MRR "
+                         f"{float(s.sum() / c.sum()):.6f} (projected table) [{card}]")
+    launches = read_launches()
+    check_launches("TGNPipeline eval", launches, TGN_STEP, n_batches)
+    mrr = {k: float(s.sum() / c.sum()) for k, (s, c) in out.items()}
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"pipeline MRR out of range: {mrr}")
+    # Val again from the flushed state, the raw 172-wide features this time.
+    stream, rows = splits["val"]
+    _, (s_raw, c_raw) = pipe_eval_epoch(pipe, start, stream, rows, None)
+    s_raw, c_raw = s_raw.cpu(), c_raw.cpu()
+    s_tab, c_tab = out["val"]
+    sum_err = float((s_raw - s_tab).abs().max())
+    if not (torch.equal(c_raw, c_tab) and sum_err <= 1e-4):
+        raise AssertionError(f"val MRR {float(s_tab.sum() / c_tab.sum())} with the projected "
+                             f"table, {float(s_raw.sum() / c_raw.sum())} without: per-batch sums "
+                             f"{sum_err} apart, counts {float(c_tab.sum())} and "
+                             f"{float(c_raw.sum())}")
+    log("pipe-eval", f"val_mrr={mrr['val']:.6f} (projected table) and "
+                     f"{float(s_raw.sum() / c_raw.sum()):.6f} (raw features): counts equal, max "
+                     f"per-batch sum diff {sum_err:.3g}, total {float(s_raw.sum() - s_tab.sum()):.3g}; "
+                     f"test_mrr={mrr['test']:.6f} eval_edges_per_s={n_edges / seconds:.0f} "
+                     f"batches={n_batches} ms_per_batch={seconds / n_batches * 1e3:.2f} "
+                     f"launches={launches} per_batch="
+                     f"{ {k: v / n_batches for k, v in launches.items()} } [{card}]")
+    return launches
+
+
+def pipe_agree_phase(data, train, val, cands, seed: int, dev, card: str):
+    """The pipeline on the card against the CPU (eid and feature layouts) and
+    against the hook path's ``train_core`` on the card, on the same weights
+    and negatives."""
+    cpu = torch.device("cpu")
+    # 1. 10 train batches, flush_all, 3 eval batches with the projected table.
+    runs, negs = [], []
+    for device in (dev, cpu):  # the card's negatives are recorded, then fed to the CPU
+        pipe = make_tgn_pipeline(data, train, device)
+        if not runs:
+            record_negatives(pipe, negs)
+        else:
+            inject_negatives(pipe, negs, device)
+        carry = pipe.init_carry(seed)
+        stream = split_stream(train, device)
+        losses = []
+        for i in range(TRAIN_AGREE_BATCHES):
+            carry, loss = pipe.train_step(carry, stream.batch_at(i))
+            losses.append(float(loss))
+        carry = pipe.flush_all(carry)
+        table = pipe.eval_proj_table(carry.params)
+        vstream = split_stream(val, device)
+        rows = cand_rows(cands["val"], vstream, device)
+        sums = []
+        for i in range(PIPE_EVAL_BATCHES):
+            carry, (s, _) = pipe.eval_step(carry, vstream.batch_at(i),
+                                           rows[i * BATCH : (i + 1) * BATCH], nbr_proj_table=table)
+            sums.append(float(s))
+        runs.append((carry, losses, sums))
+    (g_c, g_loss, g_sums), (c_c, c_loss, c_sums) = runs
+    mem_err = compare_states("pipe-agree card vs CPU", g_c, c_c)
+    loss_err = [abs(a - b) for a, b in zip(g_loss, c_loss)]
+    mrr_err = max(abs(a - b) for a, b in zip(g_sums, c_sums))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and mrr_err <= 1e-4):
+        raise AssertionError(f"pipeline card vs CPU: losses {g_loss} against {c_loss}, MRR sums "
+                             f"{g_sums} against {c_sums}")
+    log("pipe-agree", f"card vs CPU, {TRAIN_AGREE_BATCHES} train + {PIPE_EVAL_BATCHES} eval "
+                      f"batches: recency and integer memory state exact, first-loss diff "
+                      f"{loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}, max |mem| diff "
+                      f"{mem_err:.3g}, max per-batch MRR-sum diff {mrr_err:.3g} (card losses "
+                      f"{g_loss}, MRR sums {g_sums}) [{card}]")
+
+    # 2. The pipeline against the hook path's train_core, both on the card.
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import RandomNegativeEdgeSamplerHook
+
+    pipe = make_tgn_pipeline(data, train, dev)
+    negs = []
+    record_negatives(pipe, negs)
+    carry = pipe.init_carry(seed)
+    mods = [copy.deepcopy(carry.params[k]) for k in ("mem", "enc", "dec")]
+    stream = split_stream(train, dev)
+    p_losses = []
+    for i in range(TRAIN_AGREE_BATCHES):
+        carry, loss = pipe.train_step(carry, stream.batch_at(i))
+        p_losses.append(loss)
+    hm, rec, memory, _, train_core, _ = make_train_pipeline(data, train, cands, mods, dev, seed)
+    neg_hook = [h for h in hm._key_to_hooks["train"]
+                if isinstance(h, RandomNegativeEdgeSamplerHook)][0]
+    injected = iter(negs)
+    neg_hook.draw_neg = lambda size: next(injected)
+    fn, states = hm.as_transform("train", DGraph(train))
+    mem_state, h_losses = memory.init_state(dev), []
+    for i in range(TRAIN_AGREE_BATCHES):
+        states, batch = fn(states, stream.batch_at(i))
+        (mem_state, _), loss = train_core((mem_state, None), batch)
+        h_losses.append(loss)
+    hook_carry = carry._replace(mem_state=mem_state, rec_state=rec.state)
+    mem_err = compare_states("pipe-agree pipeline vs hook path", carry, hook_carry)
+    loss_err = float((torch.stack(p_losses) - torch.stack(h_losses)).abs().max())
+    if loss_err > 1e-6:
+        raise AssertionError(f"pipeline vs hook train_core losses differ by {loss_err}")
+    log("pipe-agree", f"pipeline vs hook train_core on the card, {TRAIN_AGREE_BATCHES} batches: "
+                      f"integer state exact, max loss diff {loss_err:.3g}, max |mem| diff "
+                      f"{mem_err:.3g} [{card}]")
+
+    # 3. The feature layout (K4 in the path), card vs CPU.
+    runs, negs = [], []
+    for device in (dev, cpu):
+        pipe = make_tgn_pipeline(data, train, device, feature_layout=True)
+        if not runs:
+            record_negatives(pipe, negs)
+        else:
+            inject_negatives(pipe, negs, device)
+        carry = pipe.init_carry(seed)
+        stream = split_stream(train, device)
+        reset_launches()
+        losses = []
+        for i in range(3):
+            carry, loss = pipe.train_step(carry, stream.batch_at(i))
+            losses.append(float(loss))
+        if not runs:
+            check_launches("TGNPipeline train, feature layout", read_launches(),
+                           {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES,
+                            "tgn_store_commit": 1}, 3)
+        runs.append((carry, losses))
+    (g_c, g_loss), (c_c, c_loss) = runs
+    mem_err = compare_states("pipe-agree feature layout card vs CPU", g_c, c_c)
+    loss_err = [abs(a - b) for a, b in zip(g_loss, c_loss)]
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3):
+        raise AssertionError(f"feature-layout pipeline card vs CPU: {g_loss} against {c_loss}")
+    log("pipe-agree", f"feature layout card vs CPU, 3 train batches (K4 once a step): recency "
+                      f"state (fp32 feature buffer included) and integer memory exact, max loss "
+                      f"diff {max(loss_err):.3g}, max |mem| diff {mem_err:.3g} [{card}]")
+
+
+def pipe_serve_phase(data, train, val, seed: int, dev, card: str):
+    """The serving example's flow at full width (feature layout): train,
+    ``flush_all``, checkpoint the carry, restore it into a fresh pipeline,
+    serve val from both; the scores must be equal bit for bit."""
+    import tempfile
+
+    from tgm_tpu_torch.train import jit_scan_epoch, restore_checkpoint, save_checkpoint
+
+    pipe = make_tgn_pipeline(data, train, dev, feature_layout=True)
+    stream = split_stream(train, dev)
+    carry, _ = jit_scan_epoch(pipe.train_step, stream.batch_at, PIPE_SERVE_TRAIN_BATCHES)(
+        pipe.init_carry(seed))
+    carry = pipe.flush_all(carry)
+    fresh = make_tgn_pipeline(data, train, dev, feature_layout=True)
+    with tempfile.TemporaryDirectory(prefix="tgn_serving_") as ckpt:
+        save_checkpoint(ckpt, carry)
+        restored = restore_checkpoint(ckpt, like=fresh.init_carry(seed + 1))
+    vstream = split_stream(val, dev)
+    no_cands = torch.full((BATCH, 1), -1, dtype=torch.int32, device=dev)
+
+    def serve(p, c):
+        def step(c, batch):
+            scores = torch.sigmoid(p.forward_only(c, batch)[0])
+            c, _ = p.eval_step(c, batch, no_cands)
+            return c, scores
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, scores = jit_scan_epoch(step, vstream.batch_at, vstream.num_batches,
+                                   donate_carry=False)(c)
+        torch.cuda.synchronize()
+        return scores, time.perf_counter() - t0
+
+    reset_launches()
+    saved, dt = serve(pipe, carry)
+    launches = read_launches()
+    n = vstream.num_batches
+    check_launches("TGNPipeline serve", launches, {"recency_window_select": 2,
+                                                   "recency_push": PUSH_LAUNCHES,
+                                                   "tgn_store_commit": 1}, n)
+    again, dt_restored = serve(fresh, restored)
+    if not torch.equal(saved, again):
+        raise AssertionError(f"restored carry scores differ: max "
+                             f"{float((saved - again).abs().max())}")
+    probs = saved.reshape(-1)[: vstream.num_edges]
+    if not (torch.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
+        raise AssertionError("served probabilities not in (0, 1)")
+    log("pipe-serve", f"{PIPE_SERVE_TRAIN_BATCHES} train batches, flush_all, checkpoint, restore "
+                      f"into a fresh pipeline; val {vstream.num_edges} events in {n} batches: "
+                      f"{vstream.num_edges / dt:.0f} events/s (saved carry), "
+                      f"{vstream.num_edges / dt_restored:.0f} (restored), scores equal bit for "
+                      f"bit, mean p(link) {float(probs.mean()):.4f}; launches={launches} "
+                      f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1275,6 +1652,11 @@ def main() -> int:
     dyg_agree_phase(val, cands, dyg_models, dev, card)
     train_launches = train_phase(data, train, val, cands, args.seed, dev, card)
     train_agree_phase(data, train, cands, args.seed, dev, card)
+    pipe, carry, pipe_train_launches = pipe_train_phase(data, train, args.seed, dev, card)
+    pipe_eval_launches = pipe_eval_phase(pipe, carry, val, test, cands, dev, card)
+    del pipe, carry
+    pipe_agree_phase(data, train, val, cands, args.seed, dev, card)
+    pipe_serve_launches = pipe_serve_phase(data, train, val, args.seed, dev, card)
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
@@ -1301,11 +1683,19 @@ def main() -> int:
         "transformer_stack_fwd": (K5_SRC, "tgm_tpu/ops/pallas/dyg_transformer.py:167",
                                   dyg_launches["transformer_stack_fwd"]),
     }
-    # launches_tgn_train: the train epoch's launches (K1 through its fused wrapper).
-    train_count = dict(train_launches, recency_eid_select=train_launches["recency_eid_select"]
-                       + train_launches["recency_window_select_eid"])
+    # The other paths' launches, K1 counted over both of its wrappers:
+    # the hook-path train epoch, and the pipeline's train epoch, its eval
+    # (val + test) and its serving run.
+    def per_kernel(launches):
+        return dict(launches, recency_eid_select=launches["recency_eid_select"]
+                    + launches["recency_window_select_eid"])
+
+    paths = {"launches_tgn_train": per_kernel(train_launches),
+             "launches_tgn_pipeline_train": per_kernel(pipe_train_launches),
+             "launches_tgn_pipeline_eval": per_kernel(pipe_eval_launches),
+             "launches_tgn_pipeline_serve": per_kernel(pipe_serve_launches)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": count, "launches_tgn_train": train_count[name], **report[name]}
+                "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]
     kernels[0]["also_replaces"] = "tgm_tpu/ops/pallas/recency_select.py:156"
     kernels[1]["launches_dygformer_serve"] = dyg_launches["recency_push"]

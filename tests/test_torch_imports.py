@@ -23,7 +23,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") or m.startswith("tgm_tpu."))
 assert not bad, bad
 assert len(names) > 20, names
-assert "tgm_tpu_torch.examples.linkproppred.tgn" in names, names
+for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.serving.tgn_scoring",
+             "tgm_tpu_torch.train.tgn_pipeline", "tgm_tpu_torch.train.checkpoint"):
+    assert name in names, names
 print("imported", len(names))
 """
 

@@ -16,7 +16,8 @@ recency and memory state exact after each epoch. The measured maxima are
 printed.
 
 The port's example script (``python -m tgm_tpu_torch.examples.linkproppred.tgn``)
-runs one epoch on the CPU at its full default width.
+runs one epoch on the CPU at its full default width, and two through its
+``--fast`` route (``TGNPipeline``).
 """
 
 import json
@@ -239,7 +240,18 @@ def test_example_script_runs_one_epoch_on_the_cpu(tmp_path):
     assert [m["metric"] for m in metrics] == ["loss", "val_mrr", "test_mrr"]
 
 
-@pytest.mark.parametrize("flags, match", [(["--fast"], "TGNPipeline"),
+def test_example_script_fast_route_runs_on_the_cpu(tmp_path, capsys):
+    log = tmp_path / "metrics.jsonl"
+    out = tgn_example.main(["--dataset", "synthetic-120-800", "--epochs", "2", "--fast",
+                            "--device", "cpu", "--log-file-path", str(log)])
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("epoch=")]
+    assert len(lines) == 2 and all("train_edges/s=" in line for line in lines)
+    assert np.isfinite(out["loss"]) and out["loss"] > 0 and out["train_edges_per_s"] > 0
+    assert [json.loads(line)["metric"] for line in log.read_text().splitlines()] == ["loss"] * 2
+
+
+# ``--fast --encoder segment`` asks for TGNPipeline(rowwise=False), the segment path.
+@pytest.mark.parametrize("flags, match", [(["--fast", "--encoder", "segment"], "TGNPipeline"),
                                           (["--encoder", "segment"], "queue 1 item 6")])
 def test_example_script_unported_routes_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):

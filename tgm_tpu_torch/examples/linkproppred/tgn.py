@@ -1,17 +1,21 @@
-"""TGN link prediction on the port (the rowwise hook path of
-``examples/linkproppred/tgn.py``).
+"""TGN link prediction on the port (``examples/linkproppred/tgn.py``).
 
     python -m tgm_tpu_torch.examples.linkproppred.tgn [--dataset synthetic] [--epochs 1]
-        [--device cuda] ...
+        [--fast] [--device cuda] ...
 
 Per epoch: the memory is re-initialised, the train split runs through the
 hook pipeline (random negatives, then the shared eid-layout recency hook)
 and ``train_core`` (staged memory, rowwise attention with dropout,
 ``LinkPredictor``, BCE, backward, the train-mode memory commit, Adam);
 then ``flush_all``, val, and test whenever val MRR reaches its best; the
-hook state is reset between epochs. The flags and defaults are the JAX
-example's, plus ``--device`` (default ``cuda``). ``--encoder segment`` and
-``--fast`` are not ported and raise.
+hook state is reset between epochs.
+
+``--fast`` trains the train split through the fused ``TGNPipeline``
+instead (``jit_scan_epoch`` over ``train_step``; no dropout, as in the JAX
+pipeline) and prints each epoch's mean loss and train edges/s. The flags
+and defaults are the JAX example's, plus ``--device`` (default ``cuda``).
+``--encoder segment`` is not ported and raises (with ``--fast`` it asks
+for ``TGNPipeline(rowwise=False)``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,13 @@ from ...hooks import (
     TGBNegativeEdgeSamplerHook,
 )
 from ...nn import GraphAttentionEmbeddingRowwise, LinkPredictor, TGNMemory
-from ...train import DeviceEdgeStream, build_tgn_hook_cores, hook_epoch
+from ...train import (
+    DeviceEdgeStream,
+    TGNPipeline,
+    build_tgn_hook_cores,
+    hook_epoch,
+    jit_scan_epoch,
+)
 from .._datasets import load_dataset
 
 
@@ -51,7 +61,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--log-file-path", type=str, default=None,
                    help="append each metric as a JSON line to this file")
     p.add_argument("--fast", action="store_true",
-                   help="the fused TGNPipeline route (not ported: raises)")
+                   help="train through the fused TGNPipeline (jit_scan_epoch over train_step) "
+                   "instead of the hook-manager path")
     p.add_argument("--encoder", type=str, default="rowwise", choices=["rowwise", "segment"],
                    help="rowwise: dense per-seed attention; segment: not ported (raises)")
     p.add_argument("--eager", action="store_true",
@@ -68,14 +79,39 @@ def log_metric(path: Optional[str], metric: str, value: float, **extra) -> None:
             f.write(json.dumps({"metric": metric, "value": value, **extra}) + "\n")
 
 
+def run_fast(args: argparse.Namespace) -> Dict[str, float]:
+    """Epochs of the train split through ``TGNPipeline`` (the JAX ``run_fast``);
+    returns the last epoch's mean loss and train edges/s."""
+    dev = resolve_device(args.device)
+    data, _, _ = load_dataset(args.dataset)
+    train_data, _, _ = data.split()
+    dg = DGraph(train_data)
+    stream = DeviceEdgeStream(dg, args.bsize, device=dev)
+    pipe = TGNPipeline(
+        num_nodes=data.num_nodes, edge_dim=dg.edge_x_dim or 0, memory_dim=args.memory_dim,
+        embed_dim=args.embed_dim, time_dim=args.time_dim, num_nbrs=args.n_nbrs[0], lr=args.lr,
+        neg_low=int(dg.edge_dst.min()), neg_high=int(dg.edge_dst.max()),
+        rowwise=args.encoder == "rowwise", edge_x_full=stream.edge_x, device=dev,
+    )
+    carry = pipe.init_carry(args.seed)
+    epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, stream.num_batches)
+    loss, edges_per_s = float("nan"), 0.0
+    for e in range(args.epochs):
+        t0 = time.perf_counter()
+        carry, losses = epoch(carry)
+        loss = float(losses.mean())  # waits for the card
+        edges_per_s = stream.num_edges / (time.perf_counter() - t0)
+        log_metric(args.log_file_path, "loss", loss, epoch=e)
+        print(f"epoch={e} loss={loss:.4f} train_edges/s={edges_per_s:.0f}")
+    return {"loss": loss, "train_edges_per_s": edges_per_s}
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    """Run the example; return the last epoch's loss and val MRR, and the test MRR."""
+    """Run the example; return the last epoch's loss and val MRR, and the
+    test MRR (with ``--fast``: ``run_fast``'s loss and train edges/s)."""
     args = parse_args(argv)
     if args.fast:
-        raise NotImplementedError(
-            "--fast: TGNPipeline (train/tgn_pipeline.py) is queued in ROADMAP.md after the "
-            "port's benchmark"
-        )
+        return run_fast(args)
     if args.encoder == "segment":
         raise NotImplementedError(
             "--encoder segment: the segment-style cores are ROADMAP.md queue 1 item 6"

@@ -23,3 +23,7 @@ class InvalidNodeIDError(TGMError):
 
 class EmptyGraphError(TGMError):
     """An operation that needs events was attempted on an empty graph."""
+
+
+class CheckpointError(TGMError):
+    """Checkpoint save/restore failed or state tree mismatch."""

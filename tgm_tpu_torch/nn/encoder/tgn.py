@@ -15,6 +15,9 @@
 * ``GraphAttentionEmbeddingRowwise``: each seed attends over its own K
   recent neighbours as dense (S, K) products, with dropout on the attention
   weights drawn from an explicit generator.
+* ``rowwise_project_edge_feats``: the message half of its ``lin_edge``
+  projection over a whole feature table, for frozen weights (eval), fed
+  back per neighbour as ``nbr_msg_proj``.
 
 The mean aggregator, the packed state and the segment
 ``GraphAttentionEmbedding`` are queued in ROADMAP.md.
@@ -262,13 +265,24 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
         nbr_msg: torch.Tensor,  # (S, K, msg_dim)
         nbr_valid: torch.Tensor,  # (S, K) bool
         generator: Optional[torch.Generator] = None,
+        nbr_msg_proj: Optional[torch.Tensor] = None,  # (S, K, out_channels) msg @ W_m^T
     ) -> torch.Tensor:
+        """The edge projection ``lin_edge([time_feat | msg])`` is computed as
+        the split sum ``time_feat @ W_t^T + msg @ W_m^T`` (XLA splits the JAX
+        dense over the concat the same way). With ``nbr_msg_proj`` (rows of
+        ``rowwise_project_edge_feats``) the message half is given and
+        ``nbr_msg`` is not read: where the matmul rounds each row alike
+        whatever the row count, as it does on the CPU and the H100, the
+        pre-projected table changes no bit of the result."""
         S, K = nbr_valid.shape
         H, C = self.n_heads, self.head_dim
         rel_t = seed_last_update[:, None] - nbr_time
-        time_feat = self.time_enc(rel_t.float())
-        edge_attr = torch.cat([time_feat.reshape(S * K, -1), nbr_msg.reshape(S * K, -1)], dim=-1)
-        e = self.lin_edge(edge_attr).reshape(S, K, H, C)
+        time_feat = self.time_enc(rel_t.float()).reshape(S * K, -1)
+        T = time_feat.shape[1]
+        if nbr_msg_proj is None:
+            nbr_msg_proj = nbr_msg.reshape(S * K, -1) @ self.lin_edge.weight[:, T:].T
+        e_t = time_feat @ self.lin_edge.weight[:, :T].T
+        e = (e_t + nbr_msg_proj.reshape(S * K, -1)).reshape(S, K, H, C)
 
         q = self.lin_query(x_seed).reshape(S, H, C)
         xn2 = x_nbr.reshape(S * K, -1)
@@ -284,11 +298,26 @@ class GraphAttentionEmbeddingRowwise(nn.Module):
         return out + self.lin_skip(x_seed)
 
 
+def rowwise_project_edge_feats(encoder: GraphAttentionEmbeddingRowwise,
+                               edge_x_full: torch.Tensor) -> torch.Tensor:
+    """``edge_x_full @ W_m^T``: the message half of ``encoder.lin_edge`` over
+    a static (E, msg_dim) feature table, (E, out_channels).
+
+    Valid while the weights are frozen (eval): computed once, its rows stand
+    in for the per-batch message projection (``nbr_msg_proj``). Zero rows
+    project to zero (``lin_edge`` has no bias), so padding stays zero.
+    """
+    T = encoder.lin_edge.in_features - edge_x_full.shape[1]
+    with torch.no_grad():
+        return edge_x_full @ encoder.lin_edge.weight[:, T:].T
+
+
 __all__ = [
     "GraphAttentionEmbeddingRowwise",
     "TGNMemory",
     "TGNMemoryState",
     "tgn_commit_staged",
     "tgn_init_state",
+    "rowwise_project_edge_feats",
     "tgn_store_messages",
 ]

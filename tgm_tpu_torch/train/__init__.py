@@ -1,3 +1,5 @@
+from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+from .epoch import jit_scan_epoch, scan_epoch
 from .hook_pipeline import hook_epoch
 from .programs import (
     bce_with_logits,
@@ -7,13 +9,21 @@ from .programs import (
     tgn_train_commit,
 )
 from .stream import DeviceEdgeStream
+from .tgn_pipeline import TGNCarry, TGNPipeline
 
 __all__ = [
+    "CheckpointManager",
     "DeviceEdgeStream",
+    "TGNCarry",
+    "TGNPipeline",
     "bce_with_logits",
     "build_dygformer_eval_core",
     "build_tgn_hook_cores",
     "hook_epoch",
+    "jit_scan_epoch",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "scan_epoch",
     "tgn_eval_commit",
     "tgn_train_commit",
 ]

@@ -8,17 +8,10 @@ model step. PyTorch runs eagerly, so there is nothing to compile.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
-
-import torch
+from typing import Any, Callable, Tuple
 
 from ..core.graph import DGraph
-
-
-def _stack(outs: List[Any]) -> Any:
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(list(col)) for col in zip(*outs))
-    return torch.stack(outs)
+from .epoch import stack_outs
 
 
 def hook_epoch(
@@ -45,7 +38,7 @@ def hook_epoch(
             hook_states, batch = hook_fn(hook_states, batch)
             carry, out = step_fn(carry, batch)
             outs.append(out)
-        return carry, hook_states, _stack(outs)
+        return carry, hook_states, stack_outs(outs)
 
     return epoch, init_states
 

@@ -14,8 +14,10 @@ DyGFormer example's ``eval_core``).
   (src, candidate) pair through the encoder, ``LinkPredictor`` scores, TGB
   MRR.
 
-The memory state is updated in place. The segment-style TGN cores and the
-DyGFormer train step are queued in ROADMAP.md.
+The memory state is updated in place. ``tgn_embed``, ``tgn_loss_and_grad``
+and ``score_candidates`` are the steps the hook cores share with
+``train/tgn_pipeline.py``. The segment-style TGN cores and the DyGFormer
+train step are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -76,6 +78,72 @@ def tgn_eval_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch,
     return memory.flush(mem_state, _batch_nodes(batch, num_nodes))
 
 
+def tgn_embed(memory: TGNMemory, encoder: Any, mem_state: TGNMemoryState,
+              seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
+              nbr_x: torch.Tensor, training: bool, generator: Optional[torch.Generator] = None,
+              nbr_msg_proj: Optional[torch.Tensor] = None):
+    """Rowwise TGN embeddings of S seeds over their (S, K) recency neighbours.
+
+    Stages memory for [seeds | neighbours] (train mode) or reads the stored
+    rows (eval mode) and runs the encoder. Returns ``(z, (z_mem,
+    last_update))`` with the memory rows of the S + S * K staged ids.
+    """
+    S, K = nbrs.shape
+    rows = torch.cat([seeds, nbrs.reshape(-1)])
+    z_mem, last_upd = memory.stage(mem_state, rows, training=training)
+    M = z_mem.shape[-1]
+    z = encoder(
+        z_mem[:S], z_mem[S:].reshape(S, K, M), last_upd[:S], nbr_time, nbr_x,
+        nbrs != PADDED_NODE_ID, generator=generator, nbr_msg_proj=nbr_msg_proj,
+    )
+    return z, (z_mem, last_upd)
+
+
+def tgn_loss_and_grad(memory: TGNMemory, encoder: Any, decoder: Any,
+                      opt: torch.optim.Optimizer, mem_state: TGNMemoryState,
+                      seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
+                      nbr_x: torch.Tensor, edge_valid: torch.Tensor,
+                      generator: Optional[torch.Generator] = None):
+    """Masked BCE of a train batch and its backward; returns ``(loss, staged)``.
+
+    Seeds are laid out [src | dst | neg], B each. ``opt``'s gradients are
+    zeroed in place and every parameter gets one, so every parameter steps
+    every time, as optax updates every leaf. ``loss`` is detached;
+    ``staged`` holds the staged (memory, last_update) rows of src | dst, the
+    train-mode commit set.
+    """
+    B = edge_valid.shape[0]
+    opt.zero_grad(set_to_none=False)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with torch.enable_grad():
+        z, (st_mem, st_last) = tgn_embed(memory, encoder, mem_state, seeds, nbrs, nbr_time,
+                                         nbr_x, True, generator)
+        pos = decoder(z[:B], z[B : 2 * B])
+        neg = decoder(z[:B], z[2 * B : 3 * B])
+        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid) + bce_with_logits(
+            neg, torch.zeros_like(neg), edge_valid
+        )
+        loss.backward()
+    return loss.detach(), (st_mem[: 2 * B].detach(), st_last[: 2 * B])
+
+
+def score_candidates(decoder: Any, z_src: torch.Tensor, z_dst: torch.Tensor,
+                     z_cand: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,) positive and (B, Q) candidate scores of each src row, in ONE
+    decoder call of B * (Q + 1) rows (the JAX code makes two). Exact ties
+    are common (nodes without history share one embedding), and one matmul
+    scores equal rows equally on every device, where two matmuls of
+    different shapes may round apart."""
+    B, Q, D = z_cand.shape
+    src = z_src[:, None, :].expand(B, Q + 1, D).reshape(B * (Q + 1), D)
+    dst = torch.cat([z_dst[:, None, :], z_cand], dim=1).reshape(B * (Q + 1), D)
+    scores = decoder(src, dst).reshape(B, Q + 1)
+    return scores[:, 0], scores[:, 1:]
+
+
 def build_tgn_hook_cores(
     memory: TGNMemory,
     encoder: Any,
@@ -100,9 +168,8 @@ def build_tgn_hook_cores(
       candidates]. No dropout, whatever the modules' train/eval mode.
 
     ``opt`` is an optimizer over the three modules' parameters (``None`` for
-    eval-only callers; ``train_core`` then raises). ``train_core`` zeroes the
-    gradients in place and gives each of ``opt``'s parameters one, so every
-    parameter steps every time, as optax updates every leaf. ``train_core.loss_and_grad(mem_state, batch,
+    eval-only callers; ``train_core`` then raises); see ``tgn_loss_and_grad``
+    for its gradients. ``train_core.loss_and_grad(mem_state, batch,
     generator) -> (loss, staged)`` and ``train_core.commit(mem_state, batch,
     staged)`` are its first two stages; ``opt.step()`` is the third. Only
     ``style="rowwise"`` is ported.
@@ -113,40 +180,14 @@ def build_tgn_hook_cores(
             "is ROADMAP.md queue 1 item 6"
         )
 
-    def encode(mem_state, batch, training: bool, generator=None):
-        seeds = batch.seed_nids[0]  # (S,)
-        nbrs = batch.nbr_nids[0]  # (S, K)
-        S, K = nbrs.shape
-        rows = torch.cat([seeds, nbrs.reshape(-1)])
-        z_mem, last_upd = memory.stage(mem_state, rows, training=training)
-        M = z_mem.shape[-1]
-        z = encoder(
-            z_mem[:S], z_mem[S:].reshape(S, K, M), last_upd[:S],
-            batch.nbr_edge_time[0], batch.nbr_edge_x[0], nbrs != PADDED_NODE_ID,
-            generator=generator,
-        )
-        return z, (z_mem, last_upd)
+    def hook_products(batch):
+        return batch.seed_nids[0], batch.nbr_nids[0], batch.nbr_edge_time[0], batch.nbr_edge_x[0]
 
     def loss_and_grad(mem_state, batch, generator):
         if opt is None:
             raise ValueError("train_core needs an optimizer: build the cores with opt")
-        B = batch.edge_src.shape[0]
-        opt.zero_grad(set_to_none=False)
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        with torch.enable_grad():
-            z, (st_mem, st_last) = encode(mem_state, batch, True, generator)
-            pos = decoder(z[:B], z[B : 2 * B])
-            neg = decoder(z[:B], z[2 * B : 3 * B])
-            m = batch.edge_valid
-            loss = bce_with_logits(pos, torch.ones_like(pos), m) + bce_with_logits(
-                neg, torch.zeros_like(neg), m
-            )
-            loss.backward()
-        # Seed layout [src | dst | neg]: rows :2B are the commit set.
-        return loss.detach(), (st_mem[: 2 * B].detach(), st_last[: 2 * B])
+        return tgn_loss_and_grad(memory, encoder, decoder, opt, mem_state, *hook_products(batch),
+                                 batch.edge_valid, generator)
 
     def commit(mem_state, batch, staged):
         return tgn_train_commit(memory, mem_state, batch, num_nodes, staged)
@@ -163,20 +204,12 @@ def build_tgn_hook_cores(
     @torch.no_grad()
     def eval_core(mem_state, batch):
         B = batch.edge_src.shape[0]
-        Q = batch.neg_batch_list.shape[1]
-        z, _ = encode(mem_state, batch, False)
+        z, _ = tgn_embed(memory, encoder, mem_state, *hook_products(batch), False)
         # Candidates live in the trailing unique-candidate seed section;
         # locate each candidate's row through the seed lookup.
         lut = seed_lookup(batch.seed_nids[0], num_nodes)
         rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
-        # Positives and candidates go through ONE decoder call (the JAX code
-        # makes two). Exact ties are common (nodes without history share one
-        # embedding), and one matmul scores equal rows equally on every
-        # device, where two matmuls of different shapes may round apart.
-        z_src = z[:B][:, None, :].expand(B, Q + 1, z.shape[1]).reshape(B * (Q + 1), -1)
-        z_dst = torch.cat([z[B : 2 * B][:, None, :], z[rows_c.long()]], dim=1)
-        scores = decoder(z_src, z_dst.reshape(B * (Q + 1), -1)).reshape(B, Q + 1)
-        pos_score, neg_score = scores[:, 0], scores[:, 1:]
+        pos_score, neg_score = score_candidates(decoder, z[:B], z[B : 2 * B], z[rows_c.long()])
         s, c = mrr_sum_count(
             pos_score, neg_score,
             neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
@@ -251,6 +284,9 @@ __all__ = [
     "bce_with_logits",
     "build_dygformer_eval_core",
     "build_tgn_hook_cores",
+    "score_candidates",
+    "tgn_embed",
     "tgn_eval_commit",
+    "tgn_loss_and_grad",
     "tgn_train_commit",
 ]

@@ -49,6 +49,11 @@ class DeviceEdgeStream:
         if ex is not None:
             self._edge_x = up(np.concatenate([ex, np.zeros((pad, ex.shape[1]), ex.dtype)]))
 
+    @property
+    def edge_x(self) -> Optional[torch.Tensor]:
+        """The split's edge feature table on the device (padded rows zero)."""
+        return self._edge_x
+
     def batch_at(self, i: int) -> DGBatch:
         """Batch ``i``: views of the uploaded arrays (padded rows hold PAD / 0 / -1)."""
         if not 0 <= i < self.num_batches:

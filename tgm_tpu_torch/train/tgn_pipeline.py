@@ -1,0 +1,308 @@
+"""Fused TGN train and eval steps (port of ``tgm_tpu/train/tgn_pipeline.py``).
+
+``TGNPipeline`` composes a whole TGN batch without the hook manager: random
+negatives, the recency query, TGN memory staging, rowwise attention, BCE,
+backward, the train-mode memory commit, the recency push and the optimizer
+step in ``train_step(carry, batch) -> (carry, loss)``; candidate scoring
+with the eval-mode commit in ``eval_step``. Epochs run through
+``jit_scan_epoch`` (``train/epoch.py``). The steps share their stages with
+the hook path's ``train_core`` / ``eval_core`` (``train/programs.py``), so
+the two routes agree bit for bit on the same batches and negatives.
+
+The carry keeps the JAX field names in torch idiom: ``params`` is an
+``nn.ModuleDict`` of the memory (``"mem"``), encoder (``"enc"``) and
+decoder (``"dec"``); ``opt_state`` the ``torch.optim.Adam`` over it;
+``mem_state`` and ``rec_state`` the memory and recency state tensors;
+``rng`` the ``torch.Generator`` the negatives are drawn from. A step
+updates these objects in place and returns a carry holding the same ones.
+
+Ported: the rowwise, unpacked path in both recency layouts (``edge_x_full``
+given: eid layout, one launch of kernel K1 with the feature rows fused;
+``None``: feature layout through kernel K4), fp32. The other options of the
+JAX constructor raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..constants import PADDED_NODE_ID
+from ..device import DeviceLike, resolve_device
+from ..eval.metrics import mrr_sum_count
+from ..hooks.neighbors import (
+    recency_eid_init,
+    recency_eid_update,
+    recency_init,
+    recency_query,
+    recency_update,
+)
+from ..nn.decoder.decoders import LinkPredictor
+from ..nn.encoder.tgn import (
+    GraphAttentionEmbeddingRowwise,
+    TGNMemory,
+    rowwise_project_edge_feats,
+    tgn_init_state,
+)
+from ..ops.recency_select import recency_eid_select
+from ..weights import load_tgn_params
+from .programs import (
+    score_candidates,
+    tgn_embed,
+    tgn_eval_commit,
+    tgn_loss_and_grad,
+    tgn_train_commit,
+)
+
+SCORE_LAYOUTS = ("lanesv", "lanes", "kmajor")
+
+
+class TGNCarry(NamedTuple):
+    params: nn.ModuleDict
+    opt_state: torch.optim.Optimizer
+    mem_state: Any
+    rec_state: Any
+    rng: torch.Generator
+
+
+def _unported(option: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"TGNPipeline({option}) is not ported: {where}")
+
+
+class TGNPipeline:
+    """Build once per (graph, hyperparameters); the steps act on a carry.
+
+    The constructor takes the JAX one's arguments plus ``device`` (default
+    ``cuda``). ``attn_score_layout`` accepts the JAX values: they are one
+    math in different TPU layouts, and the port computes one layout.
+    ``dropout`` is kept on the encoder but, as in the JAX pipeline, no step
+    draws it.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        edge_dim: int,
+        memory_dim: int = 100,
+        embed_dim: int = 100,
+        time_dim: int = 100,
+        num_nbrs: int = 10,
+        lr: float = 1e-4,
+        neg_low: int = 0,
+        neg_high: int = 1,
+        dropout: float = 0.0,
+        state_row_multiple: int = 1,
+        rowwise: bool = True,
+        edge_x_full: Any = None,
+        packed_state: bool = False,
+        dedup_staging: bool = False,
+        packed_recency: bool = False,
+        feat_bf16: Optional[bool] = None,
+        attn_bf16: Any = None,
+        attn_score_layout: str = "lanesv",
+        device: DeviceLike = None,
+    ) -> None:
+        if not rowwise:
+            raise _unported("rowwise=False", "the segment path is ROADMAP.md queue 1 item 6")
+        if packed_state:
+            raise _unported("packed_state=True",
+                            "the packed TGN state is ROADMAP.md queue 1 item 6")
+        if packed_recency:
+            raise _unported("packed_recency=True",
+                            "the packed recency layout is ROADMAP.md queue 1 item 5")
+        if dedup_staging:
+            raise _unported("dedup_staging=True", "ROADMAP.md queue 1 item 1c")
+        if state_row_multiple != 1:
+            raise _unported(f"state_row_multiple={state_row_multiple}",
+                            "a TPU row-alignment device, not queued (ROADMAP.md)")
+        if feat_bf16:
+            raise _unported("feat_bf16=True", "bf16 features are ROADMAP.md queue 1 item 1c")
+        if attn_bf16 not in (None, False, "auto", "off"):
+            raise _unported(f"attn_bf16={attn_bf16!r}",
+                            "bf16 features are ROADMAP.md queue 1 item 1c")
+        if attn_score_layout not in SCORE_LAYOUTS:
+            raise ValueError(f"attn_score_layout must be one of {SCORE_LAYOUTS}, "
+                             f"got {attn_score_layout!r}")
+        self.device = resolve_device(device)
+        self.num_nodes = num_nodes
+        self.edge_dim = edge_dim
+        self.memory_dim = memory_dim
+        self.embed_dim = embed_dim
+        self.time_dim = time_dim
+        self.num_nbrs = num_nbrs
+        self.lr = lr
+        self.dropout = dropout
+        self.neg_low = neg_low
+        self.neg_high = max(neg_high, neg_low + 1)
+        self.edge_x_full = (None if edge_x_full is None else
+                            torch.as_tensor(edge_x_full, dtype=torch.float32,
+                                            device=self.device).contiguous())
+
+    # ------------------------------------------------------------------ #
+    def init_carry(self, seed: int = 0, params: Optional[Any] = None) -> TGNCarry:
+        """A fresh carry: weights initialised from ``seed`` (on the CPU, so
+        every device starts from the same ones), or loaded from the JAX tree
+        ``params`` (``{"mem", "enc", "dec"}``, ``weights.load_tgn_params``);
+        Adam at ``lr`` built after them; zero memory; empty recency buffers;
+        the negatives' generator on the device, seeded with ``seed``."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            modules = nn.ModuleDict({
+                "mem": TGNMemory(self.num_nodes, self.edge_dim, self.memory_dim, self.time_dim),
+                "enc": GraphAttentionEmbeddingRowwise(self.memory_dim, self.embed_dim,
+                                                      self.edge_dim, self.time_dim,
+                                                      dropout=self.dropout),
+                "dec": LinkPredictor(node_dim=self.embed_dim, hidden_dim=self.embed_dim),
+            })
+        if params is not None:
+            load_tgn_params(params, modules["mem"], modules["enc"], modules["dec"])
+        modules.to(self.device)
+        opt = torch.optim.Adam(modules.parameters(), lr=self.lr)
+        mem_state = tgn_init_state(self.num_nodes, self.memory_dim, self.edge_dim, self.device)
+        if self.edge_x_full is not None:
+            rec_state = recency_eid_init(self.num_nodes, self.num_nbrs, self.device)
+        else:
+            rec_state = recency_init(self.num_nodes, self.num_nbrs, self.edge_dim, self.device)
+        rng = torch.Generator(device=self.device).manual_seed(seed)
+        return TGNCarry(modules, opt, mem_state, rec_state, rng)
+
+    def draw_neg(self, rng: torch.Generator, size: int) -> torch.Tensor:
+        """``size`` int32 ids uniform in [neg_low, neg_high) from ``rng``, on
+        its device. Tests replace this method to inject ids."""
+        return torch.randint(self.neg_low, self.neg_high, (size,), generator=rng,
+                             device=rng.device, dtype=torch.int32)
+
+    # ------------------------------------------------------------------ #
+    def _query(self, rec_state, seeds: torch.Tensor, seed_t: torch.Tensor,
+               table: Optional[torch.Tensor] = None):
+        """(S, K) neighbour ids and times and their (S, K, D) features: in the
+        eid layout one launch of K1 with the rows of ``table`` (default
+        ``edge_x_full``) fused; in the feature layout K4 over the buffers."""
+        seeds, seed_t = seeds.int(), seed_t.int()
+        if self.edge_x_full is not None:
+            table = self.edge_x_full if table is None else table
+            nbrs, nbr_t, _, nbr_x = recency_eid_select(rec_state, seeds, seed_t,
+                                                       self.num_nbrs, table)
+            return nbrs, nbr_t, nbr_x
+        return recency_query(rec_state, seeds, seed_t, self.num_nbrs)
+
+    def _push(self, rec_state, batch):
+        """The batch's undirected recency push (two launches), in place."""
+        if self.edge_x_full is not None:
+            return recency_eid_update(rec_state, batch.edge_src, batch.edge_dst,
+                                      batch.edge_time, batch.edge_ids, batch.edge_valid,
+                                      directed=False)
+        return recency_update(rec_state, batch.edge_src, batch.edge_dst, batch.edge_time,
+                              batch.edge_x if batch.has("edge_x") else None, batch.edge_valid,
+                              directed=False)
+
+    def _train_seeds(self, batch, neg: torch.Tensor):
+        seeds = torch.cat([batch.edge_src, batch.edge_dst, neg])
+        return seeds, batch.edge_time.repeat(3)
+
+    # ------------------------------------------------------------------ #
+    def train_step(self, carry: TGNCarry, batch) -> Tuple[TGNCarry, torch.Tensor]:
+        """One train batch: negatives, the recency query, staged memory, the
+        encoder, two decoder calls, masked BCE and backward; then the
+        train-mode commit (staged src | dst rows, then the message store),
+        the recency push and the optimizer step. Returns the detached loss;
+        nothing here waits for the card."""
+        params, opt, mem_state, rec_state, rng = carry
+        neg = self.draw_neg(rng, batch.edge_src.shape[0])
+        # Padded rows must not inject live seeds into the batch.
+        neg = torch.where(batch.edge_valid, neg, PADDED_NODE_ID)
+        seeds, seed_t = self._train_seeds(batch, neg)
+        nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t)
+        # No generator: the JAX pipeline's train step draws no dropout.
+        loss, staged = tgn_loss_and_grad(params["mem"], params["enc"], params["dec"], opt,
+                                         mem_state, seeds, nbrs, nbr_t, nbr_x, batch.edge_valid)
+        # The reference order: the commit runs with the old parameters.
+        mem_state = tgn_train_commit(params["mem"], mem_state, batch, self.num_nodes, staged)
+        rec_state = self._push(rec_state, batch)
+        opt.step()
+        return TGNCarry(params, opt, mem_state, rec_state, rng), loss
+
+    @torch.no_grad()
+    def eval_step(
+        self,
+        carry: TGNCarry,
+        batch,
+        cands: torch.Tensor,  # (B, Q) candidate dst ids, PAD for none
+        cand_times: Optional[torch.Tensor] = None,  # (B, Q); default edge_time
+        nbr_proj_table: Optional[torch.Tensor] = None,  # (E, embed) from eval_proj_table
+        mem_bf16: Optional[torch.Tensor] = None,
+    ) -> Tuple[TGNCarry, Tuple[torch.Tensor, torch.Tensor]]:
+        """Score each edge against its candidates, then advance the state in
+        the eval-mode order (store messages, then apply them; then the
+        push). Returns ``(carry, (mrr_sum, mrr_count))``.
+
+        Seeds are [src | dst | cands], S = 2B + BQ, on stored memory. With
+        ``nbr_proj_table`` (eid layout) K1 copies its projected rows in place
+        of the raw features and the encoder skips the message projection.
+        Positives and candidates are scored in one decoder call, and a
+        candidate whose embedding equals the positive's ties with it.
+        """
+        if mem_bf16 is not None:
+            raise _unported("eval_step(mem_bf16=...)",
+                            "bf16 features are ROADMAP.md queue 1 item 1c")
+        if nbr_proj_table is not None and self.edge_x_full is None:
+            raise ValueError("nbr_proj_table needs the eid layout (edge_x_full)")
+        params, _, mem_state, rec_state, _ = carry
+        B, Q = cands.shape
+        if cand_times is None:
+            cand_times = batch.edge_time[:, None].expand(B, Q)
+        cand_flat = cands.reshape(-1).int()
+        seeds = torch.cat([batch.edge_src, batch.edge_dst, cand_flat])
+        seed_t = torch.cat([batch.edge_time, batch.edge_time, cand_times.reshape(-1).int()])
+        nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t, nbr_proj_table)
+        z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x,
+                         False, nbr_msg_proj=None if nbr_proj_table is None else nbr_x)
+        z_dst, z_cand = z[B : 2 * B], z[2 * B :].reshape(B, Q, -1)
+        pos, negs = score_candidates(params["dec"], z[:B], z_dst, z_cand)
+        # A candidate whose embedding equals the positive's bit for bit has
+        # the decoder's same input, so it gets the positive's score: a matmul
+        # may round equal rows apart by their position (ROADMAP.md fault 8).
+        same = (z_cand == z_dst[:, None, :]).all(dim=-1)
+        negs = torch.where(same, pos[:, None], negs)
+        s, c = mrr_sum_count(pos, negs, neg_valid=(cand_flat != PADDED_NODE_ID).reshape(B, Q),
+                             edge_valid=batch.edge_valid)
+        return self.eval_advance_state(carry, batch), (s, c)
+
+    @torch.no_grad()
+    def eval_advance_state(self, carry: TGNCarry, batch) -> TGNCarry:
+        """Advance only the state (the eval-mode commit, then the push),
+        exactly as ``eval_step`` does, without scoring."""
+        params, opt, mem_state, rec_state, rng = carry
+        mem_state = tgn_eval_commit(params["mem"], mem_state, batch, self.num_nodes)
+        rec_state = self._push(rec_state, batch)
+        return TGNCarry(params, opt, mem_state, rec_state, rng)
+
+    def eval_proj_table(self, params: nn.ModuleDict) -> torch.Tensor:
+        """``edge_x_full @ W_m^T`` for frozen weights: pass it to ``eval_step``
+        as ``nbr_proj_table`` for a whole eval epoch (one (E, msg) x (msg,
+        embed) product)."""
+        if self.edge_x_full is None:
+            raise ValueError("eval_proj_table needs the eid layout (edge_x_full)")
+        return rowwise_project_edge_feats(params["enc"], self.edge_x_full)
+
+    def flush_all(self, carry: TGNCarry) -> TGNCarry:
+        """Train -> eval transition: apply every pending message, clear the stores."""
+        return carry._replace(mem_state=carry.params["mem"].flush_all(carry.mem_state))
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def forward_only(self, carry: TGNCarry, batch) -> torch.Tensor:
+        """(2, B) scores of (src, dst) and (src, flip(dst)) on staged memory
+        (train mode), leaving the state as it was."""
+        params, _, mem_state, rec_state, _ = carry
+        B = batch.edge_src.shape[0]
+        seeds, seed_t = self._train_seeds(batch, torch.flip(batch.edge_dst, (0,)))
+        nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t)
+        z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x, True)
+        dec = params["dec"]
+        return torch.stack([dec(z[:B], z[B : 2 * B]), dec(z[:B], z[2 * B :])])
+
+
+__all__ = ["TGNCarry", "TGNPipeline"]
