@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
-link-prediction inference, and TGN link-prediction training), TGN through
-the fused ``TGNPipeline`` (train, eval, a checkpointed serving flow), and
-its hand-written CUDA kernels, in phases:
+link-prediction inference, and TGN and DyGFormer link-prediction training),
+TGN through the fused ``TGNPipeline`` (train, eval, a checkpointed serving
+flow), and its hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -83,12 +83,33 @@ its hand-written CUDA kernels, in phases:
               restored into a fresh pipeline, val served from both (link
               probabilities, then ``eval_step``): scores equal bit for bit,
               events/s.
-14. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+14. dyg-train: one DyGFormer train epoch over the train split at the
+              dyg-serve phase's width, as the DyGFormer example runs it:
+              random negatives, the (src, dst) and (src, neg) pairs through
+              the layers' modules with dropout 0.1 drawn from a CUDA
+              generator (both pair calls with the same masks), BCE, Adam
+              (lr 1e-4). Train ms per batch and edges/s, the first and last
+              loss, peak device memory, launches; then val through K5 from
+              an eval core built on the trained weights (MRR, ms per batch,
+              launches); one batch split into hook step, forward+backward and
+              optimizer step (medians over 50 batches); 50 batches with both
+              pairs in one ``encode_pairs`` call (ms per batch).
+15. dyg-train-agree: the first 5 DyGFormer train batches on the card and
+              on the CPU from the same weights, no dropout, the card's
+              negatives fed to the CPU: recency state exact (the feature
+              buffer included), the first loss within 1e-5 and every loss
+              within 5e-3, the largest weight difference reported; split
+              against fused pairs on the card, losses within 1e-5.
+16. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
-              a CUDA graph and the CUDA kernels one call runs (torch.profiler;
-              last, so no serve or train phase runs after the profiler).
-              ``--only-store-step`` runs this phase alone, as
+              a CUDA graph and the CUDA kernels one call runs
+              (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
+17. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+              Adam; dropout 0.1) under torch.profiler: device µs and
+              launches a batch, the busy share against their unprofiled wall
+              time, the GEMMs' µs and the top kernels. Store-step and this
+              phase come last, so no timed phase runs after the profiler.
 
 It exits non-zero without a CUDA device. The last line is the device JSON
 object; the line before it the kernels JSON object, and the one before that
@@ -422,12 +443,13 @@ def k4_case(rng, S: int, B: int, dev, card: str):
 
 
 def k4_phase(rng, dev, card: str):
-    """K4 at the DyGFormer train (600) and eval (4,400) seed counts, B = K = 20,
-    D = 172, whose eval entry (the DyGFormer serving path) is reported; then
-    at the TGN pipeline's feature layout (S = 600, B = K = 10), reported
-    with the prefix ``tgn_feature``."""
-    k4_case(rng, 600, DYG_NBRS, dev, card)
+    """K4 at the DyGFormer eval (4,400) and train (600) seed counts, B = K =
+    20, D = 172, the eval entry (the DyGFormer serving path) reported and the
+    train case with the prefix ``dygformer_train``; then at the TGN
+    pipeline's feature layout (S = 600, B = K = 10), prefix ``tgn_feature``."""
+    train = k4_case(rng, 3 * BATCH, DYG_NBRS, dev, card)
     entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
+    entry.update(_measured("dygformer_train", train))
     entry.update(_measured("tgn_feature", k4_case(rng, 600, NUM_NBRS, dev, card)))
     return entry
 
@@ -774,18 +796,21 @@ def hook_step_phase(seed: int, dev, card: str):
 def device_kernels(fn):
     """The CUDA kernels (memsets and copies included) one call of ``fn``
     runs, from torch.profiler: ({name: count}, summed device µs of those
-    kernels). Empty and 0 if the profiler saw no device activity."""
+    kernels, {name: summed µs}). Empty and 0 if the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts, busy_us = {}, 0.0
+    counts, us = {}, {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # GPU-side spans of record_function ranges (the optimizer's) overlap kernels.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             counts[ev.name] = counts.get(ev.name, 0) + 1
-            busy_us += ev.time_range.elapsed_us()
-    return counts, busy_us
+            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return counts, sum(us.values()), us
 
 
 def store_step_phase(seed: int, dev, card: str):
@@ -822,7 +847,7 @@ def store_step_phase(seed: int, dev, card: str):
     except RuntimeError as e:  # e.g. a host-to-card copy, which a graph cannot hold
         torch.cuda.synchronize()
         device = f"device not measured (no CUDA graph: {str(e)[:120]})"
-    kernels, busy_us = device_kernels(step)
+    kernels, busy_us, _ = device_kernels(step)
     launches = sum(kernels.values())
     names = "; ".join(f"{n[:70]} x{c}" for n, c in sorted(kernels.items(), key=lambda kv: -kv[1]))
     log("store-step", f"tgn_store_messages ({BATCH} edges, raw dim {WIKI_EDGE_DIM}): per call "
@@ -1263,6 +1288,262 @@ def train_agree_phase(data, train, cands, seed: int, dev, card: str):
 
 
 # ---------------------------------------------------------------------- #
+# The DyGFormer train path
+# ---------------------------------------------------------------------- #
+DYG_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}
+DYG_TRAIN_AGREE_BATCHES = 5
+DYG_FUSED_BATCHES = 50  # train batches timed with pairs="fused"
+
+
+def make_dyg_train_pipeline(train, cands, models, device, seed: int, pairs: str = "split"):
+    """Hooks (random negatives on ``train``, TGB candidates on ``val``, the
+    shared feature-buffer recency hook), Adam and ``train_core``, as the
+    DyGFormer example builds them."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import (
+        HookManager,
+        RandomNegativeEdgeSamplerHook,
+        RecencyNeighborHook,
+        TGBNegativeEdgeSamplerHook,
+    )
+    from tgm_tpu_torch.train import build_dygformer_train_core
+
+    encoder, decoder, node_x = models
+    encoder, decoder = encoder.to(device), decoder.to(device)
+    dst = DGraph(train).edge_dst
+    hm = HookManager(keys=["train", "val"])
+    rnd = RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()), device=device, seed=seed)
+    hm.register("train", rnd)
+    hm.register("val", TGBNegativeEdgeSamplerHook(cands["val"], device=device))
+    rec = RecencyNeighborHook(WIKI_NODES, [DYG_NBRS], ["edge_src", "edge_dst", "neg"],
+                              ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
+                              device=device)
+    hm.register_shared(rec)
+    opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=TRAIN_LR)
+    x = torch.as_tensor(node_x, device=device)
+    train_core = build_dygformer_train_core(encoder, decoder, opt, x, pairs=pairs)
+    return hm, rec, rnd, opt, x, train_core
+
+
+def dyg_train_phase(train, val, cands, seed: int, dev, card: str):
+    """One DyGFormer train epoch (dropout 0.1), val through K5 from a core
+    rebuilt on the trained weights, the stage split, then fused pairs."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream, build_dygformer_eval_core, hook_epoch
+
+    models = make_dyg_models(seed)
+    encoder, decoder, _ = models
+    hm, _, _, opt, x, train_core = make_dyg_train_pipeline(train, cands, models, dev, seed)
+    dg, vdg = DGraph(train), DGraph(val)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    epoch, states = hook_epoch(stream, hm, "train", dg, train_core)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    (generator,), states, losses = epoch((generator,), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    hm.adopt_states("train", states)
+    n = stream.num_batches
+    check_launches("DyGFormer train", launches, DYG_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"DyGFormer train losses not finite or of the wrong shape: {losses}")
+    log("dyg-train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                     f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                     f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                     f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; "
+                     f"max_memory_allocated={peak / 2**30:.3f} GiB; launches={launches} "
+                     f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
+
+    # Val through K5: the core converts the stack's weights when it is built,
+    # so it is built after the optimizer steps.
+    eval_core = build_dygformer_eval_core(encoder, decoder, x, WIKI_NODES)
+    vstream = DeviceEdgeStream(vdg, BATCH, device=dev)
+    epoch, states = hook_epoch(vstream, hm, "val", vdg, eval_core)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, states, (s, c) = epoch(None, states)
+    torch.cuda.synchronize()
+    dt_val = time.perf_counter() - t0
+    eval_launches = read_launches()
+    nv = vstream.num_batches
+    check_launches("DyGFormer eval after training", eval_launches,
+                   dict(DYG_STEP, transformer_stack_fwd=1), nv)
+    val_mrr = float(s.sum() / c.sum())
+    if not (np.isfinite(val_mrr) and 0.0 < val_mrr <= 1.0):
+        raise AssertionError(f"DyGFormer val MRR after training out of range: {val_mrr}")
+    log("dyg-train", f"val after the epoch through K5: {vstream.num_edges} edges in {nv} batches, "
+                     f"{dt_val / nv * 1e3:.3f} ms per batch, val_mrr={val_mrr:.6f}; "
+                     f"launches={eval_launches} per_batch="
+                     f"{ {k: v / nv for k, v in eval_launches.items()} } [{card}]")
+
+    # Where one batch's time goes: each stage ends in a synchronize.
+    hm.reset_state()
+    fn, states = hm.as_transform("train", dg)
+    stages = {k: [] for k in ("hook", "forward_backward", "optimizer")}
+    for i in range(SPLIT_BATCHES):
+        b = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        train_core.loss_and_grad(batch, generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    # The whole step with one synchronize a batch, against the epoch's loop
+    # that never waits.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SPLIT_BATCHES, 2 * SPLIT_BATCHES):
+        states, batch = fn(states, stream.batch_at(i))
+        train_core((generator,), batch)
+        torch.cuda.synchronize()
+    synced_ms = (time.perf_counter() - t0) / SPLIT_BATCHES * 1e3
+    log("dyg-train", f"one batch split, medians over {SPLIT_BATCHES} batches, us from Python with "
+                     f"a synchronize after each stage: "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f}; the whole step with a synchronize after each batch "
+          f"{synced_ms:.3f} ms a batch [{card}]")
+
+    # The same step with both pairs in one encode_pairs call.
+    from tgm_tpu_torch.train import build_dygformer_train_core
+
+    fused_core = build_dygformer_train_core(encoder, decoder, opt, x, pairs="fused")
+    hm.reset_state()
+    fn, states = hm.as_transform("train", dg)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_losses = []
+    for i in range(DYG_FUSED_BATCHES):
+        states, batch = fn(states, stream.batch_at(i))
+        (generator,), loss = fused_core((generator,), batch)
+        fused_losses.append(loss)
+    torch.cuda.synchronize()
+    dt_fused = time.perf_counter() - t0
+    check_launches("DyGFormer train, fused pairs", read_launches(), DYG_STEP, DYG_FUSED_BATCHES)
+    if not torch.isfinite(torch.stack(fused_losses)).all():
+        raise AssertionError("DyGFormer fused-pair losses not finite")
+    log("dyg-train", f"pairs=fused over {DYG_FUSED_BATCHES} batches: "
+                     f"train_ms_per_batch={dt_fused / DYG_FUSED_BATCHES * 1e3:.3f} (split over "
+                     f"the epoch {dt / n * 1e3:.3f}) [{card}]")
+    return launches, eval_launches
+
+
+def dyg_train_agree_phase(train, cands, seed: int, dev, card: str):
+    """The first train batches on the card (split and fused pairs) and on
+    the CPU (split), from the same weights, no dropout, the card's negatives
+    fed to the CPU."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    base = make_dyg_models(seed)
+    dg = DGraph(train)
+    negs = []
+    runs = {}
+    for label, device, pairs in (("card", dev, "split"), ("card-fused", dev, "fused"),
+                                 ("cpu", torch.device("cpu"), "split")):
+        t0 = time.perf_counter()
+        models = (copy.deepcopy(base[0]), copy.deepcopy(base[1]), base[2])
+        hm, rec, rnd, _, _, train_core = make_dyg_train_pipeline(train, cands, models, device,
+                                                                 seed, pairs)
+        if label == "card":
+            draw = rnd.draw_neg
+            rnd.draw_neg = lambda size: negs.append(draw(size)) or negs[-1]
+        else:
+            it = iter(negs)
+            rnd.draw_neg = lambda size, it=it: next(it).to(device)
+        stream = DeviceEdgeStream(dg, BATCH, device=device)
+        fn, states = hm.as_transform("train", dg)
+        losses = []
+        for i in range(DYG_TRAIN_AGREE_BATCHES):
+            states, batch = fn(states, stream.batch_at(i))
+            (_,), loss = train_core((None,), batch)
+            losses.append(float(loss))
+        # The recency buffers are updated in place: the hook's state is the final one.
+        runs[label] = ([t.cpu() for t in rec.state], losses,
+                       [p.detach().cpu() for m in models[:2] for p in m.parameters()],
+                       time.perf_counter() - t0)
+    (g_rec, g_loss, g_w, g_s), (c_rec, c_loss, c_w, c_s) = runs["card"], runs["cpu"]
+    for name, g, c in zip(("nbr_ids", "nbr_times", "nbr_feats", "write_pos"), g_rec, c_rec):
+        if not torch.equal(g, c):
+            raise AssertionError(f"DyGFormer train: recency {name} differs between card and CPU")
+    loss_err = [abs(a - b) for a, b in zip(g_loss, c_loss)]
+    w_err = max(float((g - c).abs().max()) for g, c in zip(g_w, c_w))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3):
+        raise AssertionError(f"DyGFormer train card vs CPU losses: {g_loss} against {c_loss}")
+    f_loss = runs["card-fused"][1]
+    pair_err = max(abs(a - b) for a, b in zip(g_loss, f_loss))
+    if pair_err > 1e-5:
+        raise AssertionError(f"DyGFormer train split vs fused pairs: {g_loss} against {f_loss}")
+    log("dyg-train-agree", f"{DYG_TRAIN_AGREE_BATCHES} train batches: recency state exact "
+                           f"(feature buffer included), first-loss diff {loss_err[0]:.3g}, max "
+                           f"loss diff {max(loss_err):.3g}, max |weight| diff {w_err:.3g} (card "
+                           f"losses {g_loss}, CPU {c_loss}); split vs fused pairs on the card: "
+                           f"max loss diff {pair_err:.3g}; card {g_s:.1f} s, CPU {c_s:.1f} s "
+                           f"[{card}]")
+
+
+DYG_PROFILE_BATCHES = 5
+
+
+def dyg_train_profile_phase(train, cands, seed: int, dev, card: str):
+    """Device time of DyGFormer train steps (hook step, forward+backward,
+    Adam; dropout 0.1) from torch.profiler against their wall time measured
+    unprofiled just before: the card's busy share. Last, after store-step."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    hm, _, _, _, _, train_core = make_dyg_train_pipeline(train, cands, make_dyg_models(seed),
+                                                         dev, seed)
+    dg = DGraph(train)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    fn, states = hm.as_transform("train", dg)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    batches = iter(range(stream.num_batches))
+
+    def steps():
+        nonlocal states
+        for _ in range(DYG_PROFILE_BATCHES):
+            states, batch = fn(states, stream.batch_at(next(batches)))
+            train_core((generator,), batch)
+
+    steps()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / DYG_PROFILE_BATCHES
+    kernels, busy_us, us = device_kernels(steps)
+    if not kernels:
+        log("dyg-train-profile", f"wall {wall_us:.1f} us a batch; device time not measured (the "
+                                 f"profiler saw no device activity) [{card}]")
+        return
+    n = DYG_PROFILE_BATCHES
+    gemm = sum(v for k, v in us.items() if "gemm" in k.lower() or "sgemm" in k.lower())
+    top = "; ".join(f"{k[:60]} {v / n:.1f} us x{kernels[k] / n:.0f}"
+                    for k, v in sorted(us.items(), key=lambda kv: -kv[1])[:8])
+    log("dyg-train-profile", f"{n} train batches (hook step, forward+backward, Adam): wall "
+                             f"{wall_us:.1f} us a batch unprofiled; device {busy_us / n:.1f} us "
+                             f"a batch in {sum(kernels.values()) / n:.0f} launches, busy share "
+                             f"{busy_us / n / wall_us:.3f}; GEMM kernels {gemm / n:.1f} us; "
+                             f"top kernels per batch: {top} [{card}]")
+
+
+# ---------------------------------------------------------------------- #
 # The fused TGN route (TGNPipeline)
 # ---------------------------------------------------------------------- #
 PIPE_EVAL_BATCHES = 3  # eval batches after the 10 train batches of pipe-agree
@@ -1657,9 +1938,13 @@ def main() -> int:
     del pipe, carry
     pipe_agree_phase(data, train, val, cands, args.seed, dev, card)
     pipe_serve_launches = pipe_serve_phase(data, train, val, args.seed, dev, card)
+    dyg_train_launches, dyg_train_eval_launches = dyg_train_phase(train, val, cands, args.seed,
+                                                                  dev, card)
+    dyg_train_agree_phase(train, cands, args.seed, dev, card)
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
+    dyg_train_profile_phase(train, cands, args.seed, dev, card)
 
     # name: (source, Pallas function replaced, launches in the serve runs: TGN for
     # K1, the push and the store commit, DyGFormer for K4 and K5). K1 is one
@@ -1684,8 +1969,9 @@ def main() -> int:
                                   dyg_launches["transformer_stack_fwd"]),
     }
     # The other paths' launches, K1 counted over both of its wrappers:
-    # the hook-path train epoch, and the pipeline's train epoch, its eval
-    # (val + test) and its serving run.
+    # the hook-path train epoch, the pipeline's train epoch, its eval
+    # (val + test) and its serving run, and the DyGFormer train epoch and
+    # the val eval after it.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"])
@@ -1693,7 +1979,9 @@ def main() -> int:
     paths = {"launches_tgn_train": per_kernel(train_launches),
              "launches_tgn_pipeline_train": per_kernel(pipe_train_launches),
              "launches_tgn_pipeline_eval": per_kernel(pipe_eval_launches),
-             "launches_tgn_pipeline_serve": per_kernel(pipe_serve_launches)}
+             "launches_tgn_pipeline_serve": per_kernel(pipe_serve_launches),
+             "launches_dygformer_train": per_kernel(dyg_train_launches),
+             "launches_dygformer_train_eval": per_kernel(dyg_train_eval_launches)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]

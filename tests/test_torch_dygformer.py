@@ -84,7 +84,7 @@ def test_forward_matches_jax_pallas_stack(B, K, max_len, patch):
     pl = dygformer_pallas_layers(p, j_enc.num_layers)
     want = j_enc.apply(p, *(jnp.asarray(a) for a in args), pallas_layers=pl)
     with torch.no_grad():
-        got = enc(*(torch.from_numpy(a) for a in args))
+        got = enc(*(torch.from_numpy(a) for a in args), stack=enc.stack_weights())
     for g, w in zip(got, want):
         w = np.asarray(w)
         diff, scale = np.abs(g.numpy() - w), np.abs(w).max()

@@ -24,7 +24,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(names) > 20, names
 for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.serving.tgn_scoring",
-             "tgm_tpu_torch.train.tgn_pipeline", "tgm_tpu_torch.train.checkpoint"):
+             "tgm_tpu_torch.train.tgn_pipeline", "tgm_tpu_torch.train.checkpoint",
+             "tgm_tpu_torch.examples.linkproppred.dygformer", "tgm_tpu_torch.nn.modules.dropout"):
     assert name in names, names
 print("imported", len(names))
 """

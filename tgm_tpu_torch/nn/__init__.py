@@ -1,5 +1,12 @@
 from .decoder.decoders import LinkPredictor
-from .encoder.dygformer import DyGFormer, NeighborCooccurrenceEncoder, dygformer_stack_layers
+from .encoder.dygformer import (
+    DyGFormer,
+    FusedSelfAttention,
+    MultiHeadDotProductAttention,
+    NeighborCooccurrenceEncoder,
+    TransformerEncoder,
+    dygformer_stack_layers,
+)
 from .encoder.tgn import (
     GraphAttentionEmbeddingRowwise,
     TGNMemory,
@@ -16,13 +23,16 @@ __all__ = [
     "Aggregator",
     "ConcatMerge",
     "DyGFormer",
+    "FusedSelfAttention",
     "GraphAttentionEmbeddingRowwise",
     "LinkPredictor",
+    "MultiHeadDotProductAttention",
     "NeighborCooccurrenceEncoder",
     "TGNMemory",
     "TGNMemoryState",
     "Time2Vec",
     "TorchGRUCell",
+    "TransformerEncoder",
     "dygformer_stack_layers",
     "tgn_commit_staged",
     "tgn_init_state",

@@ -1,4 +1,4 @@
-"""DyGFormer, forward only (port of ``tgm_tpu/nn/encoder/dygformer.py``).
+"""DyGFormer (port of ``tgm_tpu/nn/encoder/dygformer.py``).
 
 Patch-based transformer over recent-neighbour sequences: each seed is
 prepended to its own neighbour sequence, which is padded to
@@ -8,23 +8,29 @@ projected to ``channel_embedding_dim`` each; the src and dst sequences are
 joined into one (2P, 4C) sequence per pair and run through the transformer
 stack; each side is mean-pooled and projected by ``output_layer``.
 
-The stack always runs through ``ops.transformer_stack_fwd`` (kernel K5 on
-the card), as the JAX eval paths run it through the Pallas kernel with
-``pallas_layers``. That makes this module forward-only: ``encode_pairs``,
-the flax ``TransformerEncoder`` path and training are queued in ROADMAP.md.
-Eval semantics: no dropout; the channel projections run in fp32
-(``compute_bf16`` off), the stack with the kernel's bf16 operands.
+The stack runs as the JAX ``_run_stack`` runs it. Without ``stack`` it is
+the layers' own ``TransformerEncoder`` modules (the flax path: autograd,
+and dropout when the call is not ``deterministic``), which training uses.
+With ``stack`` (:meth:`DyGFormer.stack_weights`, the JAX
+``pallas_layers``) it is ``ops.transformer_stack_fwd``: kernel K5 on the
+card, its plain version on the CPU; forward only, without dropout, which
+the eval paths use. ``encode_pairs`` runs both training pairs, (src, dst)
+and (src, neg), in one forward. The channel projections run in fp32: the
+bf16 options ``compute_bf16`` and ``bf16_stream`` raise (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...constants import PADDED_NODE_ID
 from ...ops.dyg_transformer import Layer, StackWeights, stack_weights, transformer_stack_fwd
+from ..modules.dropout import dropout
 from ..modules.time_encoding import Time2Vec
 
 
@@ -52,21 +58,85 @@ class NeighborCooccurrenceEncoder(nn.Module):
         return self.enc(src_freq[..., None]).sum(dim=2), self.enc(dst_freq[..., None]).sum(dim=2)
 
 
-class TransformerLayer(nn.Module):
-    """Parameters of one pre-LN transformer layer (LN -> MHA -> residual ->
-    LN -> FFN with exact gelu -> residual). It has no forward of its own: the
-    whole stack runs in ``transformer_stack_fwd``."""
+class MultiHeadDotProductAttention(nn.Module):
+    """Self-attention as flax ``nn.MultiHeadDotProductAttention`` computes it:
+    ``query``/``key``/``value``/``out`` (D, D) projections, q scaled by
+    1 / sqrt(dh) before the q.k product, fp32 softmax. Dropout is on the
+    attention weights, one (S, S) mask per call shared by every sequence and
+    head (flax's ``broadcast_dropout=True``)."""
 
-    def __init__(self, dim: int) -> None:
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1) -> None:
         super().__init__()
-        self.ln1 = nn.LayerNorm(dim, eps=1e-5)
+        if dim % num_heads:
+            raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
+        self.num_heads = num_heads
+        self.dropout = dropout
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+
+    def forward(self, h: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, S, D = h.shape
+        H = self.num_heads
+        dh = D // H
+        q = self.query(h).reshape(B, S, H, dh) / math.sqrt(dh)
+        k = self.key(h).reshape(B, S, H, dh)
+        v = self.value(h).reshape(B, S, H, dh)
+        a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        a = dropout(a, self.dropout, generator, mask_shape=(S, S))
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D))
+
+
+class FusedSelfAttention(nn.Module):
+    """The JAX ``FusedSelfAttention`` (``fused_attn=True``): one (D, 3D)
+    ``qkv`` projection, logits scaled after the q.k product, fp32 softmax,
+    ``out`` (D, D). Dropout is on the attention weights as flax ``nn.Dropout``
+    applies it there: a mask of their whole (B, H, S, S) shape."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1) -> None:
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, h: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, S, D = h.shape
+        H = self.num_heads
+        dh = D // H
+        q, k, v = (t.reshape(B, S, H, dh) for t in self.qkv(h).split(D, dim=-1))
+        a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5, dim=-1)
+        a = dropout(a, self.dropout, generator)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D))
+
+
+class TransformerEncoder(nn.Module):
+    """One pre-LN transformer layer, the JAX ``TransformerEncoder``: LN (eps
+    1e-5) -> attention -> dropout -> residual -> LN -> ``ffn1`` (4D) -> exact
+    gelu -> dropout -> ``ffn2`` (D) -> dropout -> residual.
+
+    Every dropout mask is drawn from the ``generator`` passed to ``forward``,
+    and only when one is passed."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
+                 fused_attn: bool = False) -> None:
+        super().__init__()
+        self.dropout = dropout
+        self.ln1 = nn.LayerNorm(dim, eps=1e-5)
+        attn = FusedSelfAttention if fused_attn else MultiHeadDotProductAttention
+        self.attn = attn(dim, num_heads, dropout)
         self.ln2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn1 = nn.Linear(dim, 4 * dim)
         self.ffn2 = nn.Linear(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        p = self.dropout
+        out = x + dropout(self.attn(self.ln1(x), generator), p, generator)
+        h = dropout(F.gelu(self.ffn1(self.ln2(out))), p, generator)
+        return out + dropout(self.ffn2(h), p, generator)
 
 
 class DyGFormer(nn.Module):
@@ -82,10 +152,19 @@ class DyGFormer(nn.Module):
         patch_size: int = 1,
         num_layers: int = 2,
         num_heads: int = 2,
+        dropout: float = 0.1,
         max_input_sequence_length: int = 512,
         num_channels: int = 4,
+        compute_bf16: bool = False,
+        fused_attn: bool = False,
+        bf16_stream: bool = False,
     ) -> None:
         super().__init__()
+        if compute_bf16 or bf16_stream:
+            raise NotImplementedError(
+                "compute_bf16 / bf16_stream: the bf16 DyGFormer paths (and LayerNormBF16) are "
+                "queued in ROADMAP.md; the port runs the module path in fp32"
+            )
         if max_input_sequence_length % patch_size != 0:
             raise ValueError("Max sequence length must be a multiple of patch size")
         C = channel_embedding_dim
@@ -95,6 +174,7 @@ class DyGFormer(nn.Module):
         self.num_heads = num_heads
         self.num_channels = num_channels
         self.channel_embedding_dim = C
+        self.dropout = dropout
         self.time_encoder = Time2Vec(time_feat_dim)
         self.co_occurrence_encoder = NeighborCooccurrenceEncoder(C)
         self.proj_node = nn.Linear(patch_size * node_feat_dim, C)
@@ -102,7 +182,8 @@ class DyGFormer(nn.Module):
         self.proj_time = nn.Linear(patch_size * time_feat_dim, C)
         self.proj_cooc = nn.Linear(patch_size * C, C)
         self.transformers = nn.ModuleList(
-            [TransformerLayer(num_channels * C) for _ in range(num_layers)])
+            [TransformerEncoder(num_channels * C, num_heads, dropout, fused_attn)
+             for _ in range(num_layers)])
         self.output_layer = nn.Linear(num_channels * C, output_dim)
 
     @property
@@ -141,8 +222,26 @@ class DyGFormer(nn.Module):
         return torch.where((nbrs == PADDED_NODE_ID)[..., None], 0.0, f)
 
     def stack_weights(self) -> StackWeights:
-        """The stack's weights in the kernel's layout; convert once per eval."""
+        """The stack's weights in the kernel's layout; convert once per eval,
+        after the last optimizer step."""
         return stack_weights(dygformer_stack_layers(self), self.num_heads)
+
+    def _run_stack(self, patches: torch.Tensor, deterministic: bool,
+                   stack: Optional[StackWeights],
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The layers' modules (``stack`` None), or the whole stack through
+        ``transformer_stack_fwd``, which has no dropout and no backward."""
+        if stack is not None:
+            if not deterministic:
+                raise ValueError("the stack kernel has no dropout: pass stack=None to train")
+            return transformer_stack_fwd(patches.float().contiguous(), stack, self.num_heads)
+        if deterministic:
+            generator = None
+        elif generator is None and self.dropout > 0.0:
+            raise ValueError("deterministic=False with dropout needs a generator")
+        for tr in self.transformers:
+            patches = tr(patches, generator)
+        return patches
 
     def forward(
         self,
@@ -153,10 +252,13 @@ class DyGFormer(nn.Module):
         neighbours: torch.Tensor,  # (2B, K) [src rows then dst rows]
         neighbours_time: torch.Tensor,  # (2B, K)
         neighbours_edge_feat: torch.Tensor,  # (2B, K, d_E)
+        deterministic: bool = True,
         stack: Optional[StackWeights] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(z_src, z_dst), each (B, output_dim). ``stack`` is
-        :meth:`stack_weights`, converted once by the caller (else here)."""
+        """(z_src, z_dst), each (B, output_dim). ``stack``: see the module
+        docstring; ``generator`` draws the dropout masks when
+        ``deterministic`` is False."""
         B = edge_src.shape[0]
         s_n, s_t, s_e = self._side(edge_src, edge_time, neighbours[:B], neighbours_time[:B],
                                    neighbours_edge_feat[:B])
@@ -177,24 +279,77 @@ class DyGFormer(nn.Module):
                                                            channels(d_n, d_t, d_e, d_cooc))]
         patches = torch.stack(joined, dim=2).reshape(
             B, 2 * P, self.num_channels * self.channel_embedding_dim)
-        patches = transformer_stack_fwd(patches.float().contiguous(),
-                                        self.stack_weights() if stack is None else stack,
-                                        self.num_heads)
+        patches = self._run_stack(patches, deterministic, stack, generator)
         # One output projection for both sides: equal rows come out equal.
         z = self.output_layer(torch.cat([patches[:, :P].mean(dim=1), patches[:, P:].mean(dim=1)]))
         return z[:B], z[B:]
 
+    def encode_pairs(
+        self,
+        node_x: torch.Tensor,  # (num_nodes, d_N)
+        edge_src: torch.Tensor,  # (B,)
+        edge_dst: torch.Tensor,  # (B,)
+        neg: torch.Tensor,  # (B,)
+        edge_time: torch.Tensor,  # (B,)
+        neighbours: torch.Tensor,  # (3B, K) [src; dst; neg] rows from the hook
+        neighbours_time: torch.Tensor,  # (3B, K)
+        neighbours_edge_feat: torch.Tensor,  # (3B, K, d_E)
+        deterministic: bool = True,
+        stack: Optional[StackWeights] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One forward for both training pairs, (src, dst) and (src, neg).
+
+        The same function as two :meth:`forward` calls (the negative side
+        takes the positive edge's time), with the src channels projected once
+        and the stack run once over (2B, 2P, D). Returns ``(z_src, z_dst,
+        z_src2, z_neg)``; ``z_src`` and ``z_src2`` differ, since the
+        co-occurrence channel depends on the paired sequence.
+        """
+        B = edge_src.shape[0]
+        seeds = torch.cat([edge_src, edge_dst, neg])
+        seed_times = torch.cat([edge_time, edge_time, edge_time])
+        seq_n, seq_t, seq_e = self._side(seeds, seed_times, neighbours, neighbours_time,
+                                         neighbours_edge_feat)
+        # Channels shared by all 3B sequences (src projected once).
+        ch_node = self.proj_node(self._patches(self._node_feats(node_x, seq_n)))
+        ch_edge = self.proj_edge(self._patches(seq_e))
+        ch_time = self.proj_time(self._patches(self._time_feats(seq_n, seq_t, seed_times)))
+        # The co-occurrence channel depends on the pair: left = src (twice),
+        # right = [dst; neg].
+        s_n = seq_n[:B]
+        left_cooc, right_cooc = self.co_occurrence_encoder(torch.cat([s_n, s_n]), seq_n[B:])
+        left_cooc = self.proj_cooc(self._patches(left_cooc))  # (2B, P, C)
+        right_cooc = self.proj_cooc(self._patches(right_cooc))
+
+        def pair_join(ch):  # (3B, P, C) -> (2B, 2P, C); rows [0:B] positive, [B:2B] negative
+            return torch.cat([torch.cat([ch[:B], ch[:B]]), ch[B:]], dim=1)
+
+        joined = [pair_join(ch_node), pair_join(ch_edge), pair_join(ch_time),
+                  torch.cat([left_cooc, right_cooc], dim=1)]
+        P = self.num_patches
+        patches = torch.stack(joined, dim=2).reshape(
+            2 * B, 2 * P, self.num_channels * self.channel_embedding_dim)
+        patches = self._run_stack(patches, deterministic, stack, generator)
+        out = self.output_layer(torch.cat([patches[:, :P].mean(dim=1),
+                                           patches[:, P:].mean(dim=1)]))
+        return out[:B], out[2 * B:3 * B], out[B:2 * B], out[3 * B:]
+
 
 def dygformer_stack_layers(encoder: DyGFormer) -> List[Layer]:
     """The encoder's transformer layers as the stack's flat per-layer dicts
-    (counterpart of the JAX ``dygformer_pallas_layers``)."""
+    (counterpart of the JAX ``dygformer_pallas_layers``); needs the flax-MHA
+    attention layout (``fused_attn=False``), as the JAX function does."""
     layers = []
     for t in encoder.transformers:
+        a = t.attn
+        if not isinstance(a, MultiHeadDotProductAttention):
+            raise ValueError("the stack kernel needs the flax-MHA layout (fused_attn=False)")
         layers.append({k: v.detach().float() for k, v in {
             "ln1_scale": t.ln1.weight, "ln1_bias": t.ln1.bias,
-            "wqkv": torch.cat([t.query.weight.T, t.key.weight.T, t.value.weight.T], dim=1),
-            "bqkv": torch.cat([t.query.bias, t.key.bias, t.value.bias]),
-            "wo": t.out.weight.T, "bo": t.out.bias,
+            "wqkv": torch.cat([a.query.weight.T, a.key.weight.T, a.value.weight.T], dim=1),
+            "bqkv": torch.cat([a.query.bias, a.key.bias, a.value.bias]),
+            "wo": a.out.weight.T, "bo": a.out.bias,
             "ln2_scale": t.ln2.weight, "ln2_bias": t.ln2.bias,
             "w1": t.ffn1.weight.T, "b1": t.ffn1.bias,
             "w2": t.ffn2.weight.T, "b2": t.ffn2.bias,

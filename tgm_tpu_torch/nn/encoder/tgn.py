@@ -33,6 +33,7 @@ from torch import nn
 from ...constants import PADDED_NODE_ID
 from ...device import DeviceLike, resolve_device
 from ...ops.scatter_cells import tgn_store_commit
+from ..modules.dropout import dropout as _dropout
 from ..modules.gru import TorchGRUCell
 from ..modules.time_encoding import Time2Vec
 
@@ -207,17 +208,6 @@ def tgn_commit_staged(state: TGNMemoryState, nodes: torch.Tensor, st_mem: torch.
         state.last_update.index_put_((rows,), st_last.to(state.last_update.dtype))
         state.last_update[n] = 0
     return state
-
-
-def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - p, scaled by 1 / (1 - p);
-    the identity without a generator or at p = 0, zeros at p = 1."""
-    if generator is None or p == 0.0:
-        return x
-    if p >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class GraphAttentionEmbeddingRowwise(nn.Module):

@@ -4,6 +4,7 @@ from .hook_pipeline import hook_epoch
 from .programs import (
     bce_with_logits,
     build_dygformer_eval_core,
+    build_dygformer_train_core,
     build_tgn_hook_cores,
     tgn_eval_commit,
     tgn_train_commit,
@@ -18,6 +19,7 @@ __all__ = [
     "TGNPipeline",
     "bce_with_logits",
     "build_dygformer_eval_core",
+    "build_dygformer_train_core",
     "build_tgn_hook_cores",
     "hook_epoch",
     "jit_scan_epoch",

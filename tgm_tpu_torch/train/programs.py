@@ -1,5 +1,5 @@
 """Per-batch programs (port of ``tgm_tpu/train/programs.py`` and of the
-DyGFormer example's ``eval_core``).
+DyGFormer example's ``train_core`` and ``eval_core``).
 
 * TGN train: staged memory of the seeds [src | dst | neg] and their recency
   neighbours, rowwise attention with dropout, ``LinkPredictor`` scores of
@@ -10,14 +10,17 @@ DyGFormer example's ``eval_core``).
   rowwise attention, ``LinkPredictor`` scores of the positives and the TGB
   candidates, TGB MRR, then the eval-mode memory commit (store messages,
   then flush).
+* DyGFormer train: the recency neighbour sequences of each (src, dst) and
+  (src, random negative) pair through the encoder with dropout,
+  ``LinkPredictor`` scores, masked BCE, backward, the optimizer step.
 * DyGFormer eval: the recency neighbour sequences of each (src, dst) and
   (src, candidate) pair through the encoder, ``LinkPredictor`` scores, TGB
   MRR.
 
 The memory state is updated in place. ``tgn_embed``, ``tgn_loss_and_grad``
 and ``score_candidates`` are the steps the hook cores share with
-``train/tgn_pipeline.py``. The segment-style TGN cores and the DyGFormer
-train step are queued in ROADMAP.md.
+``train/tgn_pipeline.py``. The segment-style TGN cores are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -49,6 +52,17 @@ def _raw_msg(batch) -> torch.Tensor:
 def _batch_nodes(batch, num_nodes: int) -> torch.Tensor:
     nodes = torch.cat([batch.edge_src, batch.edge_dst])
     return torch.where(torch.cat([batch.edge_valid, batch.edge_valid]), nodes, num_nodes)
+
+
+def zero_every_grad(opt: torch.optim.Optimizer) -> None:
+    """Zero ``opt``'s gradients in place, giving every parameter one, so that
+    every parameter steps every time, as optax updates every leaf (Adam's
+    moments decay and its step count keeps pace)."""
+    opt.zero_grad(set_to_none=False)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def tgn_train_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch, num_nodes: int,
@@ -113,11 +127,7 @@ def tgn_loss_and_grad(memory: TGNMemory, encoder: Any, decoder: Any,
     train-mode commit set.
     """
     B = edge_valid.shape[0]
-    opt.zero_grad(set_to_none=False)
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    zero_every_grad(opt)
     with torch.enable_grad():
         z, (st_mem, st_last) = tgn_embed(memory, encoder, mem_state, seeds, nbrs, nbr_time,
                                          nbr_x, True, generator)
@@ -223,8 +233,71 @@ def build_tgn_hook_cores(
     return train_core, eval_core
 
 
+def build_dygformer_train_core(encoder: Any, decoder: Any, opt: torch.optim.Optimizer,
+                               node_x: torch.Tensor, pairs: str = "split") -> Callable:
+    """Return the DyGFormer ``train_core(carry, batch) -> (carry, loss)``.
+
+    Counterpart of the ``train_core`` of ``examples/linkproppred/dygformer.py``
+    (``pairs="split"``: two encoder calls, (src, dst) and (src, neg)) and of
+    ``bench.py``'s ``--dyg-pairs fused`` (``pairs="fused"``: one
+    ``encode_pairs`` call). The JAX carry ``(params, opt_state, rng)`` maps
+    to the modules' parameters, ``opt``'s state and the carry ``(generator,)``:
+    the ``torch.Generator`` that draws the dropout masks (``None``: no
+    dropout). Both pair calls of a step draw the same masks, as the JAX
+    example passes one key to both: the generator's state is restored before
+    the second call. Batches carry the random-negative hook's ``neg`` (B ids)
+    and the recency hook's products, seeds laid out [src | dst | neg]. The
+    stack runs through the layers' modules (autograd). The loss, masked BCE
+    of the positives and the negatives, is detached; every parameter gets a
+    gradient (``zero_every_grad``) before ``opt.step()``.
+
+    ``train_core.loss_and_grad(batch, generator) -> loss`` is its first
+    stage; ``opt.step()`` is the second.
+    """
+    if pairs not in ("split", "fused"):
+        raise ValueError(f"pairs must be 'split' or 'fused', got {pairs!r}")
+
+    def embed(batch, generator):
+        B = batch.edge_src.shape[0]
+        nbr, nt, nx = batch.nbr_nids[0], batch.nbr_edge_time[0], batch.nbr_edge_x[0]
+        kw = dict(deterministic=generator is None, generator=generator)
+        if pairs == "fused":
+            return encoder.encode_pairs(node_x, batch.edge_src, batch.edge_dst, batch.neg,
+                                        batch.edge_time, nbr, nt, nx, **kw)
+        neg_rows = lambda x: torch.cat([x[:B], x[2 * B:]])  # (src, neg) pairs
+        state = None if generator is None else generator.get_state()
+        zs, zd = encoder(node_x, batch.edge_src, batch.edge_dst, batch.edge_time, nbr[:2 * B],
+                         nt[:2 * B], nx[:2 * B], **kw)
+        if state is not None:
+            generator.set_state(state)
+        zs2, zn = encoder(node_x, batch.edge_src, batch.neg, batch.edge_time, neg_rows(nbr),
+                          neg_rows(nt), neg_rows(nx), **kw)
+        return zs, zd, zs2, zn
+
+    def loss_and_grad(batch, generator):
+        zero_every_grad(opt)
+        with torch.enable_grad():
+            zs, zd, zs2, zn = embed(batch, generator)
+            pos = decoder(zs, zd)
+            neg = decoder(zs2, zn)
+            loss = bce_with_logits(pos, torch.ones_like(pos), batch.edge_valid) + bce_with_logits(
+                neg, torch.zeros_like(neg), batch.edge_valid
+            )
+            loss.backward()
+        return loss.detach()
+
+    def train_core(carry, batch):
+        (generator,) = carry
+        loss = loss_and_grad(batch, generator)
+        opt.step()
+        return (generator,), loss
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core
+
+
 def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
-                             num_nodes: int) -> Callable:
+                             num_nodes: int, stack: str = "kernel") -> Callable:
     """Return the DyGFormer ``eval_core(carry, batch) -> (carry, (mrr_sum, mrr_count))``.
 
     Counterpart of ``examples/linkproppred/dygformer.py::eval_core``. Batches
@@ -232,13 +305,21 @@ def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
     ``seed_nids`` / ``nbr_*`` products (either recency layout), seeds laid out
     [src | dst | unique candidates]. Each candidate's neighbour rows are found
     through the seed lookup; the src rows are repeated Q times. The carry is
-    passed through untouched. The stack's weights are converted once, here.
+    passed through untouched. No dropout, whatever the modules' mode.
+
+    ``stack="kernel"`` runs the transformer stack through K5 (its plain
+    version on the CPU), as ``bench.py --dyg-stack pallas`` does; the
+    weights are converted once, here, so a train loop rebuilds the core
+    after each epoch's optimizer steps, before it evaluates.
+    ``stack="module"`` runs the layers' modules, as the JAX example's eval.
 
     The returned core has two attributes: ``embed(batch) -> (z_src, z_dst)``
     for the B * (Q + 1) pairs, positives first, and ``score(batch, z_src,
     z_dst) -> (mrr_sum, mrr_count)``; ``eval_core`` is ``score`` of ``embed``.
     """
-    stack = encoder.stack_weights()
+    if stack not in ("kernel", "module"):
+        raise ValueError(f"stack must be 'kernel' or 'module', got {stack!r}")
+    weights = encoder.stack_weights() if stack == "kernel" else None
 
     def embed(batch):
         B = batch.edge_src.shape[0]
@@ -257,7 +338,7 @@ def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
         seeds_b = torch.cat([batch.edge_dst, negs])
         times = batch.edge_time[src_rows]
         return encoder(node_x, seeds_a, seeds_b, times, nbr[rows], batch.nbr_edge_time[0][rows],
-                       batch.nbr_edge_x[0][rows], stack=stack)
+                       batch.nbr_edge_x[0][rows], stack=weights)
 
     def score(batch, z_src, z_dst):
         B = batch.edge_src.shape[0]
@@ -283,10 +364,12 @@ def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
 __all__ = [
     "bce_with_logits",
     "build_dygformer_eval_core",
+    "build_dygformer_train_core",
     "build_tgn_hook_cores",
     "score_candidates",
     "tgn_embed",
     "tgn_eval_commit",
     "tgn_loss_and_grad",
     "tgn_train_commit",
+    "zero_every_grad",
 ]

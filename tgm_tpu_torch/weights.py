@@ -5,7 +5,7 @@ as nested dicts of arrays (anything ``numpy.asarray`` reads), as the JAX TGN
 example builds it, and copies it into a ``TGNMemory``, a
 ``GraphAttentionEmbeddingRowwise`` and a ``LinkPredictor``.
 ``load_dygformer_params`` takes ``{"enc", "dec"}`` as the JAX ``DyGFormer``
-and ``LinkPredictor`` ``init`` build it (flax-MHA attention layout) and copies
+and ``LinkPredictor`` ``init`` build it (either attention layout) and copies
 it into a ``DyGFormer`` and a ``LinkPredictor``. The mappings:
 
 * Dense ``kernel (in, out)`` -> ``Linear.weight`` = kernel^T, ``bias`` -> ``bias``
@@ -18,7 +18,9 @@ it into a ``DyGFormer`` and a ``LinkPredictor``. The mappings:
 * ``LayerNorm_i`` ``scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``;
 * ``MultiHeadDotProductAttention_0`` ``query``/``key``/``value`` kernels
   (D, H, dh) and ``out`` kernel (H, dh, D), flattened to (D, D), ->
-  ``Linear.weight`` = kernel^T; biases (H, dh) flattened to (D,).
+  ``Linear.weight`` = kernel^T; biases (H, dh) flattened to (D,);
+* ``FusedSelfAttention_0`` (``fused_attn=True``) ``qkv`` (D, 3D) and
+  ``out`` (D, D) -> ``Linear.weight`` = kernel^T.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .nn.encoder.dygformer import FusedSelfAttention
 
 
 def _copy(dst: torch.Tensor, value: Any, transpose: bool = False) -> None:
@@ -91,6 +95,46 @@ def _attention_dense(lin: nn.Linear, p: Mapping[str, Any]) -> None:
     _copy(lin.bias, np.asarray(p["bias"]).reshape(D))
 
 
+def fuse_attention_params(mha_params: Mapping[str, Any]) -> dict:
+    """The JAX ``fuse_attention_params``: a flax ``MultiHeadDotProductAttention``
+    subtree in the ``FusedSelfAttention`` layout (``qkv`` kernel (D, 3D),
+    ``out`` kernel (D, D)), as numpy arrays."""
+    D = np.asarray(mha_params["out"]["kernel"]).shape[-1]
+    flat = lambda p, shape: np.asarray(p, dtype=np.float32).reshape(shape)
+    names = ("query", "key", "value")
+    return {
+        "qkv": {"kernel": np.concatenate([flat(mha_params[n]["kernel"], (D, D)) for n in names], 1),
+                "bias": np.concatenate([flat(mha_params[n]["bias"], (D,)) for n in names])},
+        "out": {"kernel": flat(mha_params["out"]["kernel"], (D, D)),
+                "bias": flat(mha_params["out"]["bias"], (D,))},
+    }
+
+
+@torch.no_grad()
+def load_transformer_encoder_params(sub: Mapping[str, Any], layer: nn.Module) -> None:
+    """Copy a flax ``TransformerEncoder`` subtree (either attention layout,
+    fp32 LayerNorms) into a ``TransformerEncoder``, in place."""
+    fused = "FusedSelfAttention_0" in sub
+    if "MultiHeadDotProductAttention_0" not in sub and not fused:
+        raise ValueError("the layer's tree needs the flax-MHA or the fused attention layout "
+                         "with fp32 LayerNorms (bf16_stream=False)")
+    if fused != isinstance(layer.attn, FusedSelfAttention):
+        names = ("flax-MHA", "fused")
+        raise ValueError(f"the tree has the {names[fused]} attention layout, the encoder "
+                         f"the {names[not fused]} one")
+    _layer_norm(layer.ln1, sub["LayerNorm_0"])
+    if fused:
+        for name in ("qkv", "out"):
+            _dense(getattr(layer.attn, name), sub["FusedSelfAttention_0"][name])
+    else:
+        for name in ("query", "key", "value", "out"):
+            _attention_dense(getattr(layer.attn, name),
+                             sub["MultiHeadDotProductAttention_0"][name])
+    _layer_norm(layer.ln2, sub["LayerNorm_1"])
+    _dense(layer.ffn1, sub["Dense_0"])
+    _dense(layer.ffn2, sub["Dense_1"])
+
+
 @torch.no_grad()
 def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
                           decoder: nn.Module) -> None:
@@ -104,15 +148,5 @@ def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
     if n_tree != len(encoder.transformers):
         raise ValueError(f"encoder has {len(encoder.transformers)} layers, the tree {n_tree}")
     for i, layer in enumerate(encoder.transformers):
-        sub = enc[f"transformers_{i}"]
-        if "MultiHeadDotProductAttention_0" not in sub:
-            raise ValueError("load_dygformer_params needs the flax-MHA layout "
-                             "(fused_attn=False, bf16_stream=False)")
-        mha = sub["MultiHeadDotProductAttention_0"]
-        _layer_norm(layer.ln1, sub["LayerNorm_0"])
-        for name in ("query", "key", "value", "out"):
-            _attention_dense(getattr(layer, name), mha[name])
-        _layer_norm(layer.ln2, sub["LayerNorm_1"])
-        _dense(layer.ffn1, sub["Dense_0"])
-        _dense(layer.ffn2, sub["Dense_1"])
+        load_transformer_encoder_params(enc[f"transformers_{i}"], layer)
     _mlp(decoder.model, params["dec"]["params"]["mlp"])
