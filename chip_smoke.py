@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
-link-prediction inference, and TGN and DyGFormer link-prediction training),
-TGN through the fused ``TGNPipeline`` (train, eval, a checkpointed serving
-flow), and its hand-written CUDA kernels, in phases:
+link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
+training with TGAT's TGB eval), TGN through the fused ``TGNPipeline``
+(train, eval, a checkpointed serving flow), TGAT through the fused
+``TGATPipeline`` (train, eval), and its hand-written CUDA kernels, in
+phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -21,7 +23,11 @@ flow), and its hand-written CUDA kernels, in phases:
               8,192 events), the single-buffer K2, K3, K4 (B = K = 20 at S =
               600 and 4,400; B = K = 10 at S = 600, the pipeline's feature
               layout), K5; for K5 also the device time of each of its five
-              kernels per layer and their CTAs per SM.
+              kernels per layer and their CTAs per SM. TGAT's shapes: K1 at
+              the hop-2 seed counts of the TGAT hook path (12,000 and
+              88,000, B = K = 20), K1 over the (2E, 173) side-augmented
+              table (44,000 seeds, B = K = 10), the directed push of both
+              orientations with side payloads (E2 = 400).
 3. hook-step: one ``RecencyNeighborHook.apply`` on a serving batch per state
               layout (eid: K = 10, TGN; feature: K = 20, DyGFormer), through
               the hook's public API only: µs per call from Python and device
@@ -100,12 +106,40 @@ flow), and its hand-written CUDA kernels, in phases:
               buffer included), the first loss within 1e-5 and every loss
               within 5e-3, the largest weight difference reported; split
               against fused pairs on the card, losses within 1e-5.
-16. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+16. tgat-train: one TGAT train epoch over the train split at the JAX
+              example's full width (two hops of K = 20 recency neighbours in
+              the eid layout, node features normal(N, 1), time dim 100,
+              embed dim 172, 2 heads, ``LinkPredictor(172)``), as the TGAT
+              example runs it: random negatives, dropout 0.1 drawn from a
+              CUDA generator, BCE, Adam (lr 1e-4); then val and test through
+              ``eval_core`` (20 candidates). Train and eval ms per batch and
+              edges/s, the first and last loss, val and test MRR, peak
+              device memory of each, launches (K1 once a hop, the push once
+              a batch); one train batch split into hook step,
+              forward+backward and optimizer step (medians over 50 batches).
+17. tgat-agree: the first 5 TGAT train batches, then 3 val batches, on the
+              card and on the CPU from the same weights, no dropout, the
+              card's negatives and ``neg_time`` draws fed to the CPU:
+              recency state and the val batches' hook products exact, the
+              first loss within 1e-5 and every loss within 5e-3; the val
+              batches with the card's trained weights on both (Adam's first
+              steps leave the two runs' weights up to lr apart, and
+              Time2Vec turns that into other embeddings at gaps of millions
+              of seconds: the CPU's own weights are reported beside them):
+              embeddings within 1e-4 * max |z|, per-batch MRR sums within
+              1e-4.
+18. tgat-pipe: ``TGATPipeline`` as ``bench.py --model tgat`` builds it (K =
+              (10, 10), dims 100, no dropout, the side-augmented (2E, 173)
+              table): one train epoch through ``jit_scan_epoch``, val and
+              test through ``eval_step`` (20 candidates): ms per batch,
+              edges/s, MRR, peak memory, launches; then 5 train and 3 val
+              batches card against CPU as tgat-agree checks them.
+19. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
-17. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+20. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -153,6 +187,13 @@ TRAIN_AGREE_BATCHES = 10
 SPLIT_BATCHES = 50  # train batches timed stage by stage
 K5_TIMING_ITERS = 10  # K5 runs for milliseconds: events around eager calls suffice
 K5_TOL = 5e-3  # max |kernel - plain| <= K5_TOL * max |plain|
+# TGAT at the JAX example's full width (examples/linkproppred/tgat.py) and
+# TGATPipeline as bench.py --model tgat builds it.
+TGAT_NBRS = [20, 20]
+TGAT_TIME, TGAT_EMBED, TGAT_HEADS = 100, 172, 2
+TGAT_PIPE_NBRS = (10, 10)
+TGAT_AGREE_TRAIN, TGAT_AGREE_EVAL = 5, 3
+TGAT_TIMING_ITERS = 20  # calls per timing of K1 at TGAT's large seed counts
 
 # Published H100 SXM rates (NVIDIA data sheet, at the 700 W limit): HBM3
 # bytes/s, the fp32 rate outside the tensor cores, taken as the rate of the
@@ -542,22 +583,24 @@ def k5_phase(rng, stack, dev, card: str):
     return entry
 
 
-def push_case(label: str, state, batch, card: str, iters: int = TIMING_ITERS):
-    """The recency push of ``batch`` (undirected) into ``state``: exact
-    against its plain version on all four tensors, the dump row untouched,
-    then timed on a copy of the state."""
+def push_case(label: str, state, batch, card: str, iters: int = TIMING_ITERS,
+              directed: bool = False):
+    """The recency push of ``batch`` (undirected unless ``directed``) into
+    ``state``: exact against its plain version on all four tensors, the dump
+    row untouched, then timed on a copy of the state."""
     from tgm_tpu_torch.ops.scatter_cells import recency_push, recency_push_plain
 
     got, want = [x.clone() for x in state], [x.clone() for x in state]
-    recency_push(*got, *batch, False)
-    recency_push_plain(*want, *batch, False)
+    recency_push(*got, *batch, directed)
+    recency_push_plain(*want, *batch, directed)
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     if err or not all(torch.equal(g, w) and torch.equal(g[-1], s[-1])
                       for g, w, s in zip(got, want, state)):
         raise AssertionError(f"the push differs from its plain version ({label}): {err}")
     src, payload = batch[0], batch[3]
-    E, E2 = src.shape[0], 2 * src.shape[0]
+    E = src.shape[0]
+    E2 = E if directed else 2 * E
     gained = got[3] - state[3]  # min(events, B) for each node the push touched
     nodes, kept = int((gained > 0).sum()), int(gained.sum())
     row_bytes = 4 * payload[0].numel()
@@ -566,12 +609,22 @@ def push_case(label: str, state, batch, card: str, iters: int = TIMING_ITERS):
     # plan's E2 x E2 compare-and-sums (node, time, position, sum).
     nbytes = E * (13 + row_bytes) + 8 * nodes + kept * (8 + row_bytes)
     work = [x.clone() for x in state]
+    kind = "directed events" if directed else "undirected edges"
     return _time_and_report(
-        f"recency_push {label}: state {tuple(state[2].shape)}, {E} undirected edges (E2 = {E2}), "
+        f"recency_push {label}: state {tuple(state[2].shape)}, {E} {kind} (E2 = {E2}), "
         f"{kept} cells kept on {nodes} nodes",
-        lambda: recency_push(*work, *batch, False),
-        lambda: recency_push_plain(*work, *batch, False),
+        lambda: recency_push(*work, *batch, directed),
+        lambda: recency_push_plain(*work, *batch, directed),
         None, nbytes, 4 * E2 * E2, err, card, iters=iters)
+
+
+def side_push_inputs(rng, dev):
+    """TGATPipeline's push: the eid-layout TGN push inputs' 200 edges as one
+    directed push of both orientations, payloads 2 * eid + 1 and 2 * eid."""
+    state, (src, dst, t, eids, valid) = push_inputs(rng, NUM_NBRS, 0, dev)
+    two = lambda a, b: torch.cat([a, b])
+    return state, [two(src, dst), two(dst, src), two(t, t), two(2 * eids + 1, 2 * eids),
+                   two(valid, valid)]
 
 
 def store_commit_case(rng, E: int, dev, card: str):
@@ -611,14 +664,21 @@ def store_commit_case(rng, E: int, dev, card: str):
         None, nbytes, 4 * 2 * E * E, err, card)
 
 
-def k1_fused_case(rng, S: int, edge_x, dev, card: str):
-    """Fused K1 (``recency_eid_select``) at S seeds over an (E, D) table:
-    exact against its plain version, timed."""
+def k1_fused_case(rng, S: int, edge_x, dev, card: str, B: int = NUM_NBRS,
+                  side_payload: bool = False, iters: int = TIMING_ITERS):
+    """Fused K1 (``recency_eid_select``) at S seeds, B = K slots, over an
+    (E, D) table: exact against its plain version, timed. ``side_payload``:
+    the rings hold ``2 * eid + side`` payloads, rows of a side-augmented
+    table of 2 * WIKI_EDGES rows."""
     from tgm_tpu_torch.ops.recency_select import recency_eid_select, recency_eid_select_plain
 
-    B = K = NUM_NBRS
+    K = B
     D = edge_x.shape[1]
     state, seeds, qt = k1_state(rng, S, B, dev)
+    if side_payload:
+        eids = state[2]
+        side = torch.as_tensor(rng.integers(0, 2, tuple(eids.shape)).astype(np.int32), device=dev)
+        state = (state[0], state[1], torch.where(eids >= 0, 2 * eids + side, -1), state[3])
     got = recency_eid_select(state, seeds, qt, K, edge_x)
     want = recency_eid_select_plain(state, seeds, qt, K, edge_x)
     torch.cuda.synchronize()
@@ -640,7 +700,7 @@ def k1_fused_case(rng, S: int, edge_x, dev, card: str):
         f"{edge_rows} distinct edge rows, {rows} distinct state rows)",
         lambda: recency_eid_select(state, seeds, qt, K, edge_x),
         lambda: recency_eid_select_plain(state, seeds, qt, K, edge_x),
-        None, nbytes, 6 * S * B, err, card)
+        None, nbytes, 6 * S * B, err, card, iters=iters)
 
 
 def kernel_phase(rng, dev, card: str):
@@ -694,11 +754,32 @@ def kernel_phase(rng, dev, card: str):
         None, 4 * (3 * S * B + 2 * S + 3 * S * K), 6 * S * B, err, card)
     report["recency_eid_select"].update(_measured("pregathered", pre))
 
+    # TGAT: the hook path's hop-2 select at its train (12,000 seeds) and eval
+    # (88,000) counts, B = K = 20, D = 172; TGATPipeline's deepest eval hop
+    # over the (2E, 173) side-augmented table (44,000 seeds, B = K = 10;
+    # D % 4 != 0 takes the kernel's scalar copy).
+    from tgm_tpu_torch.train import build_aug_table
+
+    for prefix, S in (("tgat_train_hop2", 3 * BATCH * TGAT_NBRS[0]),
+                      ("tgat_eval_hop2", eval_seeds * TGAT_NBRS[0])):
+        report["recency_eid_select"].update(_measured(prefix, k1_fused_case(
+            rng, S, edge_x, dev, card, B=TGAT_NBRS[1], iters=TGAT_TIMING_ITERS)))
+    ends = rng.integers(0, WIKI_NODES, (2, WIKI_EDGES))
+    node_x = torch.as_tensor(rng.normal(size=(WIKI_NODES, 1)).astype(np.float32), device=dev)
+    aug = build_aug_table(edge_x, node_x, *ends)
+    report["recency_eid_select"].update(_measured("tgat_aug_d173", k1_fused_case(
+        rng, eval_seeds * TGAT_PIPE_NBRS[0], aug, dev, card, side_payload=True,
+        iters=TGAT_TIMING_ITERS)))
+    del aug
+
     # The recency push at the TGN (eid layout, B = 10) and DyGFormer (feature
-    # layout, B = 20, D = 172) serving shapes, then at E2 = 8,192 events.
+    # layout, B = 20, D = 172) serving shapes, then at E2 = 8,192 events;
+    # TGATPipeline's directed push of both orientations (E2 = 400).
     report["recency_push"] = push_case("TGN", *push_inputs(rng, NUM_NBRS, 0, dev), card)
     dyg = push_case("DyGFormer", *push_inputs(rng, DYG_NBRS, WIKI_EDGE_DIM, dev), card)
     report["recency_push"].update(_measured("dygformer", dyg))
+    report["recency_push"].update(_measured("tgat_directed", push_case(
+        "TGAT side payloads", *side_push_inputs(rng, dev), card, directed=True)))
     push_case("E2 = 8,192", *push_inputs(rng, NUM_NBRS, 0, dev, E=4096), card, iters=20)
 
     # The TGN message-store commit at the serving batch and at E = 8,192.
@@ -1875,6 +1956,397 @@ def pipe_serve_phase(data, train, val, seed: int, dev, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# TGAT: the hook path (the example's train and TGB eval) and TGATPipeline
+# ---------------------------------------------------------------------- #
+TGAT_STEP = {"recency_eid_select": len(TGAT_NBRS), "recency_push": PUSH_LAUNCHES}
+
+
+def make_tgat_models(seed: int):
+    """TGAT at the example's width (node features normal(N, 1) from ``seed``,
+    edge dim 172, time 100, embed 172, 2 heads, 2 layers, dropout 0.1) and
+    ``LinkPredictor(172)`` (hidden 64), weights from ``seed``, on the CPU."""
+    from tgm_tpu_torch.nn import TGAT, LinkPredictor
+
+    torch.manual_seed(seed)
+    node_x = np.random.default_rng(seed).normal(size=(WIKI_NODES, 1)).astype(np.float32)
+    encoder = TGAT(1, WIKI_EDGE_DIM, TGAT_TIME, TGAT_EMBED, len(TGAT_NBRS), TGAT_HEADS,
+                   dropout=TRAIN_DROPOUT)
+    return encoder, LinkPredictor(node_dim=TGAT_EMBED), node_x
+
+
+def make_tgat_pipeline(data, train, cands, models, device, seed: int):
+    """Hooks (random negatives on ``train``, TGB candidates on ``val`` and
+    ``test``, the shared two-hop eid-layout recency hook), Adam and the
+    cores, as the TGAT example builds them."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import (
+        HookManager,
+        RandomNegativeEdgeSamplerHook,
+        RecencyNeighborHook,
+        TGBNegativeEdgeSamplerHook,
+    )
+    from tgm_tpu_torch.train import build_tgat_eval_core, build_tgat_train_core
+
+    encoder, decoder, node_x = models
+    encoder, decoder = encoder.to(device), decoder.to(device)
+    dst = DGraph(train).edge_dst
+    hm = HookManager(keys=["train", "val", "test"])
+    rnd = RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()), device=device, seed=seed)
+    hm.register("train", rnd)
+    tgbs = {split: TGBNegativeEdgeSamplerHook(cands[split], device=device, seed=seed)
+            for split in ("val", "test")}
+    for split, h in tgbs.items():
+        hm.register(split, h)
+    rec = RecencyNeighborHook(WIKI_NODES, TGAT_NBRS, ["edge_src", "edge_dst", "neg"],
+                              ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
+                              edge_x_full=data.edge_x, device=device)
+    hm.register_shared(rec)
+    opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=TRAIN_LR)
+    x = torch.as_tensor(node_x, device=device)
+    return (hm, rec, rnd, tgbs, opt, build_tgat_train_core(encoder, decoder, opt, x),
+            build_tgat_eval_core(encoder, decoder, x, WIKI_NODES))
+
+
+def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
+    """One TGAT train epoch (dropout 0.1), val and test through ``eval_core``,
+    then the stage split."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
+
+    hm, _, _, _, opt, train_core, eval_core = make_tgat_pipeline(
+        data, train, cands, make_tgat_models(seed), dev, seed)
+    dg = DGraph(train)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    epoch, states = hook_epoch(stream, hm, "train", dg, train_core)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    (generator,), states, losses = epoch((generator,), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    hm.adopt_states("train", states)
+    n = stream.num_batches
+    check_launches("TGAT train", launches, TGAT_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"TGAT train losses not finite or of the wrong shape: {losses}")
+    log("tgat-train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                      f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                      f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                      f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; "
+                      f"max_memory_allocated={peak / 2**30:.3f} GiB; launches={launches} "
+                      f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
+
+    # Val, then test, through eval_core from the trained state.
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mrr, n_batches, n_edges, seconds = {}, 0, 0, 0.0
+    for split, d in (("val", val), ("test", test)):
+        sdg = DGraph(d)
+        sstream = DeviceEdgeStream(sdg, BATCH, device=dev)
+        epoch, states = hook_epoch(sstream, hm, split, sdg, eval_core)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, states, (s, c) = epoch(None, states)
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        hm.adopt_states(split, states)
+        mrr[split] = float(s.sum() / c.sum())
+        n_batches += sstream.num_batches
+        n_edges += sstream.num_edges
+        seconds += dt_eval
+        log("tgat-train", f"{split}: {sstream.num_edges} edges in {sstream.num_batches} batches, "
+                          f"{dt_eval:.3f} s, {sstream.num_edges / dt_eval:.0f} edges/s, MRR "
+                          f"{mrr[split]:.6f} [{card}]")
+    eval_launches = read_launches()
+    eval_peak = torch.cuda.max_memory_allocated()
+    check_launches("TGAT eval", eval_launches, TGAT_STEP, n_batches)
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"TGAT MRR out of range: {mrr}")
+    log("tgat-train", f"eval after the epoch: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
+                      f"eval_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
+                      f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f}; max_memory_allocated="
+                      f"{eval_peak / 2**30:.3f} GiB; launches={eval_launches} per_batch="
+                      f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
+
+    # Where one train batch's time goes: each stage ends in a synchronize.
+    hm.reset_state()
+    fn, states = hm.as_transform("train", dg)
+    stages = {k: [] for k in ("hook", "forward_backward", "optimizer")}
+    for i in range(SPLIT_BATCHES):
+        b = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        train_core.loss_and_grad(batch, generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log("tgat-train", f"one train batch split, medians over {SPLIT_BATCHES} batches, us from "
+                      f"Python with a synchronize after each stage: "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f} [{card}]")
+    return launches, eval_launches
+
+
+def _weights(modules):
+    """{name: CPU copy} of the parameters of ``modules``."""
+    return {f"{i}.{k}": v.detach().cpu().clone()
+            for i, m in enumerate(modules) for k, v in m.state_dict().items()}
+
+
+def _load_weights(modules, weights) -> None:
+    with torch.no_grad():
+        for i, m in enumerate(modules):
+            for k, v in m.state_dict().items():
+                v.copy_(weights[f"{i}.{k}"])
+
+
+def _weight_gap(a, b) -> str:
+    """The largest parameter difference between two ``_weights`` copies, and where."""
+    name, gap = max(((k, float((a[k] - b[k]).abs().max())) for k in a), key=lambda kv: kv[1])
+    return f"{gap:.3g} ({name})"
+
+
+def _agree_report(path: str, g_loss, c_loss, z_pairs, g_sums, c_sums):
+    """The agree bounds of a TGAT route: the first loss within 1e-5, every
+    loss within 5e-3, eval embeddings within 1e-4 * max |z|, per-batch MRR
+    sums within 1e-4. Returns the measured gaps."""
+    loss_err = [abs(a - b) for a, b in zip(g_loss, c_loss)]
+    z_err = max(float((g.cpu() - c).abs().max()) / float(c.abs().max()) for g, c in z_pairs)
+    sum_err = max(abs(a - b) for a, b in zip(g_sums, c_sums))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3):
+        raise AssertionError(f"{path} card vs CPU losses: {g_loss} against {c_loss}")
+    if not (z_err <= 1e-4 and sum_err <= 1e-4):
+        raise AssertionError(f"{path} card vs CPU eval: embeddings {z_err} * max |z| apart, "
+                             f"MRR sums {g_sums} against {c_sums}")
+    return (f"first-loss diff {loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}, max |z| diff "
+            f"{z_err:.3g} * max |z|, max per-batch MRR-sum diff {sum_err:.3g} (card losses "
+            f"{g_loss}, CPU {c_loss}; card sums {g_sums}, CPU {c_sums})")
+
+
+def _z_gap(z_card, z_cpu) -> str:
+    """How far two runs' embeddings of one batch are apart, and in which rows."""
+    d = (z_card.cpu() - z_cpu).abs().max(dim=1).values
+    far = torch.nonzero(d > 1e-4 * float(z_cpu.abs().max())).flatten()
+    return (f"{float(d.max() / z_cpu.abs().max()):.3g} * max |z|, {far.numel()} rows past "
+            f"1e-4 (first {far[:8].tolist()})")
+
+
+def tgat_agree_phase(data, train, val, cands, seed: int, dev, card: str):
+    """The first TGAT train batches on the card and on the CPU from the same
+    weights, no dropout, the card's negatives fed to the CPU; then val
+    batches (the card's ``neg_time`` draws fed to the CPU) with the card's
+    trained weights on both, so the eval compares one function on one
+    input. The CPU's own trained weights are reported against the card's,
+    with the embeddings they give."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    base = make_tgat_models(seed)
+    negs, neg_times = [], []
+    runs = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        models = (copy.deepcopy(base[0]), copy.deepcopy(base[1]), base[2])
+        hm, rec, rnd, tgbs, _, train_core, eval_core = make_tgat_pipeline(
+            data, train, cands, models, device, seed)
+        if label == "card":
+            draw, draw_t = rnd.draw_neg, tgbs["val"].draw_neg_time
+            rnd.draw_neg = lambda size: negs.append(draw(size)) or negs[-1]
+            tgbs["val"].draw_neg_time = lambda *a: neg_times.append(draw_t(*a)) or neg_times[-1]
+        else:
+            it, it_t = iter(negs), iter(neg_times)
+            rnd.draw_neg = lambda size: next(it).to(device)
+            tgbs["val"].draw_neg_time = lambda *a: next(it_t).to(device)
+        run = dict(losses=[], z=[], sums=[], prods=[])
+        for split, d, n_batches in (("train", train, TGAT_AGREE_TRAIN),
+                                    ("val", val, TGAT_AGREE_EVAL)):
+            dg = DGraph(d)
+            stream = DeviceEdgeStream(dg, BATCH, device=device)
+            fn, states = hm.as_transform(split, dg)
+            if split == "val":
+                run["weights"] = _weights(models[:2])
+            for i in range(n_batches):
+                states, batch = fn(states, stream.batch_at(i))
+                if split == "train":
+                    run["losses"].append(float(train_core((None,), batch)[1]))
+                    continue
+                if label == "cpu" and i == 0:  # its own weights, then the card's
+                    run["own_z"] = eval_core.embed(batch)
+                    _load_weights(models[:2], runs["card"]["weights"])
+                run["prods"].append([x.cpu() for name in ("seed_nids", "seed_times", "nbr_nids",
+                                                          "nbr_edge_time", "nbr_edge_x")
+                                     for x in getattr(batch, name)])
+                run["z"].append(eval_core.embed(batch))
+                run["sums"].append(float(eval_core.score(batch, run["z"][-1])[0]))
+            hm.adopt_states(split, states)
+        run.update(rec=[t.cpu() for t in rec.state], seconds=time.perf_counter() - t0)
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    for name, x, y in zip(("nbr_ids", "nbr_times", "nbr_eids", "write_pos"), g["rec"], c["rec"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"TGAT: recency {name} differs between card and CPU")
+    for b, (gp, cp) in enumerate(zip(g["prods"], c["prods"])):
+        for i, (x, y) in enumerate(zip(gp, cp)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"TGAT: val batch {b}: hook product {i} differs")
+    log("tgat-agree", _drift_line(g, c) + f" [{card}]")
+    gaps = _agree_report("TGAT", g["losses"], c["losses"], zip(g["z"], c["z"]), g["sums"],
+                         c["sums"])
+    log("tgat-agree", f"{TGAT_AGREE_TRAIN} train + {TGAT_AGREE_EVAL} val batches: recency state "
+                      f"and the val batches' hook products exact, {gaps}; card "
+                      f"{g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
+
+
+def _drift_line(g, c) -> str:
+    """What training drift does: the trained weights' gap (the largest, and
+    Time2Vec's), and how far the CPU's first val embeddings are from the
+    card's with its own weights and with the card's."""
+    tw = "0.time_encoder.w.weight"
+    time_gap = float((g["weights"][tw] - c["weights"][tw]).abs().max())
+    return (f"after {TGAT_AGREE_TRAIN} train batches the weights are "
+            f"{_weight_gap(g['weights'], c['weights'])} apart, Time2Vec's {time_gap:.3g}; with "
+            f"its own weights the CPU's first val embeddings are {_z_gap(g['z'][0], c['own_z'])} "
+            f"from the card's; with the card's weights "
+            + "; ".join(_z_gap(x, y) for x, y in zip(g["z"], c["z"])))
+
+
+def make_tgat_pipe(data, train, device):
+    """``TGATPipeline`` as ``bench.py --model tgat`` builds it: K = (10, 10),
+    time and embed dims 100, Adam at 1e-4, node features normal(N, 1) from
+    seed 0, the side-augmented table over the pre-split features."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import TGATPipeline
+
+    dst = DGraph(train).edge_dst
+    node_x = np.random.default_rng(0).normal(size=(WIKI_NODES, 1)).astype(np.float32)
+    return TGATPipeline(WIKI_NODES, WIKI_EDGE_DIM, node_x, TGAT_PIPE_NBRS, DIMS, DIMS,
+                        lr=TRAIN_LR, neg_low=int(dst.min()), neg_high=int(dst.max()),
+                        edge_x_full=data.edge_x,
+                        edge_ends_full=(data.edge_index[:, 0], data.edge_index[:, 1]),
+                        device=device)
+
+
+def tgat_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
+    """One ``TGATPipeline`` train epoch through ``jit_scan_epoch``, val and
+    test through ``eval_step``; then card against CPU."""
+    from tgm_tpu_torch.train import jit_scan_epoch
+
+    pipe = make_tgat_pipe(data, train, dev)
+    carry = pipe.init_carry(seed)
+    stream = split_stream(train, dev)
+    n = stream.num_batches
+    epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, losses = epoch(carry)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("TGATPipeline train", launches, TGAT_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"TGATPipeline losses not finite or of the wrong shape: {losses}")
+    log("tgat-pipe", f"train: {stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                     f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                     f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                     f"{float(losses[-1]):.6f}; max_memory_allocated={peak / 2**30:.3f} GiB; "
+                     f"launches={launches} per_batch={ {k: v / n for k, v in launches.items()} } "
+                     f"[{card}]")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mrr, n_batches, n_edges, seconds = {}, 0, 0, 0.0
+    for name, d in (("val", val), ("test", test)):
+        sstream = split_stream(d, dev)
+        rows = cand_rows(cands[name], sstream, dev)
+        ep = jit_scan_epoch(lambda c, bc: pipe.eval_step(c, *bc),
+                            lambda i: (sstream.batch_at(i), rows[i * BATCH : (i + 1) * BATCH]),
+                            sstream.num_batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, (s, c) = ep(carry)
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        mrr[name] = float(s.sum() / c.sum())
+        n_batches += sstream.num_batches
+        n_edges += sstream.num_edges
+        seconds += dt_eval
+    eval_launches = read_launches()
+    eval_peak = torch.cuda.max_memory_allocated()
+    check_launches("TGATPipeline eval", eval_launches, TGAT_STEP, n_batches)
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"TGATPipeline MRR out of range: {mrr}")
+    log("tgat-pipe", f"eval: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
+                     f"eval_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
+                     f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f}; max_memory_allocated="
+                     f"{eval_peak / 2**30:.3f} GiB; launches={eval_launches} per_batch="
+                     f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
+    del pipe, carry
+
+    # Card against CPU: fresh pipelines from the same seed, the card's
+    # negatives fed to the CPU; the eval batches with the card's trained
+    # weights on both (the CPU's own reported beside them), as tgat-agree.
+    negs, runs = [], {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        pipe = make_tgat_pipe(data, train, device)
+        if label == "card":
+            record_negatives(pipe, negs)
+        else:
+            inject_negatives(pipe, negs, device)
+        carry = pipe.init_carry(seed)
+        tstream, vstream = split_stream(train, device), split_stream(val, device)
+        rows = cand_rows(cands["val"], vstream, device)
+        run = dict(losses=[], z=[], sums=[])
+        for i in range(TGAT_AGREE_TRAIN):
+            carry, loss = pipe.train_step(carry, tstream.batch_at(i))
+            run["losses"].append(float(loss))
+        modules = list(carry.params.values())
+        run["weights"] = _weights(modules)
+        for i in range(TGAT_AGREE_EVAL):
+            batch, cd = vstream.batch_at(i), rows[i * BATCH : (i + 1) * BATCH]
+            t = batch.edge_time
+            seeds = torch.cat([batch.edge_src, batch.edge_dst, cd.reshape(-1)])
+            seed_t = torch.cat([t, t, t.repeat_interleave(NUM_CANDIDATES)])
+            if label == "cpu" and i == 0:  # its own weights, then the card's
+                run["own_z"] = pipe.embed(carry, seeds, seed_t)
+                _load_weights(modules, runs["card"]["weights"])
+            run["z"].append(pipe.embed(carry, seeds, seed_t))
+            carry, (s, _) = pipe.eval_step(carry, batch, cd)
+            run["sums"].append(float(s))
+        run.update(rec=[t.cpu() for t in carry.rec_state], seconds=time.perf_counter() - t0)
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    for name, x, y in zip(("nbr_ids", "nbr_times", "side_payloads", "write_pos"), g["rec"],
+                          c["rec"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"TGATPipeline: recency {name} differs between card and CPU")
+    log("tgat-pipe", _drift_line(g, c) + f" [{card}]")
+    gaps = _agree_report("TGATPipeline", g["losses"], c["losses"], zip(g["z"], c["z"]),
+                         g["sums"], c["sums"])
+    log("tgat-pipe", f"card vs CPU, {TGAT_AGREE_TRAIN} train + {TGAT_AGREE_EVAL} val batches: "
+                     f"recency state exact, {gaps}; card {g['seconds']:.1f} s, CPU "
+                     f"{c['seconds']:.1f} s [{card}]")
+    return launches, eval_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1941,6 +2413,11 @@ def main() -> int:
     dyg_train_launches, dyg_train_eval_launches = dyg_train_phase(train, val, cands, args.seed,
                                                                   dev, card)
     dyg_train_agree_phase(train, cands, args.seed, dev, card)
+    tgat_train_launches, tgat_eval_launches = tgat_train_phase(data, train, val, test, cands,
+                                                               args.seed, dev, card)
+    tgat_agree_phase(data, train, val, cands, args.seed, dev, card)
+    tgat_pipe_train_launches, tgat_pipe_eval_launches = tgat_pipe_phase(
+        data, train, val, test, cands, args.seed, dev, card)
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
@@ -1970,8 +2447,9 @@ def main() -> int:
     }
     # The other paths' launches, K1 counted over both of its wrappers:
     # the hook-path train epoch, the pipeline's train epoch, its eval
-    # (val + test) and its serving run, and the DyGFormer train epoch and
-    # the val eval after it.
+    # (val + test) and its serving run, the DyGFormer train epoch and the
+    # val eval after it, TGAT's hook-path train epoch and its val + test
+    # eval, and TGATPipeline's train epoch and its val + test eval.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"])
@@ -1981,7 +2459,11 @@ def main() -> int:
              "launches_tgn_pipeline_eval": per_kernel(pipe_eval_launches),
              "launches_tgn_pipeline_serve": per_kernel(pipe_serve_launches),
              "launches_dygformer_train": per_kernel(dyg_train_launches),
-             "launches_dygformer_train_eval": per_kernel(dyg_train_eval_launches)}
+             "launches_dygformer_train_eval": per_kernel(dyg_train_eval_launches),
+             "launches_tgat_train": per_kernel(tgat_train_launches),
+             "launches_tgat_eval": per_kernel(tgat_eval_launches),
+             "launches_tgat_pipeline_train": per_kernel(tgat_pipe_train_launches),
+             "launches_tgat_pipeline_eval": per_kernel(tgat_pipe_eval_launches)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]

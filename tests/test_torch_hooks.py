@@ -91,8 +91,9 @@ def test_recency_hook_rejects_unported_layouts():
     keys = (["edge_src"], ["edge_time"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RecencyNeighborHook(N, [K], *keys, edge_x_full=edge_x, packed_buffers=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecencyNeighborHook(N, [K, 2], *keys, edge_x_full=edge_x, device="cpu")
+    # Multi-hop queries are ported: the hook builds, its rings hold max(num_nbrs) slots.
+    hook = RecencyNeighborHook(N, [2, K], *keys, edge_x_full=edge_x, device="cpu")
+    assert hook.num_nbrs == [2, K] and hook.init_state()[0].shape == (N + 1, K)
 
 
 def test_tgb_hook_matches_jax():

@@ -25,7 +25,9 @@ assert not bad, bad
 assert len(names) > 20, names
 for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.serving.tgn_scoring",
              "tgm_tpu_torch.train.tgn_pipeline", "tgm_tpu_torch.train.checkpoint",
-             "tgm_tpu_torch.examples.linkproppred.dygformer", "tgm_tpu_torch.nn.modules.dropout"):
+             "tgm_tpu_torch.examples.linkproppred.dygformer", "tgm_tpu_torch.nn.modules.dropout",
+             "tgm_tpu_torch.examples.linkproppred.tgat", "tgm_tpu_torch.train.tgat_pipeline",
+             "tgm_tpu_torch.nn.encoder.tgat", "tgm_tpu_torch.nn.modules.attention"):
     assert name in names, names
 print("imported", len(names))
 """

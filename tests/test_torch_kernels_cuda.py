@@ -320,3 +320,120 @@ def test_transformer_stack_kernel_is_deterministic(card):
     assert ms.shape == (2, 5) and bool((ms > 0).all()) and bool(torch.isfinite(ms).all())
     occ = transformer_stack_occupancy(S, D, H, sw.F)
     assert occ["attention"] >= 3 and min(occ.values()) >= 1
+
+
+# ---------------------------------------------------------------------- #
+# TGAT's shapes: K1 over the side-augmented table, the side-payload push,
+# the two-hop hook
+# ---------------------------------------------------------------------- #
+def test_fused_select_over_aug_table_matches_plain(card):
+    """K1 over a (2E, 173) side-augmented table (D % 4 != 0: the scalar
+    copy), rings holding payloads 2 * eid + side, at TGATPipeline's eval
+    shape of its deepest hop (S = 44,000, B = K = 10)."""
+    from tgm_tpu_torch.train.tgat_pipeline import build_aug_table
+
+    rng = np.random.default_rng(173)
+    N, E, B, S = 900, 5000, 10, 44_000
+    up = lambda x: torch.as_tensor(x, device=card)
+    aug = build_aug_table(up(rng.normal(size=(E, 172)).astype(np.float32)),
+                          up(rng.normal(size=(N, 1)).astype(np.float32)),
+                          rng.integers(0, N, E), rng.integers(0, N, E))
+    assert aug.shape == (2 * E, 173)
+    state = (up(rng.integers(-1, N, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 30, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(-1, 2 * E, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 5 * B, N + 1).astype(np.int32)))
+    seeds = up(rng.integers(-1, N + 2, S).astype(np.int32))
+    qt = up(rng.integers(0, 35, S).astype(np.int32))
+    before = recency_eid_select.launches
+    got = recency_eid_select(state, seeds, qt, B, aug)
+    assert recency_eid_select.launches == before + 1
+    want = recency_eid_select_plain(state, seeds, qt, B, aug)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[3].shape == (S, B, 173) and bool((got[2] >= 0).any())
+
+
+def test_side_payload_push_matches_plain_and_the_undirected_plan(card):
+    """Both orientations of 200 edges as one directed push of 400 events with
+    payloads 2 * eid + 1 and 2 * eid (TGATPipeline's push): kernel equal to
+    its plain version, and to the undirected push of the same edges in ids,
+    times and write positions, with payload >> 1 the edge id."""
+    rng = np.random.default_rng(400)
+    N, E, B = 300, 200, 10
+    up = lambda x: torch.as_tensor(x, device=card)
+    state = recency_eid_init(N, B, card)
+    src, dst = (up(rng.integers(0, N, E).astype(np.int32)) for _ in range(2))
+    t = up(np.sort(rng.integers(0, 50, E)).astype(np.int32))
+    eids = up(np.arange(E, dtype=np.int32))
+    valid = up(rng.random(E) > 0.05)
+    two = lambda a, b: torch.cat([a, b])
+    cols = (two(src, dst), two(dst, src), two(t, t), two(eids * 2 + 1, eids * 2), two(valid, valid))
+    got, want, plain_undirected = ([x.clone() for x in state] for _ in range(3))
+    before = recency_push.launches
+    recency_push(*got, *cols, True)
+    assert recency_push.launches == before + 2
+    recency_push_plain(*want, *cols, True)
+    recency_push_plain(*plain_undirected, src, dst, t, eids, valid, False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], plain_undirected[i])
+    assert torch.equal(torch.where(got[2] >= 0, got[2] >> 1, -1), plain_undirected[2])
+
+
+@pytest.mark.parametrize("edge_x_full", [True, False])
+def test_two_hop_hook_launches_one_select_a_hop(card, edge_x_full):
+    """The two-hop recency hook on the card equals it on the CPU, with one
+    K1 (eid layout) or K4 (feature layout) launch a hop and one push."""
+    from tgm_tpu_torch.core.batch import DGBatch
+    from tgm_tpu_torch.hooks import RecencyNeighborHook
+
+    rng = np.random.default_rng(2)
+    N, E, D, nb = 50, 64, 172, 6
+    table = rng.normal(size=(nb * E, D)).astype(np.float32)
+    keys = (["edge_src", "edge_dst"], ["edge_time", "edge_time"])
+    kw = dict(edge_x_full=table) if edge_x_full else {}
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        hook = RecencyNeighborHook(N, [5, 3], *keys, edge_dim=D, device=dev, **kw)
+        state = hook.init_state()
+        launches = (recency_eid_select.launches, recency_window_select.launches,
+                    recency_push.launches)
+        for b in range(nb):
+            r = np.random.default_rng(b)
+            sl = slice(b * E, (b + 1) * E)
+            up = lambda x: torch.as_tensor(x, device=dev)
+            batch = DGBatch(up(r.integers(0, N, E).astype(np.int32)),
+                            up(r.integers(0, N, E).astype(np.int32)),
+                            up(np.full(E, 10 * b, np.int32)), up(np.ones(E, bool)),
+                            edge_ids=up(np.arange(sl.start, sl.stop, dtype=np.int32)),
+                            edge_x=up(table[sl]))
+            state, batch = hook.apply(state, batch)
+        runs[dev.type] = ([x.cpu() for x in state], [x.cpu() for x in batch.nbr_edge_x])
+        if dev.type == "cuda":
+            got = (recency_eid_select.launches - launches[0],
+                   recency_window_select.launches - launches[1], recency_push.launches - launches[2])
+            assert got == ((2 * nb, 0, 2 * nb) if edge_x_full else (0, 2 * nb, 2 * nb)), got
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert torch.equal(g, c)
+    for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        assert torch.equal(g, c)
+
+
+def test_time2vec_card_equals_cpu_at_large_gaps(card):
+    """Time2Vec's phase is rounded once on both devices: at gaps of millions
+    of seconds the card's encoding equals the CPU's (ROADMAP.md fault 9)."""
+    from tgm_tpu_torch.nn import Time2Vec
+
+    rng = np.random.default_rng(9)
+    mod = Time2Vec(100)
+    with torch.no_grad():
+        mod.w.weight.mul_(torch.as_tensor(1 + 1e-3 * rng.normal(size=(100, 1)), dtype=torch.float32))
+        mod.w.bias.copy_(torch.as_tensor(0.01 * rng.normal(size=100), dtype=torch.float32))
+    dt = torch.as_tensor(rng.integers(0, 2_700_000, (512, 20)).astype(np.int32))
+    want = mod(dt)
+    got = mod.to(card)(dt.to(card)).cpu()
+    assert float((got - want).abs().max()) <= 1e-6

@@ -1,0 +1,256 @@
+"""``TGATPipeline`` of the port against the JAX ``TGATPipeline``.
+
+A small stream made with numpy from a seed: 40 nodes, 330 train edges
+(batch 64, so the last batch is partial) and 180 val edges after them,
+6-dim edge features, node features ``normal(N, 1)``, two hops of K = 4
+and 3 recency neighbours, time / embed dims 6 / 8, Adam at lr 1e-3, the
+side-augmented table on (``edge_x_full`` and ``edge_ends_full``, as
+``bench.py --model tgat`` builds it), fp32 (``feat_bf16=False``,
+``attn_bf16=False`` in JAX).
+
+* ``build_aug_table`` exact, with endpoint arrays shorter than the table;
+  the directed two-orientation push of side payloads exact over every
+  train batch.
+* Two train epochs (each from fresh recency state, so the stream stays
+  chronological) with the same weights (the JAX ``init_carry``'s, loaded
+  by ``init_carry(params=...)``) and the negatives the JAX ``train_step``
+  draws (its ``carry.rng`` split as ``tgm_tpu/train/tgat_pipeline.py:279-281``
+  does), then 3 val batches through ``eval_step`` with 5 candidates per
+  edge (some PAD). Bands (the North star's): losses within 5e-3 and the
+  first within 1e-5, the recency state exact, MRR within 0.01 with equal
+  counts. The measured gaps are printed.
+* Within the port, from its own seeded weights: the aug-table route
+  against the plain eid route and the feature layout (losses within 1e-6,
+  MRR sums within 1e-6); the bf16 options raise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tgm_tpu import DGData as JDGData
+from tgm_tpu import DGraph as JDGraph
+from tgm_tpu.data.split import TGBSplit as JTGBSplit
+from tgm_tpu.hooks.neighbors import recency_eid_init as j_recency_eid_init
+from tgm_tpu.train import DeviceEdgeStream as JStream
+from tgm_tpu.train import jit_scan_epoch as j_jit_scan_epoch
+from tgm_tpu.train.tgat_pipeline import TGATPipeline as JPipeline
+from tgm_tpu.train.tgat_pipeline import build_aug_table as j_build_aug_table
+from tgm_tpu_torch import DGData, DGraph
+from tgm_tpu_torch.data.split import TGBSplit
+from tgm_tpu_torch.hooks.neighbors import recency_eid_init, recency_init
+from tgm_tpu_torch.train import DeviceEdgeStream, TGATPipeline, build_aug_table, jit_scan_epoch
+
+N, E_TRAIN, E_VAL, D, B, EMB, TIME, KS, Q = 40, 330, 180, 6, 64, 8, 6, (4, 3), 5
+LR, EPOCHS, EVAL_BATCHES = 1e-3, 2, 3
+REC_NAMES = ("nbr_ids", "nbr_times", "nbr_eids", "write_pos")
+
+
+def make_stream(seed=0):
+    """(src, dst, t, edge_x, node_x, split bounds, per-val-batch candidates)."""
+    rng = np.random.default_rng(seed)
+    E = E_TRAIN + E_VAL
+    src = rng.integers(0, N, E)
+    dst = rng.integers(0, N, E)
+    dst = np.where(dst == src, (dst + 1) % N, dst)
+    t = np.sort(rng.integers(0, 3000, E))  # repeated times: ties inside batches
+    t[E_TRAIN:] += 1  # the val split starts strictly after the train split
+    edge_x = rng.normal(size=(E, D)).astype(np.float32)
+    node_x = rng.normal(size=(N, 1)).astype(np.float32)
+    bounds = {"train": (0, int(t[E_TRAIN - 1])), "val": (int(t[E_TRAIN]), int(t[-1])),
+              "test": (int(t[-1]), int(t[-1]))}
+    cands = rng.integers(0, N, (EVAL_BATCHES, B, Q)).astype(np.int32)
+    cands[rng.random(cands.shape) < 0.1] = -1
+    return src, dst, t, edge_x, node_x, bounds, cands
+
+
+def port_streams(src, dst, t, edge_x, bounds):
+    data = DGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    train, val, _ = data.split(TGBSplit(bounds))
+    return (data, DeviceEdgeStream(DGraph(train), B, device="cpu"),
+            DeviceEdgeStream(DGraph(val), B, device="cpu"))
+
+
+def port_pipe(data, src, dst, node_x, layout="aug"):
+    table = {"aug": dict(edge_x_full=data.edge_x, edge_ends_full=(src, dst)),
+             "eid": dict(edge_x_full=data.edge_x), "feature": {}}[layout]
+    return TGATPipeline(N, D, node_x, num_nbrs=KS, time_dim=TIME, embed_dim=EMB, lr=LR,
+                        neg_low=0, neg_high=N, device="cpu", **table)
+
+
+def run_jax(src, dst, t, edge_x, node_x, bounds, cands):
+    data = JDGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    train, val, _ = data.split(JTGBSplit(bounds))
+    ts, vs = JStream(JDGraph(train), B), JStream(JDGraph(val), B)
+    assert ts.num_edges == E_TRAIN and vs.num_edges == E_VAL
+    pipe = JPipeline(num_nodes=N, edge_dim=D, node_x=jnp.asarray(node_x), num_nbrs=KS,
+                     time_dim=TIME, embed_dim=EMB, lr=LR, neg_low=0, neg_high=N,
+                     edge_x_full=jnp.asarray(data.edge_x), edge_ends_full=(src, dst),
+                     feat_bf16=False, attn_bf16=False)
+    carry = pipe.init_carry(jax.random.PRNGKey(7))
+    params = jax.tree_util.tree_map(np.asarray, carry.params)
+    # The negatives train_step draws: split the carry's key, randint.
+    negs, key = [], carry.rng
+    for _ in range(EPOCHS * ts.num_batches):
+        key, k_neg = jax.random.split(key)
+        negs.append(np.asarray(jax.random.randint(k_neg, (B,), pipe.neg_low, pipe.neg_high,
+                                                  dtype=jnp.int32)))
+    epoch = j_jit_scan_epoch(pipe.train_step, ts.batch_at, ts.num_batches, donate_carry=False)
+    losses, recs = [], []
+    for _ in range(EPOCHS):
+        carry = carry._replace(rec_state=j_recency_eid_init(N, max(KS)))
+        carry, ls = epoch(carry)
+        losses.append(np.asarray(ls))
+        recs.append([np.array(x) for x in carry.rec_state])
+    step = jax.jit(lambda c, i, cd: pipe.eval_step(c, vs.batch_at(i), cd))
+    sums, counts = [], []
+    for i in range(EVAL_BATCHES):
+        carry, (s, n) = step(carry, i, jnp.asarray(cands[i]))
+        sums.append(float(s))
+        counts.append(float(n))
+    return dict(params=params, negs=negs, losses=np.concatenate(losses), recs=recs, sums=sums,
+                counts=counts, eval_rec=[np.array(x) for x in carry.rec_state])
+
+
+def run_port(pipe, ts, vs, cands, params, negs):
+    carry = pipe.init_carry(params=params)
+    it = iter(negs)
+    pipe.draw_neg = lambda rng, size: torch.from_numpy(next(it).copy())
+    epoch = jit_scan_epoch(pipe.train_step, ts.batch_at, ts.num_batches)
+    fresh = {True: lambda: recency_eid_init(N, max(KS), "cpu"),
+             False: lambda: recency_init(N, max(KS), D, "cpu")}[pipe.edge_x_full is not None]
+    losses, recs = [], []
+    for _ in range(EPOCHS):
+        carry = carry._replace(rec_state=fresh())
+        carry, ls = epoch(carry)
+        losses.append(ls.numpy())
+        recs.append([x.numpy().copy() for x in carry.rec_state])
+    sums, counts = [], []
+    for i in range(EVAL_BATCHES):
+        carry, (s, n) = pipe.eval_step(carry, vs.batch_at(i), torch.from_numpy(cands[i]))
+        sums.append(float(s))
+        counts.append(float(n))
+    assert next(it, None) is None
+    return dict(losses=np.concatenate(losses), recs=recs, sums=sums, counts=counts,
+                eval_rec=[x.numpy().copy() for x in carry.rec_state])
+
+
+def run_both(seed=0):
+    src, dst, t, edge_x, node_x, bounds, cands = make_stream(seed)
+    j = run_jax(src, dst, t, edge_x, node_x, bounds, cands)
+    data, ts, vs = port_streams(src, dst, t, edge_x, bounds)
+    return j, run_port(port_pipe(data, src, dst, node_x), ts, vs, cands, j["params"], j["negs"])
+
+
+def test_build_aug_table_matches_jax():
+    src, dst, _, edge_x, node_x, _, _ = make_stream(1)
+    # A table padded past the real edge count: the ends are shorter than it.
+    table = np.concatenate([edge_x, np.zeros((6, D), np.float32)])
+    want = j_build_aug_table(jnp.asarray(table), jnp.asarray(node_x), src, dst)
+    got = build_aug_table(torch.from_numpy(table), torch.from_numpy(node_x), src, dst)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (2 * len(table), 1 + D)
+    np.testing.assert_array_equal(got[1].numpy(), np.concatenate([node_x[dst[0]], edge_x[0]]))
+
+
+def test_side_payload_push_matches_jax():
+    src, dst, t, edge_x, node_x, bounds, _ = make_stream(2)
+    jdata = JDGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    jts = JStream(JDGraph(jdata.split(JTGBSplit(bounds))[0]), B)
+    j_pipe = JPipeline(num_nodes=N, edge_dim=D, node_x=jnp.asarray(node_x), num_nbrs=KS,
+                       edge_x_full=jnp.asarray(jdata.edge_x), edge_ends_full=(src, dst),
+                       feat_bf16=False, attn_bf16=False)
+    data, ts, _ = port_streams(src, dst, t, edge_x, bounds)
+    pipe = port_pipe(data, src, dst, node_x)
+    j_push = jax.jit(j_pipe._push)
+    j_state, state = j_recency_eid_init(N, max(KS)), recency_eid_init(N, max(KS), "cpu")
+    for i in range(ts.num_batches):
+        j_state = j_push(j_state, jts.batch_at(i))
+        state = pipe._push(state, ts.batch_at(i))
+        for name, g, w in zip(REC_NAMES, state, j_state):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{name} @ {i}")
+    # Payloads carry the side: the stored neighbour's end of the edge.
+    pay, ids = state[2].numpy(), state[0].numpy()
+    live = pay >= 0
+    ends = np.stack([src, dst], 1)[pay[live] >> 1, pay[live] & 1]
+    np.testing.assert_array_equal(ends, ids[live])
+    assert (pay[live] & 1).any() and not (pay[live] & 1).all()
+
+
+def test_two_epochs_and_eval_match_jax():
+    j, p = run_both()
+    loss_diff = np.abs(p["losses"] - j["losses"])
+    mrr = lambda r: sum(r["sums"]) / max(sum(r["counts"]), 1.0)
+    mrr_diff = abs(mrr(p) - mrr(j))
+    print(f"train steps {j['losses'].size}: first-loss diff {loss_diff[0]:.3g}, max loss diff "
+          f"{loss_diff.max():.3g}; eval MRR diff {mrr_diff:.3g} (JAX {mrr(j):.6f}, per-batch "
+          f"sums {j['sums']} against {p['sums']}); JAX losses {np.round(j['losses'], 5).tolist()}")
+    assert loss_diff[0] <= 1e-5 and loss_diff.max() <= 5e-3
+    assert p["counts"] == j["counts"] and sum(j["counts"]) > 0
+    assert mrr_diff <= 0.01
+    for e, (got, want) in enumerate(zip(p["recs"], j["recs"])):
+        for name, g, w in zip(REC_NAMES, got, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"epoch {e} recency {name}")
+    for name, g, w in zip(REC_NAMES, p["eval_rec"], j["eval_rec"]):
+        np.testing.assert_array_equal(g, w, err_msg=f"after eval: recency {name}")
+    assert j["losses"].max() - j["losses"].min() > 1e-3
+
+
+@pytest.mark.parametrize("layout", ["eid", "feature"])
+def test_aug_table_route_equals_the_plain_routes(layout):
+    """The same weights (the port's seeded init) and negatives through the
+    side-augmented route and a plain one."""
+    src, dst, t, edge_x, node_x, bounds, cands = make_stream(3)
+    data, ts, vs = port_streams(src, dst, t, edge_x, bounds)
+    rng = np.random.default_rng(4)
+    negs = [rng.integers(0, N, B).astype(np.int32) for _ in range(EPOCHS * ts.num_batches)]
+    params = None
+    runs = {}
+    for route in ("aug", layout):
+        pipe = port_pipe(data, src, dst, node_x, route)
+        if params is None:
+            params = export_params(pipe.init_carry(5).params)
+        runs[route] = run_port(pipe, ts, vs, cands, params, negs)
+    a, b = runs["aug"], runs[layout]
+    assert np.abs(a["losses"] - b["losses"]).max() <= 1e-6
+    assert a["counts"] == b["counts"]
+    assert max(abs(x - y) for x, y in zip(a["sums"], b["sums"])) <= 1e-6
+    # The same neighbours were stored: ids and times equal in every layout.
+    for got, want in zip(a["recs"], b["recs"]):
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g, w)
+
+
+def export_params(modules):
+    """The port's TGAT and LinkPredictor weights as the flax tree
+    ``load_tgat_params`` reads (Dense kernels transposed)."""
+    enc, dec = modules["enc"], modules["dec"]
+    np_ = lambda x: x.detach().numpy().copy()
+    dense = lambda lin: ({"kernel": np_(lin.weight).T} if lin.bias is None else
+                         {"kernel": np_(lin.weight).T, "bias": np_(lin.bias)})
+    tree = {"time_encoder": {"w": np_(enc.time_encoder.w.weight).T,
+                             "b": np_(enc.time_encoder.w.bias)}}
+    for i, (attn, merge) in enumerate(zip(enc.attn, enc.merge_layers)):
+        tree[f"attn_{i}"] = {name: dense(getattr(attn, name)) for name in ("W_Q", "W_KV", "W_O")}
+        tree[f"attn_{i}"]["layer_norm"] = {"scale": np_(attn.layer_norm.weight),
+                                           "bias": np_(attn.layer_norm.bias)}
+        tree[f"merge_layers_{i}"] = {"Dense_0": dense(merge.fc1), "Dense_1": dense(merge.fc2)}
+    linears = [m for m in dec.model if isinstance(m, torch.nn.Linear)]
+    return {"enc": {"params": tree},
+            "dec": {"params": {"mlp": {f"Dense_{i}": dense(m) for i, m in enumerate(linears)}}}}
+
+
+def test_options():
+    node_x = np.zeros((N, 1), np.float32)
+    for kw in (dict(feat_bf16=True), dict(attn_bf16=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TGATPipeline(N, D, node_x, device="cpu", **kw)
+    with pytest.raises(ValueError, match="attn_score_layout"):
+        TGATPipeline(N, D, node_x, attn_score_layout="lanesv", device="cpu")
+    pipe = TGATPipeline(N, D, node_x, feat_bf16=None, attn_bf16=None, state_row_multiple=8,
+                        attn_score_layout="lanes", device="cpu")
+    carry = pipe.init_carry(3)
+    assert pipe.aug_x is None and carry.rec_state[0].shape == (N + 1, 10)
+    assert carry.params["enc"].attn[0].dropout == 0.0

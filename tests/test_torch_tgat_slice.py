@@ -1,0 +1,294 @@
+"""The TGAT slice as a whole: the hook-path example's flow in both packages.
+
+Two epochs of train then val on a small stream (120 nodes, 800 edges,
+batch 100, 5 candidates per eval edge, two hops of K = 5 recency
+neighbours in the eid layout, time / embed dims 8 / 16, 8-dim edge
+features, node features ``normal(N, 1)``, made with numpy from a seed),
+split 70/15/15, the hook state reset after each epoch; then train and val
+replayed through the hooks and test evaluated, as
+``examples/linkproppred/tgat.py`` runs it. Same weights (JAX's init,
+loaded by ``load_tgat_params``), dropout 0, Adam at lr 1e-3 in both. The
+two frameworks draw different random numbers, so the port is fed each
+draw of the JAX random-negative hook (``neg``) and TGB hook
+(``neg_time``), replays included.
+
+Bands (the North star's): per-batch losses within 5e-3 and the first within
+1e-5; val MRR within 0.01 per epoch and test MRR within 0.02; the recency
+state exact after each epoch. The measured gaps are printed.
+
+The port's example script runs one epoch on the CPU, narrowed, and
+``--sampling uniform`` raises.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tgm_tpu import DGData as JDGData
+from tgm_tpu import DGraph as JDGraph
+from tgm_tpu.constants import PADDED_NODE_ID
+from tgm_tpu.eval.metrics import mrr_sum_count as j_mrr_sum_count
+from tgm_tpu.hooks import HookManager as JHookManager
+from tgm_tpu.hooks import RandomNegativeEdgeSamplerHook as JRandomNeg
+from tgm_tpu.hooks import RecencyNeighborHook as JRecency
+from tgm_tpu.hooks import TGBNegativeEdgeSamplerHook as JTGB
+from tgm_tpu.hooks import candidate_rows as j_candidate_rows
+from tgm_tpu.hooks import seed_lookup as j_seed_lookup
+from tgm_tpu.nn import TGAT as JTGAT
+from tgm_tpu.nn import LinkPredictor as JLinkPredictor
+from tgm_tpu.train import DeviceEdgeStream as JStream
+from tgm_tpu_torch import DGData, DGraph
+from tgm_tpu_torch.examples.linkproppred import tgat as tgat_example
+from tgm_tpu_torch.hooks import (
+    HookManager,
+    RandomNegativeEdgeSamplerHook,
+    RecencyNeighborHook,
+    TGBNegativeEdgeSamplerHook,
+)
+from tgm_tpu_torch.nn import TGAT, LinkPredictor
+from tgm_tpu_torch.train import (
+    DeviceEdgeStream,
+    build_tgat_eval_core,
+    build_tgat_train_core,
+    hook_epoch,
+)
+from tgm_tpu_torch.weights import load_tgat_params
+
+N, E, BSIZE, Q, KS, TIME, EMB, EDGE_DIM = 120, 800, 100, 5, [5, 5], 8, 16, 8
+EPOCHS, LR = 2, 1e-3
+SPLITS = ("train", "val", "test")
+
+
+def make_stream(seed=0):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, N, E)
+    dst = rng.integers(0, N, E)
+    dst = np.where(dst == src, (dst + 1) % N, dst)
+    t = np.sort(rng.integers(0, 2 * E, E))
+    edge_x = rng.normal(size=(E, EDGE_DIM)).astype(np.float32)
+    node_x = rng.normal(size=(N, 1)).astype(np.float32)
+    return src, dst, t, edge_x, node_x, rng
+
+
+def jax_cores(encoder, decoder, opt, node_x):
+    """The JAX example's ``train_core`` and ``eval_core`` (examples/linkproppred/tgat.py:146-212)."""
+
+    def encode(p, batch):
+        return encoder.apply(p["enc"], node_x, batch.seed_nids, batch.seed_times,
+                             batch.nbr_nids, batch.nbr_edge_x, batch.nbr_edge_time)
+
+    def bce(logits, target, mask):
+        loss = optax.sigmoid_binary_cross_entropy(logits, target)
+        w = mask.astype(loss.dtype)
+        return jnp.sum(loss * w) / jnp.maximum(jnp.sum(w), 1.0)
+
+    def train_core(carry, batch):
+        params, opt_state = carry
+        B = batch.edge_src.shape[0]
+
+        def loss_fn(p):
+            z = encode(p, batch)
+            pos = decoder.apply(p["dec"], z[:B], z[B:2 * B])
+            neg = decoder.apply(p["dec"], z[:B], z[2 * B:3 * B])
+            m = batch.edge_valid
+            return bce(pos, jnp.ones_like(pos), m) + bce(neg, jnp.zeros_like(neg), m)
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = opt.update(grads, opt_state)
+        return (optax.apply_updates(params, updates), opt_state), loss
+
+    def eval_core(params, batch):
+        B = batch.edge_src.shape[0]
+        Qn = batch.neg_batch_list.shape[1]
+        z = encode(params, batch)
+        lut = j_seed_lookup(batch.seed_nids[0], N)
+        rows_c, found = j_candidate_rows(lut, batch.neg_batch_list, z.shape[0])
+        pos = decoder.apply(params["dec"], z[:B], z[B:2 * B])
+        neg = decoder.apply(params["dec"],
+                            jnp.repeat(z[:B][:, None, :], Qn, axis=1).reshape(B * Qn, -1),
+                            z[rows_c].reshape(B * Qn, -1)).reshape(B, Qn)
+        return params, j_mrr_sum_count(
+            pos, neg, neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
+            edge_valid=batch.edge_valid)
+
+    return train_core, eval_core
+
+
+def run_jax(src, dst, t, edge_x, node_x, cands):
+    data = JDGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    dgs = dict(zip(SPLITS, (JDGraph(d) for d in data.split())))
+    hm = JHookManager(keys=list(SPLITS))
+    train_dst = dgs["train"].edge_dst
+    hm.register("train", JRandomNeg(low=int(train_dst.min()), high=int(train_dst.max())))
+    for split in ("val", "test"):
+        hm.register(split, JTGB(candidates=cands[split]))
+    rec = JRecency(N, KS, ["edge_src", "edge_dst", "neg"], ["edge_time", "edge_time", "neg_time"],
+                   edge_dim=EDGE_DIM, edge_x_full=data.edge_x)
+    hm.register_shared(rec)
+    encoder = JTGAT(node_dim=1, edge_dim=EDGE_DIM, time_dim=TIME, embed_dim=EMB,
+                    num_layers=len(KS), n_heads=2, dropout=0.0)
+    decoder = JLinkPredictor(node_dim=EMB)
+    x = jnp.asarray(node_x)
+    S = 12
+    hops = ([jnp.zeros(S, jnp.int32), jnp.zeros(S * KS[0], jnp.int32)],
+            [jnp.zeros(S, jnp.int32), jnp.zeros(S * KS[0], jnp.int32)],
+            [jnp.zeros((S, KS[0]), jnp.int32), jnp.zeros((S * KS[0], KS[1]), jnp.int32)],
+            [jnp.zeros((S, KS[0], EDGE_DIM)), jnp.zeros((S * KS[0], KS[1], EDGE_DIM))],
+            [jnp.zeros((S, KS[0]), jnp.int32), jnp.zeros((S * KS[0], KS[1]), jnp.int32)])
+    k1, k2 = jax.random.split(jax.random.PRNGKey(7))
+    params = {"enc": encoder.init(k1, x, *hops),
+              "dec": decoder.init(k2, jnp.zeros((1, EMB)), jnp.zeros((1, EMB)))}
+    init_params = params
+    opt = optax.adam(LR)
+    opt_state = opt.init(params)
+    train_core, eval_core = jax_cores(encoder, decoder, opt, x)
+    streams = {s: JStream(dgs[s], BSIZE) for s in SPLITS}
+    steps = {}
+
+    def step_fn(split, core):
+        key = (split, core)
+        if key not in steps:
+            fn, _ = hm.as_transform(split, dgs[split])
+
+            @jax.jit
+            def step(states, carry, i):
+                states, batch = fn(states, streams[split].batch_at(i))
+                carry, out = (carry, 0.0) if core is None else core(carry, batch)
+                return states, carry, out, batch.neg if split == "train" else batch.neg_time
+
+            steps[key] = step
+        return steps[key]
+
+    injected = {"neg": [], "neg_time": []}
+
+    def run(split, core, carry):
+        _, states = hm.as_transform(split, dgs[split])
+        outs = []
+        for i in range(streams[split].num_batches):
+            states, carry, out, drawn = step_fn(split, core)(states, carry, i)
+            outs.append(out)
+            injected["neg" if split == "train" else "neg_time"].append(np.asarray(drawn))
+        hm.adopt_states(split, states)
+        return carry, outs
+
+    def mrr(outs):
+        return sum(float(s) for s, _ in outs) / max(sum(float(c) for _, c in outs), 1.0)
+
+    epochs = []
+    for _ in range(EPOCHS):
+        (params, opt_state), losses = run("train", train_core, (params, opt_state))
+        params, outs = run("val", eval_core, params)
+        epochs.append(dict(losses=[float(v) for v in losses], val=mrr(outs),
+                           rec=[np.asarray(a) for a in rec.state]))
+        hm.reset_state()
+    run("train", None, None)
+    run("val", None, None)
+    _, outs = run("test", eval_core, params)
+    moved = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in
+                zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(init_params)))
+    return init_params, epochs, mrr(outs), injected, moved
+
+
+def run_port(src, dst, t, edge_x, node_x, cands, params, injected):
+    data = DGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    dgs = dict(zip(SPLITS, (DGraph(d) for d in data.split())))
+    negs, neg_times = iter(injected["neg"]), iter(injected["neg_time"])
+    hm = HookManager(keys=list(SPLITS))
+    train_dst = dgs["train"].edge_dst
+    rnd = RandomNegativeEdgeSamplerHook(low=int(train_dst.min()), high=int(train_dst.max()),
+                                        device="cpu")
+    rnd.draw_neg = lambda size: torch.from_numpy(next(negs).copy())
+    hm.register("train", rnd)
+    for split in ("val", "test"):
+        tgb = TGBNegativeEdgeSamplerHook(cands[split], device="cpu")
+        tgb.draw_neg_time = lambda n, lo, hi: torch.from_numpy(next(neg_times).copy())
+        hm.register(split, tgb)
+    rec = RecencyNeighborHook(N, KS, ["edge_src", "edge_dst", "neg"],
+                              ["edge_time", "edge_time", "neg_time"], edge_dim=EDGE_DIM,
+                              edge_x_full=data.edge_x, device="cpu")
+    hm.register_shared(rec)
+    encoder = TGAT(1, EDGE_DIM, TIME, EMB, len(KS), n_heads=2, dropout=0.0)
+    decoder = LinkPredictor(node_dim=EMB)
+    load_tgat_params(params, encoder, decoder)
+    opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=LR)
+    x = torch.from_numpy(node_x)
+    train_core = build_tgat_train_core(encoder, decoder, opt, x)
+    eval_core = build_tgat_eval_core(encoder, decoder, x, N)
+    streams = {s: DeviceEdgeStream(dgs[s], BSIZE, device="cpu") for s in SPLITS}
+
+    def run(split, core, carry):
+        epoch, states = hook_epoch(streams[split], hm, split, dgs[split], core)
+        carry, states, outs = epoch(carry, states)
+        hm.adopt_states(split, states)
+        return carry, outs
+
+    def mrr(outs):
+        s, c = outs
+        return float(s.sum() / c.sum().clamp_min(1.0))
+
+    replay = lambda carry, batch: (carry, torch.zeros(()))
+    epochs = []
+    for _ in range(EPOCHS):
+        _, losses = run("train", train_core, (None,))
+        _, outs = run("val", eval_core, None)
+        epochs.append(dict(losses=losses.tolist(), val=mrr(outs),
+                           rec=[a.numpy().copy() for a in rec.state]))
+        hm.reset_state()
+    run("train", replay, None)
+    run("val", replay, None)
+    _, outs = run("test", eval_core, None)
+    assert next(negs, None) is None and next(neg_times, None) is None
+    return epochs, mrr(outs)
+
+
+def test_two_epochs_match_the_jax_example_flow():
+    src, dst, t, edge_x, node_x, rng = make_stream(0)
+    data = DGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    _, val, test = data.split()
+    cands = {"val": rng.integers(0, N, (val.num_edge_events, Q)),
+             "test": rng.integers(0, N, (test.num_edge_events, Q))}
+    params, j_epochs, j_test, injected, j_moved = run_jax(src, dst, t, edge_x, node_x, cands)
+    p_epochs, p_test = run_port(src, dst, t, edge_x, node_x, cands, params, injected)
+
+    loss_diff = [np.abs(np.subtract(p["losses"], j["losses"])) for p, j in zip(p_epochs, j_epochs)]
+    val_diff = max(abs(p["val"] - j["val"]) for p, j in zip(p_epochs, j_epochs))
+    test_diff = abs(p_test - j_test)
+    losses = np.concatenate([j["losses"] for j in j_epochs])
+    print(f"train steps {losses.size}: first-loss diff {loss_diff[0][0]:.3g}, max loss diff "
+          f"{max(d.max() for d in loss_diff):.3g}; max val MRR diff {val_diff:.3g}, test MRR "
+          f"diff {test_diff:.3g}; JAX losses {np.round(losses, 5).tolist()}, val MRR "
+          f"{[j['val'] for j in j_epochs]}, test MRR {j_test}; largest JAX weight move "
+          f"{j_moved:.3g}")
+    assert losses.size == 2 * len(j_epochs[0]["losses"]) and len(j_epochs[0]["losses"]) >= 5
+    assert loss_diff[0][0] <= 1e-5
+    assert max(d.max() for d in loss_diff) <= 5e-3
+    assert val_diff <= 0.01 and test_diff <= 0.02
+    for e, (p, j) in enumerate(zip(p_epochs, j_epochs)):
+        for name, a, b in zip(("nbr_ids", "nbr_times", "nbr_eids", "write_pos"), p["rec"], j["rec"]):
+            np.testing.assert_array_equal(a, b, err_msg=f"epoch {e} recency {name}")
+        assert 0.0 < p["val"] <= 1.0
+    assert 0.0 < p_test <= 1.0
+    # The run learned something: the loss and the weights moved.
+    assert losses.max() - losses.min() > 1e-3
+    assert j_moved > 1e-3
+
+
+def test_example_script_runs_one_epoch_on_the_cpu(tmp_path):
+    log = tmp_path / "metrics.jsonl"
+    out = tgat_example.main(["--dataset", "synthetic-120-800", "--epochs", "1", "--device", "cpu",
+                             "--n-nbrs", "5", "5", "--time-dim", "8", "--embed-dim", "16",
+                             "--log-file-path", str(log)])
+    assert np.isfinite(out["loss"]) and out["loss"] > 0
+    assert 0.0 < out["val_mrr"] <= 1.0 and 0.0 < out["test_mrr"] <= 1.0
+    metrics = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [m["metric"] for m in metrics] == ["loss", "val_mrr", "test_mrr"]
+
+
+def test_example_script_uniform_sampling_raises():
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tgat_example.main(["--device", "cpu", "--sampling", "uniform"])

@@ -19,8 +19,10 @@ package (bit-equal to its sorted plan), planned and written on the card by
 the push kernel (``ops.recency_push``, two launches) for both layouts. The
 buffers are updated in place; the dump row is never written.
 
-The packed layout, multi-hop queries and the uniform ``NeighborSamplerHook``
-are queued in ROADMAP.md.
+A multi-hop query (TGAT) runs one select a hop: hop i+1's seeds and times
+are hop i's neighbours and their times, flattened (PAD seeds read the dump
+row), and the push runs once, after every hop. The packed layout and the
+uniform ``NeighborSamplerHook`` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -131,7 +133,8 @@ def recency_eid_update(
 class RecencyNeighborHook(SeedableHook, StatefulHook):
     """K most-recent temporal neighbours per node, maintained incrementally.
 
-    Two state layouts (one hop, unpacked):
+    Two state layouts (unpacked), for one hop or several (``num_nbrs``
+    has one count per hop; the rings hold ``max(num_nbrs)`` slots):
 
     * default: the ring buffers hold each event's edge features by value in
       an (N+1, B, D) fp32 buffer (D = ``edge_dim``, else the graph's edge
@@ -140,6 +143,12 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
       features are gathered from ``edge_x_full``, the PRE-SPLIT dataset's
       feature table, so the global ``edge_ids`` of every split's batches
       resolve.
+
+    Every product is a list with one entry per hop: ``seed_nids[i]`` and
+    ``seed_times[i]`` (S_i,) are hop i's seeds (hop 0: the batch's seeds,
+    hop i + 1: hop i's neighbours flattened), ``nbr_nids[i]``,
+    ``nbr_edge_time[i]`` (S_i, K_i) and ``nbr_edge_x[i]`` (S_i, K_i, D)
+    their neighbours.
     """
 
     _cls_requires = {"edge_src", "edge_dst", "edge_time"}
@@ -178,10 +187,6 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
             raise NotImplementedError(
                 "the packed recency layout (packed_buffers=True) is queued in ROADMAP.md"
             )
-        if len(num_nbrs) != 1:
-            raise NotImplementedError(
-                "multi-hop recency queries are queued in ROADMAP.md (the TGAT slice)"
-            )
         super().__init__(seed_keys=seed_nodes_keys, id=id)
         self._num_nodes = num_nodes
         self._num_nbrs = list(num_nbrs)
@@ -217,30 +222,45 @@ class RecencyNeighborHook(SeedableHook, StatefulHook):
             offset += s.shape[0]
         return torch.cat(seeds), torch.cat(times), mask
 
-    def apply(self, state: Any, batch: DGBatch) -> Tuple[Any, DGBatch]:
-        seeds, times, seed_mask = self._get_seeds(batch)
-        k = self._num_nbrs[0]
+    def _query(self, state: Any, seeds: torch.Tensor, times: torch.Tensor, k: int):
+        """One hop: (S, K) ids and times and (S, K, D) features; one launch of
+        K1 (eid layout, features fused) or of K4 (feature layout)."""
         if self._edge_x_full is not None:
-            if not batch.has("edge_ids"):
-                raise ValueError(
-                    "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
-                    "(served by train.stream.DeviceEdgeStream)"
-                )
             nbrs, nts, _, nxs = recency_eid_select(state, seeds, times, k, self._edge_x_full)
+            return nbrs, nts, nxs
+        return recency_query(state, seeds, times, k)
+
+    def apply(self, state: Any, batch: DGBatch) -> Tuple[Any, DGBatch]:
+        eid_layout = self._edge_x_full is not None
+        if eid_layout and not batch.has("edge_ids"):
+            raise ValueError(
+                "RecencyNeighborHook(edge_x_full=...) needs batches with edge_ids "
+                "(served by train.stream.DeviceEdgeStream)"
+            )
+        seeds, times, seed_mask = self._get_seeds(batch)
+        hop_seeds, hop_times, hop_nbrs, hop_nbr_t, hop_nbr_x = [seeds], [times], [], [], []
+        for hop, k in enumerate(self._num_nbrs):
+            if hop > 0:
+                hop_seeds.append(hop_nbrs[-1].reshape(-1))
+                hop_times.append(hop_nbr_t[-1].reshape(-1))
+            nbrs, nts, nxs = self._query(state, hop_seeds[-1], hop_times[-1], k)
+            hop_nbrs.append(nbrs)
+            hop_nbr_t.append(nts)
+            hop_nbr_x.append(nxs)
+        if eid_layout:
             state = recency_eid_update(
                 state, batch.edge_src, batch.edge_dst, batch.edge_time, batch.edge_ids,
                 batch.edge_valid, self._directed,
             )
         else:
-            nbrs, nts, nxs = recency_query(state, seeds, times, k)
             state = recency_update(
                 state, batch.edge_src, batch.edge_dst, batch.edge_time,
                 batch.edge_x if batch.has("edge_x") else None, batch.edge_valid, self._directed,
             )
-        self.add_batch_attribute(batch, "seed_nids", [seeds])
-        self.add_batch_attribute(batch, "seed_times", [times])
-        self.add_batch_attribute(batch, "nbr_nids", [nbrs])
-        self.add_batch_attribute(batch, "nbr_edge_time", [nts])
-        self.add_batch_attribute(batch, "nbr_edge_x", [nxs])
+        self.add_batch_attribute(batch, "seed_nids", hop_seeds)
+        self.add_batch_attribute(batch, "seed_times", hop_times)
+        self.add_batch_attribute(batch, "nbr_nids", hop_nbrs)
+        self.add_batch_attribute(batch, "nbr_edge_time", hop_nbr_t)
+        self.add_batch_attribute(batch, "nbr_edge_x", hop_nbr_x)
         self.add_batch_attribute(batch, "seed_node_nbr_mask", seed_mask)
         return state, batch

@@ -7,6 +7,7 @@ from .encoder.dygformer import (
     TransformerEncoder,
     dygformer_stack_layers,
 )
+from .encoder.tgat import TGAT, MergeLayer
 from .encoder.tgn import (
     GraphAttentionEmbeddingRowwise,
     TGNMemory,
@@ -16,6 +17,7 @@ from .encoder.tgn import (
     tgn_store_messages,
 )
 from .modules.aggregation import Aggregator, ConcatMerge
+from .modules.attention import TemporalAttention
 from .modules.gru import TorchGRUCell
 from .modules.time_encoding import Time2Vec
 
@@ -26,10 +28,13 @@ __all__ = [
     "FusedSelfAttention",
     "GraphAttentionEmbeddingRowwise",
     "LinkPredictor",
+    "MergeLayer",
     "MultiHeadDotProductAttention",
     "NeighborCooccurrenceEncoder",
+    "TGAT",
     "TGNMemory",
     "TGNMemoryState",
+    "TemporalAttention",
     "Time2Vec",
     "TorchGRUCell",
     "TransformerEncoder",

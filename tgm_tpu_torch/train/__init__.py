@@ -5,21 +5,29 @@ from .programs import (
     bce_with_logits,
     build_dygformer_eval_core,
     build_dygformer_train_core,
+    build_tgat_eval_core,
+    build_tgat_train_core,
     build_tgn_hook_cores,
     tgn_eval_commit,
     tgn_train_commit,
 )
 from .stream import DeviceEdgeStream
+from .tgat_pipeline import TGATCarry, TGATPipeline, build_aug_table
 from .tgn_pipeline import TGNCarry, TGNPipeline
 
 __all__ = [
     "CheckpointManager",
     "DeviceEdgeStream",
+    "TGATCarry",
+    "TGATPipeline",
     "TGNCarry",
     "TGNPipeline",
     "bce_with_logits",
+    "build_aug_table",
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
+    "build_tgat_eval_core",
+    "build_tgat_train_core",
     "build_tgn_hook_cores",
     "hook_epoch",
     "jit_scan_epoch",

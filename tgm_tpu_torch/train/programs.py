@@ -16,6 +16,12 @@ DyGFormer example's ``train_core`` and ``eval_core``).
 * DyGFormer eval: the recency neighbour sequences of each (src, dst) and
   (src, candidate) pair through the encoder, ``LinkPredictor`` scores, TGB
   MRR.
+* TGAT train (``examples/linkproppred/tgat.py``): the multi-hop recency
+  neighbourhoods of [src | dst | neg] through TGAT with dropout,
+  ``LinkPredictor`` scores, masked BCE, backward, the optimizer step.
+* TGAT eval: TGAT embeddings of [src | dst | unique candidates], each
+  candidate's row found through the seed lookup, ``LinkPredictor`` scores,
+  TGB MRR.
 
 The memory state is updated in place. ``tgn_embed``, ``tgn_loss_and_grad``
 and ``score_candidates`` are the steps the hook cores share with
@@ -152,6 +158,36 @@ def score_candidates(decoder: Any, z_src: torch.Tensor, z_dst: torch.Tensor,
     dst = torch.cat([z_dst[:, None, :], z_cand], dim=1).reshape(B * (Q + 1), D)
     scores = decoder(src, dst).reshape(B, Q + 1)
     return scores[:, 0], scores[:, 1:]
+
+
+def tie_equal_candidates(pos: torch.Tensor, negs: torch.Tensor, z_dst: torch.Tensor,
+                         z_cand: torch.Tensor) -> torch.Tensor:
+    """``negs`` with the positive's score wherever a candidate's embedding
+    equals the positive's bit for bit: the decoder's input is the same, but
+    a matmul may round equal rows apart by their position (ROADMAP.md fault
+    8)."""
+    same = (z_cand == z_dst[:, None, :]).all(dim=-1)
+    return torch.where(same, pos[:, None], negs)
+
+
+def train_loss_and_grad(opt: torch.optim.Optimizer, embed: Callable[[], torch.Tensor],
+                        decoder: Any, edge_valid: torch.Tensor) -> torch.Tensor:
+    """Masked BCE of one train batch and its backward; returns the detached loss.
+
+    ``embed()`` gives the embeddings of [src | dst | neg], B rows each.
+    ``opt``'s gradients are zeroed in place and every parameter gets one
+    (``zero_every_grad``)."""
+    B = edge_valid.shape[0]
+    zero_every_grad(opt)
+    with torch.enable_grad():
+        z = embed()
+        pos = decoder(z[:B], z[B : 2 * B])
+        neg = decoder(z[:B], z[2 * B : 3 * B])
+        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid) + bce_with_logits(
+            neg, torch.zeros_like(neg), edge_valid
+        )
+        loss.backward()
+    return loss.detach()
 
 
 def build_tgn_hook_cores(
@@ -361,15 +397,96 @@ def build_dygformer_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
     return eval_core
 
 
+def _tgat_embed(encoder: Any, node_x: torch.Tensor, batch,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    return encoder(node_x, batch.seed_nids, batch.seed_times, batch.nbr_nids, batch.nbr_edge_x,
+                   batch.nbr_edge_time, generator=generator)
+
+
+def build_tgat_train_core(encoder: Any, decoder: Any, opt: torch.optim.Optimizer,
+                          node_x: torch.Tensor) -> Callable:
+    """Return the TGAT ``train_core(carry, batch) -> (carry, loss)`` of
+    ``examples/linkproppred/tgat.py``.
+
+    The JAX carry ``(params, opt_state, rng)`` maps to the modules'
+    parameters, ``opt``'s state and the carry ``(generator,)``: the
+    ``torch.Generator`` that draws the dropout masks (``None``: no dropout).
+    Batches carry the random-negative hook's ``neg`` (B ids) and the
+    multi-hop recency hook's per-hop products, seeds laid out [src | dst |
+    neg]. The loss, masked BCE of the positives and the negatives, is
+    detached. ``train_core.loss_and_grad(batch, generator) -> loss`` is its
+    first stage; ``opt.step()`` is the second.
+    """
+
+    def loss_and_grad(batch, generator):
+        return train_loss_and_grad(opt, lambda: _tgat_embed(encoder, node_x, batch, generator),
+                                   decoder, batch.edge_valid)
+
+    def train_core(carry, batch):
+        (generator,) = carry
+        loss = loss_and_grad(batch, generator)
+        opt.step()
+        return (generator,), loss
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core
+
+
+def build_tgat_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
+                         num_nodes: int) -> Callable:
+    """Return the TGAT ``eval_core(carry, batch) -> (carry, (mrr_sum, mrr_count))``
+    of ``examples/linkproppred/tgat.py``.
+
+    Batches carry the TGB hook's ``neg_batch_list`` and the recency hook's
+    products, seeds laid out [src | dst | unique candidates]; each
+    candidate's embedding row is found through the seed lookup. Positives
+    and candidates are scored in one decoder call, and a candidate whose
+    embedding equals the positive's ties with it. The carry is passed
+    through untouched. No dropout, whatever the modules' mode.
+
+    The returned core has two attributes: ``embed(batch)``, the (S_0,
+    embed_dim) embeddings of the seeds, and ``score(batch, z) -> (mrr_sum,
+    mrr_count)``; ``eval_core`` is ``score`` of ``embed``.
+    """
+
+    def embed(batch):
+        return _tgat_embed(encoder, node_x, batch, None)
+
+    def score(batch, z):
+        B = batch.edge_src.shape[0]
+        lut = seed_lookup(batch.seed_nids[0], num_nodes)
+        rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
+        z_dst, z_cand = z[B : 2 * B], z[rows_c.long()]
+        pos, negs = score_candidates(decoder, z[:B], z_dst, z_cand)
+        negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
+        return mrr_sum_count(
+            pos, negs,
+            neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
+            edge_valid=batch.edge_valid,
+        )
+
+    @torch.no_grad()
+    def eval_core(carry, batch):
+        return carry, score(batch, embed(batch))
+
+    eval_core.embed = torch.no_grad()(embed)
+    eval_core.score = torch.no_grad()(score)
+    return eval_core
+
+
 __all__ = [
     "bce_with_logits",
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
+    "build_tgat_eval_core",
+    "build_tgat_train_core",
     "build_tgn_hook_cores",
     "score_candidates",
     "tgn_embed",
     "tgn_eval_commit",
     "tgn_loss_and_grad",
     "tgn_train_commit",
+    "tie_equal_candidates",
+    "train_loss_and_grad",
     "zero_every_grad",
 ]

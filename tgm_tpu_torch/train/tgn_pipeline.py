@@ -54,6 +54,7 @@ from .programs import (
     tgn_eval_commit,
     tgn_loss_and_grad,
     tgn_train_commit,
+    tie_equal_candidates,
 )
 
 SCORE_LAYOUTS = ("lanesv", "lanes", "kmajor")
@@ -261,11 +262,7 @@ class TGNPipeline:
                          False, nbr_msg_proj=None if nbr_proj_table is None else nbr_x)
         z_dst, z_cand = z[B : 2 * B], z[2 * B :].reshape(B, Q, -1)
         pos, negs = score_candidates(params["dec"], z[:B], z_dst, z_cand)
-        # A candidate whose embedding equals the positive's bit for bit has
-        # the decoder's same input, so it gets the positive's score: a matmul
-        # may round equal rows apart by their position (ROADMAP.md fault 8).
-        same = (z_cand == z_dst[:, None, :]).all(dim=-1)
-        negs = torch.where(same, pos[:, None], negs)
+        negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
         s, c = mrr_sum_count(pos, negs, neg_valid=(cand_flat != PADDED_NODE_ID).reshape(B, Q),
                              edge_valid=batch.edge_valid)
         return self.eval_advance_state(carry, batch), (s, c)

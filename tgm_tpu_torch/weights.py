@@ -6,7 +6,9 @@ example builds it, and copies it into a ``TGNMemory``, a
 ``GraphAttentionEmbeddingRowwise`` and a ``LinkPredictor``.
 ``load_dygformer_params`` takes ``{"enc", "dec"}`` as the JAX ``DyGFormer``
 and ``LinkPredictor`` ``init`` build it (either attention layout) and copies
-it into a ``DyGFormer`` and a ``LinkPredictor``. The mappings:
+it into a ``DyGFormer`` and a ``LinkPredictor``. ``load_tgat_params`` takes
+``{"enc", "dec"}`` as the JAX ``TGAT`` and ``LinkPredictor`` ``init`` build
+it and copies it into a ``TGAT`` and a ``LinkPredictor``. The mappings:
 
 * Dense ``kernel (in, out)`` -> ``Linear.weight`` = kernel^T, ``bias`` -> ``bias``
   (``lin_edge`` has no bias);
@@ -20,7 +22,10 @@ it into a ``DyGFormer`` and a ``LinkPredictor``. The mappings:
   (D, H, dh) and ``out`` kernel (H, dh, D), flattened to (D, D), ->
   ``Linear.weight`` = kernel^T; biases (H, dh) flattened to (D,);
 * ``FusedSelfAttention_0`` (``fused_attn=True``) ``qkv`` (D, 3D) and
-  ``out`` (D, D) -> ``Linear.weight`` = kernel^T.
+  ``out`` (D, D) -> ``Linear.weight`` = kernel^T;
+* TGAT's ``attn_i`` ``W_Q`` / ``W_KV`` (no bias) / ``W_O`` / ``layer_norm``
+  and ``merge_layers_i`` ``Dense_0`` / ``Dense_1`` -> the ``TemporalAttention``
+  Linear layers and LayerNorm and the ``MergeLayer``'s ``fc1`` / ``fc2``.
 """
 
 from __future__ import annotations
@@ -149,4 +154,22 @@ def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
         raise ValueError(f"encoder has {len(encoder.transformers)} layers, the tree {n_tree}")
     for i, layer in enumerate(encoder.transformers):
         load_transformer_encoder_params(enc[f"transformers_{i}"], layer)
+    _mlp(decoder.model, params["dec"]["params"]["mlp"])
+
+
+@torch.no_grad()
+def load_tgat_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a TGAT and a LinkPredictor, in place."""
+    enc = params["enc"]["params"]
+    _time2vec(encoder.time_encoder, enc["time_encoder"])
+    n_tree = sum(1 for k in enc if k.startswith("attn_"))
+    if n_tree != len(encoder.attn):
+        raise ValueError(f"encoder has {len(encoder.attn)} layers, the tree {n_tree}")
+    for i, (attn, merge) in enumerate(zip(encoder.attn, encoder.merge_layers)):
+        sub = enc[f"attn_{i}"]
+        for name in ("W_Q", "W_KV", "W_O"):
+            _dense(getattr(attn, name), sub[name])
+        _layer_norm(attn.layer_norm, sub["layer_norm"])
+        _dense(merge.fc1, enc[f"merge_layers_{i}"]["Dense_0"])
+        _dense(merge.fc2, enc[f"merge_layers_{i}"]["Dense_1"])
     _mlp(decoder.model, params["dec"]["params"]["mlp"])
