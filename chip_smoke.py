@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step]
+    python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-segment]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
-training with TGAT's TGB eval), TGN through the fused ``TGNPipeline``
-(train, eval, a checkpointed serving flow), TGAT through the fused
-``TGATPipeline`` (train, eval), and its hand-written CUDA kernels, in
-phases:
+training with TGAT's TGB eval; TGN in both the rowwise and the segment
+formulation), TGN through the fused ``TGNPipeline`` (train, eval, a
+checkpointed serving flow; the segment and packed-state variants), TGAT
+through the fused ``TGATPipeline`` (train, eval), and its hand-written
+CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -134,12 +135,37 @@ phases:
               test through ``eval_step`` (20 candidates): ms per batch,
               edges/s, MRR, peak memory, launches; then 5 train and 3 val
               batches card against CPU as tgat-agree checks them.
-19. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+19. seg-train: the TGN segment route at the example's full width
+              (``--encoder segment``: the shared ``DeduplicationHook`` after
+              the recency hook, memory staged over the unique nodes, the
+              segment ``GraphAttentionEmbedding``, dropout 0.1, Adam at
+              1e-4, the flush commit): one train epoch, ``flush_all``, val
+              and test through ``eval_core``. Train and eval ms per batch and
+              edges/s, losses, MRR, peak device memory (absolute and the rise
+              over the phase's start), launches (K1, the push twice and the
+              store commit once a batch), and one train batch split into
+              recency hook, dedup hook, forward+backward, commit and
+              optimizer step (medians over 50 batches).
+20. seg-agree: the first 10 segment train batches and 3 val batches on the
+              card and on the CPU from the same weights, no dropout, the
+              card's negatives and ``neg_time`` draws fed to the CPU: dedup
+              products, recency state and integer memory exact, the first
+              loss within 1e-5 and every loss within 5e-3, memory within
+              1e-4; the val batches on the card's trained weights and memory
+              on both (MRR sums within 1e-4), the CPU's own beside them.
+21. seg-pipe: ``TGNPipeline(rowwise=False)`` for one train epoch;
+              ``TGNPipeline(packed_state=True)`` for a train epoch, val and
+              test against the unpacked pipeline on the same batches
+              (integer state exact, floats within 1e-6; the packed store is
+              PyTorch, so no store-commit launch); the mean aggregator's
+              flush and store over 5 batches, card against CPU (integer
+              state exact, memory within 1e-5).
+22. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
-20. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+23. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -2347,6 +2373,411 @@ def tgat_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
     return launches, eval_launches
 
 
+# ---------------------------------------------------------------------- #
+# The TGN segment path (the reference example's formulation) and the
+# TGN memory variants
+# ---------------------------------------------------------------------- #
+SEG_AGREE_TRAIN, SEG_AGREE_EVAL = 10, 3
+MEAN_AGREE_BATCHES = 5
+TGN_STEP_PACKED = {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES}
+
+
+def make_seg_models(seed: int):
+    from tgm_tpu_torch.nn import GraphAttentionEmbedding, LinkPredictor, TGNMemory
+
+    torch.manual_seed(seed)
+    memory = TGNMemory(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS)
+    encoder = GraphAttentionEmbedding(DIMS, DIMS, WIKI_EDGE_DIM, DIMS, n_heads=2,
+                                      dropout=TRAIN_DROPOUT)
+    decoder = LinkPredictor(node_dim=DIMS, hidden_dim=DIMS)
+    return [memory, encoder, decoder]
+
+
+def make_seg_pipeline(data, train, cands, models, device, seed: int, dedup: bool = True):
+    """The TGN example's ``--encoder segment`` hooks and cores: random
+    negatives on ``train``, TGB candidates on ``val`` and ``test``, the shared
+    eid-layout recency hook, then the shared ``DeduplicationHook`` (left out
+    with ``dedup=False``: the caller applies it itself); Adam at 1e-4."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import (
+        DeduplicationHook,
+        HookManager,
+        RandomNegativeEdgeSamplerHook,
+        RecencyNeighborHook,
+        TGBNegativeEdgeSamplerHook,
+    )
+    from tgm_tpu_torch.train import build_tgn_hook_cores
+
+    memory, encoder, decoder = (m.to(device) for m in models)
+    dst = DGraph(train).edge_dst
+    hm = HookManager(keys=["train", "val", "test"])
+    rnd = RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()), device=device, seed=seed)
+    hm.register("train", rnd)
+    tgbs = {s: TGBNegativeEdgeSamplerHook(cands[s], device=device) for s in ("val", "test")}
+    for s, h in tgbs.items():
+        hm.register(s, h)
+    rec = RecencyNeighborHook(
+        WIKI_NODES, [NUM_NBRS], ["edge_src", "edge_dst", "neg"],
+        ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
+        edge_x_full=data.edge_x, device=device,
+    )
+    hm.register_shared(rec)
+    dedup_hook = DeduplicationHook(WIKI_NODES, seed_nodes_keys=["neg", "nbr_nids"])
+    if dedup:
+        hm.register_shared(dedup_hook)
+    opt = torch.optim.Adam([p for m in (memory, encoder, decoder) for p in m.parameters()],
+                           lr=TRAIN_LR)
+    train_core, eval_core = build_tgn_hook_cores(memory, encoder, decoder, opt, WIKI_NODES,
+                                                 style="segment")
+    return dict(hm=hm, rec=rec, rnd=rnd, tgbs=tgbs, dedup=dedup_hook, memory=memory, opt=opt,
+                train_core=train_core, eval_core=eval_core)
+
+
+def _peak_line(base: int) -> str:
+    peak = torch.cuda.max_memory_allocated()
+    return (f"max_memory_allocated={peak / 2**30:.3f} GiB, rise over the phase's start "
+            f"{(peak - base) / 2**30:.3f} GiB")
+
+
+def _reset_peak() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def seg_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
+    """The segment hook route at full width: one train epoch (dropout 0.1),
+    ``flush_all``, val and test through ``eval_core``, then the stage split."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
+
+    p = make_seg_pipeline(data, train, cands, make_seg_models(seed), dev, seed)
+    hm, memory = p["hm"], p["memory"]
+    dg = DGraph(train)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    mem_state = memory.init_state(dev)
+    epoch, states = hook_epoch(stream, hm, "train", dg, p["train_core"])
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    (mem_state, generator), states, losses = epoch((mem_state, generator), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    hm.adopt_states("train", states)
+    n = stream.num_batches
+    check_launches("TGN segment train", launches, TGN_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"segment train losses not finite or of the wrong shape: {losses}")
+    log("seg-train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+                     f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                     f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                     f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; {peak}; "
+                     f"launches={launches} per_batch={ {k: v / n for k, v in launches.items()} } "
+                     f"[{card}]")
+
+    mem_state = memory.flush_all(mem_state)
+    base = _reset_peak()
+    reset_launches()
+    mrr, n_batches, n_edges, seconds = {}, 0, 0, 0.0
+    for split, d in (("val", val), ("test", test)):
+        sdg = DGraph(d)
+        sstream = DeviceEdgeStream(sdg, BATCH, device=dev)
+        epoch, states = hook_epoch(sstream, hm, split, sdg, p["eval_core"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem_state, states, (s, c) = epoch(mem_state, states)
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        hm.adopt_states(split, states)
+        mrr[split] = float(s.sum() / c.sum())
+        n_batches += sstream.num_batches
+        n_edges += sstream.num_edges
+        seconds += dt_eval
+        log("seg-train", f"{split}: {sstream.num_edges} edges in {sstream.num_batches} batches, "
+                         f"{dt_eval:.3f} s, {sstream.num_edges / dt_eval:.0f} edges/s, MRR "
+                         f"{mrr[split]:.6f} [{card}]")
+    eval_launches = read_launches()
+    check_launches("TGN segment eval", eval_launches, TGN_STEP, n_batches)
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"segment MRR out of range: {mrr}")
+    if not torch.isfinite(mem_state.mem).all():
+        raise AssertionError("non-finite memory after the segment route")
+    log("seg-train", f"eval after flush_all: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
+                     f"eval_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
+                     f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f}; "
+                     f"{_peak_line(base)}; launches={eval_launches} per_batch="
+                     f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
+
+    # Where one train batch's time goes: each stage ends in a synchronize.
+    # The hook step is timed as its two hooks: the recency hook (after the
+    # negatives) and the dedup hook, applied by hand.
+    q = make_seg_pipeline(data, train, cands, make_seg_models(seed), dev, seed, dedup=False)
+    fn, states = q["hm"].as_transform("train", dg)
+    mem_state = q["memory"].init_state(dev)
+    stages = {k: [] for k in ("recency_hook", "dedup_hook", "forward_backward", "commit",
+                              "optimizer")}
+    for i in range(SPLIT_BATCHES):
+        b = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        _, batch = q["dedup"].apply(None, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        _, staged = q["train_core"].loss_and_grad(mem_state, batch, generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        mem_state = q["train_core"].commit(mem_state, batch, staged)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        q["opt"].step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log("seg-train", f"one train batch split, medians over {SPLIT_BATCHES} batches, us from "
+                     f"Python with a synchronize after each stage: "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f}; dedup capacity U = {int(batch.unique_nids.shape[0])}, "
+          f"local edges {int(batch.nbr_nids[0].numel())} [{card}]")
+    return launches, eval_launches
+
+
+def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
+    """The first segment train batches, then val batches, on the card and on
+    the CPU from the same weights, no dropout, the card's negatives and
+    ``neg_time`` draws fed to the CPU. The val batches run on the card's
+    trained weights and memory on both (fault 10); the CPU's own weights
+    and memory score the same batches beside them, which shows the drift
+    of the two devices' summation orders."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.nn import TGNMemoryState
+    from tgm_tpu_torch.train import DeviceEdgeStream, build_tgn_hook_cores
+
+    base = make_seg_models(seed)
+    negs, neg_times = [], []
+    runs = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        models = [copy.deepcopy(m) for m in base]
+        p = make_seg_pipeline(data, train, cands, models, device, seed)
+        rnd, tgb = p["rnd"], p["tgbs"]["val"]
+        if label == "card":
+            draw, draw_t = rnd.draw_neg, tgb.draw_neg_time
+            rnd.draw_neg = lambda size: negs.append(draw(size)) or negs[-1]
+            tgb.draw_neg_time = lambda *a: neg_times.append(draw_t(*a)) or neg_times[-1]
+        else:
+            it, it_t = iter(negs), iter(neg_times)
+            rnd.draw_neg = lambda size: next(it).to(device)
+            tgb.draw_neg_time = lambda *a: next(it_t).to(device)
+        run = dict(losses=[], sums=[], own_sums=[], prods=[])
+        mem_state = p["memory"].init_state(device)
+        for split, d, n_batches in (("train", train, SEG_AGREE_TRAIN),
+                                    ("val", val, SEG_AGREE_EVAL)):
+            dg = DGraph(d)
+            stream = DeviceEdgeStream(dg, BATCH, device=device)
+            fn, states = p["hm"].as_transform(split, dg)
+            if split == "val":
+                mem_state = p["memory"].flush_all(mem_state)
+                run["weights"] = _weights(models)
+                run["mem"] = [x.cpu().clone() for x in mem_state]
+                if label == "cpu":  # its own weights and memory beside the card's
+                    own = [copy.deepcopy(m) for m in models]
+                    _, own_eval = build_tgn_hook_cores(*own, None, WIKI_NODES, style="segment")
+                    own_state = mem_state
+                    _load_weights(models, runs["card"]["weights"])
+                    mem_state = TGNMemoryState(*(x.clone() for x in runs["card"]["mem"]))
+            for i in range(n_batches):
+                states, batch = fn(states, stream.batch_at(i))
+                run["prods"].append([getattr(batch, k).cpu() for k in
+                                     ("unique_nids", "num_unique", "global_to_local")])
+                if split == "train":
+                    (mem_state, _), loss = p["train_core"]((mem_state, None), batch)
+                    run["losses"].append(float(loss))
+                    continue
+                mem_state, (s, _) = p["eval_core"](mem_state, batch)
+                run["sums"].append(float(s))
+                if label == "cpu":
+                    own_state, (s, _) = own_eval(own_state, batch)
+                    run["own_sums"].append(float(s))
+            p["hm"].adopt_states(split, states)
+        run.update(rec=[t.cpu() for t in p["rec"].state], end_mem=mem_state.mem.cpu(),
+                   seconds=time.perf_counter() - t0)
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    for name, x, y in zip(("nbr_ids", "nbr_times", "nbr_eids", "write_pos"), g["rec"], c["rec"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"segment: recency {name} differs between card and CPU")
+    for b, (gp, cp) in enumerate(zip(g["prods"], c["prods"])):
+        for name, x, y in zip(("unique_nids", "num_unique", "global_to_local"), gp, cp):
+            if not torch.equal(x, y):
+                raise AssertionError(f"segment: batch {b}: dedup {name} differs")
+    mem_err = _state_gap("segment memory after training", TGNMemoryState(*g["mem"]),
+                         TGNMemoryState(*c["mem"]))
+    loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+    sum_err = max(abs(a - b) for a, b in zip(g["sums"], c["sums"]))
+    end_err = float((g["end_mem"] - c["end_mem"]).abs().max())
+    own_err = max(abs(a - b) for a, b in zip(g["sums"], c["own_sums"]))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and mem_err <= 1e-4
+            and sum_err <= 1e-4):
+        raise AssertionError(f"segment card vs CPU: losses {g['losses']} against {c['losses']}, "
+                             f"mem {mem_err}, MRR sums {g['sums']} against {c['sums']}")
+    log("seg-agree", f"{SEG_AGREE_TRAIN} train + {SEG_AGREE_EVAL} val batches: dedup products, "
+                     f"recency state and integer memory exact; first-loss diff {loss_err[0]:.3g}, "
+                     f"max loss diff {max(loss_err):.3g}, max float state diff after training "
+                     f"{mem_err:.3g}; val on the card's weights and memory: max per-batch "
+                     f"MRR-sum diff {sum_err:.3g}, max |mem| diff after val {end_err:.3g}; the "
+                     f"drift of the devices' summation orders: weights "
+                     f"{_weight_gap(g['weights'], c['weights'])} apart after {SEG_AGREE_TRAIN} "
+                     f"Adam steps, and the CPU's own weights and memory give MRR sums "
+                     f"{own_err:.3g} from the card's (card {g['sums']}, CPU own "
+                     f"{c['own_sums']}); card {g['seconds']:.1f} s, CPU {c['seconds']:.1f} s "
+                     f"[{card}]")
+
+
+def _state_gap(path: str, got, want) -> float:
+    """Integer fields exact; returns the largest float difference."""
+    worst = 0.0
+    for name, x, y in zip(type(want)._fields, got, want):
+        x, y = x.cpu(), y.cpu()
+        if x.is_floating_point():
+            worst = max(worst, float((x - y).abs().max()))
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{path}: {name} differs")
+    return worst
+
+
+def seg_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
+    """``TGNPipeline(rowwise=False)`` for one train epoch; ``TGNPipeline(
+    packed_state=True)`` for train, val and test against the unpacked
+    pipeline on the same batches; the mean aggregator card against CPU."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.nn import tgn_unpack_state
+    from tgm_tpu_torch.train import TGNPipeline, jit_scan_epoch
+
+    dst = DGraph(train).edge_dst
+    stream = split_stream(train, dev)
+    n = stream.num_batches
+
+    def pipeline(**kw):
+        return TGNPipeline(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS, DIMS, NUM_NBRS, TRAIN_LR,
+                           int(dst.min()), int(dst.max()), edge_x_full=data.edge_x, device=dev,
+                           **kw)
+
+    # 1. The segment pipeline's train epoch.
+    pipe = pipeline(rowwise=False)
+    carry = pipe.init_carry(seed)
+    epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, n)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, losses = epoch(carry)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seg_launches = read_launches()
+    check_launches("TGNPipeline segment train", seg_launches, TGN_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"segment pipeline losses not finite: {losses}")
+    log("seg-pipe", f"TGNPipeline(rowwise=False): {stream.num_edges} edges in {n} batches, "
+                    f"{dt:.3f} s: train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+                    f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+                    f"{float(losses[-1]):.6f}; {_peak_line(base)}; launches={seg_launches} "
+                    f"per_batch={ {k: v / n for k, v in seg_launches.items()} } [{card}]")
+    del pipe, carry
+
+    # 2. The packed state against the unpacked one, same seed, same batches.
+    evals = {}
+    for name, d in (("val", val), ("test", test)):
+        s = split_stream(d, dev)
+        evals[name] = (s, cand_rows(cands[name], s, dev))
+    out = {}
+    for packed in (True, False):
+        pipe = pipeline(packed_state=packed)
+        carry = pipe.init_carry(seed)
+        base = _reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        carry, losses = jit_scan_epoch(pipe.train_step, stream.batch_at, n)(carry)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        train_launches = read_launches()
+        after_train = [x.clone() for x in carry.mem_state]
+        carry = pipe.flush_all(carry)
+        reset_launches()
+        sums, counts, n_eval, t_eval = [], [], 0, 0.0
+        for name, (s, rows) in evals.items():
+            t1 = time.perf_counter()
+            carry, (ss, cc) = pipe_eval_epoch(pipe, carry, s, rows, None)
+            torch.cuda.synchronize()
+            t_eval += time.perf_counter() - t1
+            n_eval += s.num_batches
+            sums.append(ss.cpu())
+            counts.append(cc.cpu())
+        eval_launches = read_launches()
+        out[packed] = dict(losses=losses.cpu(), state=carry.mem_state, after_train=after_train,
+                           sums=torch.cat(sums), counts=torch.cat(counts),
+                           train=(dt, train_launches),
+                           eval=(t_eval, n_eval, eval_launches), peak=_peak_line(base))
+    pk, up = out[True], out[False]
+    check_launches("TGNPipeline packed train", pk["train"][1], TGN_STEP_PACKED, n)
+    check_launches("TGNPipeline packed eval", pk["eval"][2], TGN_STEP_PACKED, pk["eval"][1])
+    from tgm_tpu_torch.nn import TGNPackedState
+
+    gap_train = _state_gap("packed vs unpacked after train",
+                           tgn_unpack_state(TGNPackedState(*pk["after_train"])),
+                           type(up["state"])(*up["after_train"]))
+    gap_end = _state_gap("packed vs unpacked after eval", tgn_unpack_state(pk["state"]),
+                         up["state"])
+    loss_err = float((pk["losses"] - up["losses"]).abs().max())
+    sum_err = float((pk["sums"] - up["sums"]).abs().max())
+    if not (gap_train <= 1e-6 and gap_end <= 1e-6 and torch.equal(pk["counts"], up["counts"])):
+        raise AssertionError(f"packed vs unpacked state: floats {gap_train}, {gap_end} apart")
+    (dt, tl), (te, ne, el) = pk["train"], pk["eval"]
+    log("seg-pipe", f"TGNPipeline(packed_state=True): train_ms_per_batch={dt / n * 1e3:.3f} "
+                    f"train_edges_per_s={stream.num_edges / dt:.0f}, eval_ms_per_batch="
+                    f"{te / ne * 1e3:.3f} over {ne} val + test batches (MRR "
+                    f"{float(pk['sums'].sum() / pk['counts'].sum()):.6f}); {pk['peak']}; "
+                    f"launches train {tl} eval {el}; against the unpacked "
+                    f"pipeline (train_ms_per_batch={up['train'][0] / n * 1e3:.3f}, "
+                    f"eval_ms_per_batch={up['eval'][0] / up['eval'][1] * 1e3:.3f}): integer "
+                    f"state exact, max float diff {gap_train:.3g} after train and {gap_end:.3g} "
+                    f"after eval, max loss diff {loss_err:.3g}, max per-batch MRR-sum diff "
+                    f"{sum_err:.3g} [{card}]")
+
+    # 3. The mean aggregator's store and flush, card against CPU.
+    from tgm_tpu_torch.nn import TGNMemory
+
+    torch.manual_seed(seed)
+    mean_mem = TGNMemory(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS, aggregator="mean")
+    states = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        mem = copy.deepcopy(mean_mem).to(device)
+        st = mem.init_state(device)
+        s = split_stream(train, device)
+        for i in range(MEAN_AGREE_BATCHES):
+            b = s.batch_at(i)
+            nodes = torch.where(torch.cat([b.edge_valid] * 2),
+                                torch.cat([b.edge_src, b.edge_dst]), WIKI_NODES)
+            st = mem.flush(st, nodes)
+            st = mem.store(st, b.edge_src, b.edge_dst, b.edge_time, b.edge_x, b.edge_valid)
+        states[label] = st
+    gap = _state_gap("mean aggregator card vs CPU", states["card"], states["cpu"])
+    if gap > 1e-5:
+        raise AssertionError(f"mean aggregator card vs CPU: memory {gap} apart")
+    log("seg-pipe", f"TGNMemory(aggregator='mean'), {MEAN_AGREE_BATCHES} flush + store batches "
+                    f"card vs CPU: integer state exact, max |mem| diff {gap:.3g}, overflow "
+                    f"{int(states['card'].overflow)} [{card}]")
+    return seg_launches, pk["train"][1], pk["eval"][2]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2354,6 +2785,9 @@ def main() -> int:
                     help="build, run the hook-step phase alone and stop (no result lines)")
     ap.add_argument("--only-store-step", action="store_true",
                     help="build, run the store-step phase alone and stop (no result lines)")
+    ap.add_argument("--only-segment", action="store_true",
+                    help="build, run the seg-train, seg-agree and seg-pipe phases and stop "
+                    "(no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -2380,6 +2814,12 @@ def main() -> int:
             hook_step_phase(args.seed, dev, card)
         if args.only_store_step:
             store_step_phase(args.seed, dev, card)
+        return 0
+    if args.only_segment:
+        data, train, val, test, cands = build_stream(args.seed)
+        seg_train_phase(data, train, val, test, cands, args.seed, dev, card)
+        seg_agree_phase(data, train, val, cands, args.seed, dev, card)
+        seg_pipe_phase(data, train, val, test, cands, args.seed, dev, card)
         return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
@@ -2418,6 +2858,11 @@ def main() -> int:
     tgat_agree_phase(data, train, val, cands, args.seed, dev, card)
     tgat_pipe_train_launches, tgat_pipe_eval_launches = tgat_pipe_phase(
         data, train, val, test, cands, args.seed, dev, card)
+    seg_train_launches, seg_eval_launches = seg_train_phase(data, train, val, test, cands,
+                                                            args.seed, dev, card)
+    seg_agree_phase(data, train, val, cands, args.seed, dev, card)
+    seg_pipe_launches, packed_train_launches, packed_eval_launches = seg_pipe_phase(
+        data, train, val, test, cands, args.seed, dev, card)
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
@@ -2449,7 +2894,9 @@ def main() -> int:
     # the hook-path train epoch, the pipeline's train epoch, its eval
     # (val + test) and its serving run, the DyGFormer train epoch and the
     # val eval after it, TGAT's hook-path train epoch and its val + test
-    # eval, and TGATPipeline's train epoch and its val + test eval.
+    # eval, TGATPipeline's train epoch and its val + test eval, the TGN
+    # segment route's train epoch and its val + test eval, and
+    # TGNPipeline's segment train epoch and its packed train and eval.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"])
@@ -2463,7 +2910,12 @@ def main() -> int:
              "launches_tgat_train": per_kernel(tgat_train_launches),
              "launches_tgat_eval": per_kernel(tgat_eval_launches),
              "launches_tgat_pipeline_train": per_kernel(tgat_pipe_train_launches),
-             "launches_tgat_pipeline_eval": per_kernel(tgat_pipe_eval_launches)}
+             "launches_tgat_pipeline_eval": per_kernel(tgat_pipe_eval_launches),
+             "launches_tgn_segment_train": per_kernel(seg_train_launches),
+             "launches_tgn_segment_eval": per_kernel(seg_eval_launches),
+             "launches_tgn_pipeline_segment_train": per_kernel(seg_pipe_launches),
+             "launches_tgn_pipeline_packed_train": per_kernel(packed_train_launches),
+             "launches_tgn_pipeline_packed_eval": per_kernel(packed_eval_launches)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]

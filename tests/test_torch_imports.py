@@ -27,7 +27,9 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.train.tgn_pipeline", "tgm_tpu_torch.train.checkpoint",
              "tgm_tpu_torch.examples.linkproppred.dygformer", "tgm_tpu_torch.nn.modules.dropout",
              "tgm_tpu_torch.examples.linkproppred.tgat", "tgm_tpu_torch.train.tgat_pipeline",
-             "tgm_tpu_torch.nn.encoder.tgat", "tgm_tpu_torch.nn.modules.attention"):
+             "tgm_tpu_torch.nn.encoder.tgat", "tgm_tpu_torch.nn.modules.attention",
+             "tgm_tpu_torch.ops.segment", "tgm_tpu_torch.hooks.dedup",
+             "tgm_tpu_torch.nn.modules.aggregation", "tgm_tpu_torch.train.hook_pipeline"):
     assert name in names, names
 print("imported", len(names))
 """

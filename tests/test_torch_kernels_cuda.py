@@ -7,7 +7,9 @@ repo's conftest imports JAX, which the machine with the card need not have).
 Tolerances: exact equality for K1-K4 and the recency push (integer select,
 plan and scatter, fp32 feature copy); K5 within 5e-3 * max |plain| (bf16 operands rounded at the
 same places, fp32 sums in another order: a bf16 rounding that flips moves
-its sequence by up to a few 1e-3).
+its sequence by up to a few 1e-3). The segment path's PyTorch ops on the
+card against the CPU: ``DeduplicationHook`` exact, segment sums within
+1e-6 relative (``index_add`` sums in another order on the card).
 """
 
 import numpy as np
@@ -437,3 +439,57 @@ def test_time2vec_card_equals_cpu_at_large_gaps(card):
     want = mod(dt)
     got = mod.to(card)(dt.to(card)).cpu()
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_dedup_hook_on_the_card_equals_the_cpu(card):
+    """``DeduplicationHook`` (a sort, a first-of-run mask, a cumsum and a
+    scatter: no host sync) gives the CPU's products exactly, at the TGN eval
+    shape (48,800 ids capped at N + 1 = 9,228) and the train shape (6,600)."""
+    from tgm_tpu_torch.core.batch import DGBatch
+    from tgm_tpu_torch.hooks import DeduplicationHook
+
+    rng = np.random.default_rng(21)
+    n = 9_227
+    for n_neg, K in ((4_000, 10), (200, 10)):
+        B = 200
+        S = 2 * B + n_neg
+        src = rng.integers(0, n, B).astype(np.int32)
+        dst = rng.integers(0, n, B).astype(np.int32)
+        neg = rng.integers(-1, n, n_neg).astype(np.int32)
+        nbrs = rng.integers(-1, n, (S, K)).astype(np.int32)
+        out = []
+        for dev in (card, torch.device("cpu")):
+            up = lambda a: torch.as_tensor(a, device=dev)
+            b = DGBatch(up(src), up(dst), up(np.zeros(B, np.int32)), up(np.ones(B, bool)),
+                        neg=up(neg), nbr_nids=[up(nbrs)])
+            b = DeduplicationHook(n, seed_nodes_keys=["neg", "nbr_nids"])(None, b)
+            out.append([b.unique_nids.cpu(), b.num_unique.cpu(), b.global_to_local.cpu()])
+        for g, c in zip(*out):
+            assert torch.equal(g, c)
+        assert out[0][0].shape[0] == min(2 * B + n_neg + S * K, n + 1)
+
+
+@pytest.mark.parametrize("E, U, H", [(6_000, 6_600, 2), (44_000, 9_228, 2)])
+def test_segment_ops_on_the_card_equal_the_cpu(card, E, U, H):
+    """Segment softmax and sums at the TGN segment encoder's shapes (train:
+    6,000 local edges over 6,600 rows; eval: 44,000 over 9,228): the card's
+    ``index_add`` sums in another order, so sums agree within 1e-6 relative
+    to the largest magnitude; ``segment_max`` exactly."""
+    from tgm_tpu_torch.ops import segment_max, segment_softmax, segment_sum
+
+    rng = np.random.default_rng(E)
+    ids = torch.as_tensor(rng.integers(0, U // 3, E), dtype=torch.int32)  # many per segment
+    logits = torch.as_tensor(rng.normal(size=(E, H)) * 4, dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(E, H, 50)), dtype=torch.float32)
+    mask = torch.as_tensor(rng.random(E) < 0.8)
+    cpu = [segment_max(logits, ids, U, mask, initial=-1e30),
+           segment_softmax(logits, ids, U, mask)]
+    cpu.append(segment_sum(cpu[1][..., None] * v, ids, U, mask))
+    g_ids, g_logits, g_v, g_mask = (x.to(card) for x in (ids, logits, v, mask))
+    gpu = [segment_max(g_logits, g_ids, U, g_mask, initial=-1e30),
+           segment_softmax(g_logits, g_ids, U, g_mask)]
+    gpu.append(segment_sum(gpu[1][..., None] * g_v, g_ids, U, g_mask))
+    assert torch.equal(gpu[0].cpu(), cpu[0])
+    for g, c in zip(gpu[1:], cpu[1:]):
+        scale = float(c.abs().max())
+        assert float((g.cpu() - c).abs().max()) <= 1e-6 * scale

@@ -172,8 +172,15 @@ def test_slice_matches_jax_eval_core(popularity):
 
 @pytest.mark.parametrize("kwargs", [{}, {"style": "segment"}])
 def test_unported_cores_raise(kwargs):
-    """The segment style, the JAX default, is not ported."""
-    mods = (TGNMemory(N, EDGE_DIM, DIM, DIM), GraphAttentionEmbeddingRowwise(DIM, DIM, EDGE_DIM, DIM),
+    """The segment style, the JAX default, is ported (queue 1 item 6): both
+    calls build the segment cores, whose train core raises without an
+    optimizer, as the rowwise one does; an unknown style raises."""
+    from tgm_tpu_torch.nn import GraphAttentionEmbedding
+
+    mods = (TGNMemory(N, EDGE_DIM, DIM, DIM), GraphAttentionEmbedding(DIM, DIM, EDGE_DIM, DIM),
             LinkPredictor(node_dim=DIM, hidden_dim=DIM))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        build_tgn_hook_cores(*mods, None, N, **kwargs)
+    train_core, eval_core = build_tgn_hook_cores(*mods, None, N, **kwargs)
+    with pytest.raises(ValueError, match="optimizer"):
+        train_core.loss_and_grad(None, None, None)
+    with pytest.raises(ValueError, match="Unknown style"):
+        build_tgn_hook_cores(*mods, None, N, style="dense")

@@ -34,7 +34,11 @@ def mrr(
     neg_valid: Optional[torch.Tensor] = None,
     edge_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Mean reciprocal rank over the valid edges of a batch."""
+    """Mean reciprocal rank over the valid edges of a batch. Without
+    ``edge_valid`` it is the plain mean, nan for an empty batch (as
+    ``jnp.mean``); with it, 0 when no edge is valid."""
+    if edge_valid is None:
+        return mrr_per_edge(pos_score, neg_scores, neg_valid).mean()
     s, c = mrr_sum_count(pos_score, neg_scores, neg_valid, edge_valid)
     return s / torch.clamp_min(c, 1.0)
 

@@ -5,17 +5,23 @@
 
 Per epoch: the memory is re-initialised, the train split runs through the
 hook pipeline (random negatives, then the shared eid-layout recency hook)
-and ``train_core`` (staged memory, rowwise attention with dropout,
+and ``train_core`` (staged memory, attention with dropout,
 ``LinkPredictor``, BCE, backward, the train-mode memory commit, Adam);
 then ``flush_all``, val, and test whenever val MRR reaches its best; the
 hook state is reset between epochs.
 
-``--fast`` trains the train split through the fused ``TGNPipeline``
-instead (``jit_scan_epoch`` over ``train_step``; no dropout, as in the JAX
-pipeline) and prints each epoch's mean loss and train edges/s. The flags
-and defaults are the JAX example's, plus ``--device`` (default ``cuda``).
-``--encoder segment`` is not ported and raises (with ``--fast`` it asks
-for ``TGNPipeline(rowwise=False)``).
+``--encoder rowwise`` (the default) attends per seed over its own
+neighbours; ``--encoder segment`` is the reference example's formulation:
+a shared ``DeduplicationHook`` after the recency hook, memory staged over
+the batch's unique nodes and the segment ``GraphAttentionEmbedding`` over
+the batch subgraph.
+
+``--fast`` trains the train split through the fused rowwise
+``TGNPipeline`` instead, whatever ``--encoder`` says, as the JAX
+``run_fast`` does (``jit_scan_epoch`` over ``train_step``; no dropout, as
+in the JAX pipeline), and prints each epoch's mean loss and train edges/s.
+The flags and defaults are the JAX example's, plus ``--device`` (default
+``cuda``).
 """
 
 from __future__ import annotations
@@ -30,12 +36,18 @@ import torch
 from ...core.graph import DGraph
 from ...device import resolve_device
 from ...hooks import (
+    DeduplicationHook,
     HookManager,
     RandomNegativeEdgeSamplerHook,
     RecencyNeighborHook,
     TGBNegativeEdgeSamplerHook,
 )
-from ...nn import GraphAttentionEmbeddingRowwise, LinkPredictor, TGNMemory
+from ...nn import (
+    GraphAttentionEmbedding,
+    GraphAttentionEmbeddingRowwise,
+    LinkPredictor,
+    TGNMemory,
+)
 from ...train import (
     DeviceEdgeStream,
     TGNPipeline,
@@ -64,7 +76,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="train through the fused TGNPipeline (jit_scan_epoch over train_step) "
                    "instead of the hook-manager path")
     p.add_argument("--encoder", type=str, default="rowwise", choices=["rowwise", "segment"],
-                   help="rowwise: dense per-seed attention; segment: not ported (raises)")
+                   help="rowwise: dense per-seed attention (no dedup); segment: the reference "
+                   "example's dedup + segment-softmax subgraph wiring")
     p.add_argument("--eager", action="store_true",
                    help="accepted for the JAX example's command lines: the port's epochs "
                    "are per-batch Python loops either way")
@@ -91,7 +104,7 @@ def run_fast(args: argparse.Namespace) -> Dict[str, float]:
         num_nodes=data.num_nodes, edge_dim=dg.edge_x_dim or 0, memory_dim=args.memory_dim,
         embed_dim=args.embed_dim, time_dim=args.time_dim, num_nbrs=args.n_nbrs[0], lr=args.lr,
         neg_low=int(dg.edge_dst.min()), neg_high=int(dg.edge_dst.max()),
-        rowwise=args.encoder == "rowwise", edge_x_full=stream.edge_x, device=dev,
+        edge_x_full=stream.edge_x, device=dev,
     )
     carry = pipe.init_carry(args.seed)
     epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, stream.num_batches)
@@ -112,10 +125,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
     if args.fast:
         return run_fast(args)
-    if args.encoder == "segment":
-        raise NotImplementedError(
-            "--encoder segment: the segment-style cores are ROADMAP.md queue 1 item 6"
-        )
     dev = resolve_device(args.device)
     torch.manual_seed(args.seed)
 
@@ -137,10 +146,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         num_nodes, args.n_nbrs, ["edge_src", "edge_dst", "neg"],
         ["edge_time", "edge_time", "neg_time"], edge_dim=edge_dim, edge_x_full=data.edge_x,
         device=dev))
+    if args.encoder == "segment":
+        hm.register_shared(DeduplicationHook(num_nodes, seed_nodes_keys=["neg", "nbr_nids"]))
 
     # --- model -------------------------------------------------------- #
     memory = TGNMemory(num_nodes, edge_dim, args.memory_dim, args.time_dim).to(dev)
-    encoder = GraphAttentionEmbeddingRowwise(
+    enc_cls = GraphAttentionEmbeddingRowwise if args.encoder == "rowwise" else GraphAttentionEmbedding
+    encoder = enc_cls(
         args.memory_dim, args.embed_dim, edge_dim, args.time_dim, dropout=args.dropout,
     ).to(dev)
     decoder = LinkPredictor(node_dim=args.embed_dim, hidden_dim=args.embed_dim).to(dev)

@@ -1,5 +1,5 @@
 from .base import BaseDGHook, DGHook, SeedableHook, StatefulHook, StatelessHook
-from .dedup import candidate_rows, map_to_local, seed_lookup
+from .dedup import DeduplicationHook, candidate_rows, local_rows, map_to_local, seed_lookup
 from .manager import HookManager
 from .negatives import RandomNegativeEdgeSamplerHook, TGBNegativeEdgeSamplerHook
 from .neighbors import RecencyNeighborHook
@@ -8,6 +8,7 @@ from .registry import hook, list_hooks
 __all__ = [
     "BaseDGHook",
     "DGHook",
+    "DeduplicationHook",
     "HookManager",
     "RandomNegativeEdgeSamplerHook",
     "RecencyNeighborHook",
@@ -18,6 +19,7 @@ __all__ = [
     "candidate_rows",
     "hook",
     "list_hooks",
+    "local_rows",
     "map_to_local",
     "seed_lookup",
 ]

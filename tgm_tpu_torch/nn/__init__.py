@@ -9,14 +9,28 @@ from .encoder.dygformer import (
 )
 from .encoder.tgat import TGAT, MergeLayer
 from .encoder.tgn import (
+    GraphAttentionEmbedding,
     GraphAttentionEmbeddingRowwise,
+    TGNMeanMemoryState,
     TGNMemory,
     TGNMemoryState,
+    TGNPackedState,
     tgn_commit_staged,
     tgn_init_state,
+    tgn_mean_init_state,
+    tgn_mean_store_messages,
+    tgn_pack_state,
     tgn_store_messages,
+    tgn_store_messages_packed,
+    tgn_unpack_state,
 )
-from .modules.aggregation import Aggregator, ConcatMerge
+from .modules.aggregation import (
+    Aggregator,
+    ConcatMerge,
+    LearnableSumMerge,
+    MeanEmbdPooling,
+    SumEmbdPooling,
+)
 from .modules.attention import TemporalAttention
 from .modules.gru import TorchGRUCell
 from .modules.time_encoding import Time2Vec
@@ -26,14 +40,20 @@ __all__ = [
     "ConcatMerge",
     "DyGFormer",
     "FusedSelfAttention",
+    "GraphAttentionEmbedding",
     "GraphAttentionEmbeddingRowwise",
+    "LearnableSumMerge",
     "LinkPredictor",
+    "MeanEmbdPooling",
     "MergeLayer",
     "MultiHeadDotProductAttention",
     "NeighborCooccurrenceEncoder",
+    "SumEmbdPooling",
     "TGAT",
+    "TGNMeanMemoryState",
     "TGNMemory",
     "TGNMemoryState",
+    "TGNPackedState",
     "TemporalAttention",
     "Time2Vec",
     "TorchGRUCell",
@@ -41,5 +61,10 @@ __all__ = [
     "dygformer_stack_layers",
     "tgn_commit_staged",
     "tgn_init_state",
+    "tgn_mean_init_state",
+    "tgn_mean_store_messages",
+    "tgn_pack_state",
     "tgn_store_messages",
+    "tgn_store_messages_packed",
+    "tgn_unpack_state",
 ]

@@ -42,7 +42,7 @@ def _require_int32(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _put_live(x: torch.Tensor, index: Tuple[torch.Tensor, ...], live: torch.Tensor,
+def put_live(x: torch.Tensor, index: Tuple[torch.Tensor, ...], live: torch.Tensor,
               vals: torch.Tensor) -> None:
     """``x[index] = vals`` where ``live``; other writes go to the last row,
     which is restored afterwards (the JAX path's write-then-reset)."""
@@ -122,10 +122,10 @@ def recency_push_plain(nbr_ids, nbr_times, payload_buf, write_pos, src, dst, tim
     s_f = payload if directed else torch.cat([payload, payload])
     # The plan is built: write_pos may change now. Each node's final event
     # carries its new write position; every other event aims at the dump row.
-    _put_live(write_pos, (rows_last,), (rows_last >= 0) & (rows_last < num_nodes), wp_last)
+    put_live(write_pos, (rows_last,), (rows_last >= 0) & (rows_last < num_nodes), wp_last)
     live = (rows >= 0) & (rows < num_nodes)
     for buf, vals in ((nbr_ids, s_nbrs), (nbr_times, s_t), (payload_buf, s_f.to(payload_buf.dtype))):
-        _put_live(buf, (rows, cols), live, vals)
+        put_live(buf, (rows, cols), live, vals)
     return nbr_ids, nbr_times, payload_buf, write_pos
 
 
@@ -203,7 +203,7 @@ def scatter_cells_plain(buf: torch.Tensor, rows: torch.Tensor, cols: torch.Tenso
     """Plain version of K2: masked ``index_put_`` plus a dump-row restore."""
     N1, B = buf.shape
     live = (rows >= 0) & (rows <= N1 - 2) & (cols >= 0) & (cols < B)
-    _put_live(buf, (rows, cols), live, vals)
+    put_live(buf, (rows, cols), live, vals)
     return buf
 
 
@@ -245,10 +245,10 @@ def tgn_store_scatter_1d_plain(s_other, s_t, d_other, d_t, rows_s, vals_s_other,
     """Plain version of K3: four masked ``index_put_`` calls."""
     live_s = (rows_s >= 0) & (rows_s <= last_live_row)
     live_d = (rows_d >= 0) & (rows_d <= last_live_row)
-    _put_live(s_other, (rows_s,), live_s, vals_s_other)
-    _put_live(s_t, (rows_s,), live_s, vals_s_t)
-    _put_live(d_other, (rows_d,), live_d, vals_d_other)
-    _put_live(d_t, (rows_d,), live_d, vals_d_t)
+    put_live(s_other, (rows_s,), live_s, vals_s_other)
+    put_live(s_t, (rows_s,), live_s, vals_s_t)
+    put_live(d_other, (rows_d,), live_d, vals_d_other)
+    put_live(d_t, (rows_d,), live_d, vals_d_t)
     return s_other, s_t, d_other, d_t
 
 
@@ -298,34 +298,41 @@ tgn_store_scatter_1d.launches = 0
 STORE_FIELDS = ("s_other", "s_t", "s_raw", "s_valid", "d_other", "d_t", "d_raw", "d_valid")
 
 
-def tgn_store_commit_plain(state, src, dst, t, raw_msg, valid):
-    """Plain version of ``tgn_store_commit``: per role, the winners by two
-    ``segment_max`` calls (the JAX plan), then K3's plain stores and masked
-    ``index_put_`` writes of the raw rows and valid flags."""
-    N1 = state.s_other.shape[0]
+def store_winners(owner: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+                  N1: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LastAggregator's plan of one role, by two ``segment_max`` calls
+    (the JAX plan): among the valid events whose owner lies in [0, N1 - 2],
+    each owner's latest event wins, the earliest batch position on equal
+    times. Returns ``(winner, rows)``: the (E,) winner mask and each
+    event's owner row, N1 - 1 (the dump row) for the others."""
     n = N1 - 1
     E = t.shape[0]
     idx = torch.arange(E, dtype=torch.int32, device=t.device)
+    live = valid & (owner >= 0) & (owner < n)
+    rows = torch.where(live, owner, n)
+    tmax = segment_max(t, rows, N1, mask=live, initial=-1)
+    is_max = live & (t == tmax[rows.long()])
+    # Earliest batch position among the max-time messages, as an integer
+    # max over -idx (the JAX code takes the same max in float).
+    first = -segment_max(-idx, rows, N1, mask=is_max, initial=-E)
+    winner = is_max & (idx == first[rows.long()])
+    return winner, torch.where(winner, rows, n)
 
-    def plan(owner):
-        live = valid & (owner >= 0) & (owner < n)
-        rows = torch.where(live, owner, n)
-        tmax = segment_max(t, rows, N1, mask=live, initial=-1)
-        is_max = live & (t == tmax[rows.long()])
-        # Earliest batch position among the max-time messages, as an integer
-        # max over -idx (the JAX code takes the same max in float).
-        first = -segment_max(-idx, rows, N1, mask=is_max, initial=-E)
-        winner = is_max & (idx == first[rows.long()])
-        return winner, torch.where(winner, rows, n)
 
-    win_s, w_s = plan(src)
-    win_d, w_d = plan(dst)
+def tgn_store_commit_plain(state, src, dst, t, raw_msg, valid):
+    """Plain version of ``tgn_store_commit``: per role, the winners of
+    ``store_winners``, then K3's plain stores and masked ``index_put_``
+    writes of the raw rows and valid flags."""
+    N1 = state.s_other.shape[0]
+    n = N1 - 1
+    win_s, w_s = store_winners(src, t, valid, N1)
+    win_d, w_d = store_winners(dst, t, valid, N1)
     tgn_store_scatter_1d_plain(state.s_other, state.s_t, state.d_other, state.d_t,
                                w_s, dst, t, w_d, src, t, n - 1)
     for winner, rows, store_raw, store_valid in ((win_s, w_s, state.s_raw, state.s_valid),
                                                  (win_d, w_d, state.d_raw, state.d_valid)):
-        _put_live(store_raw, (rows,), winner, raw_msg)
-        _put_live(store_valid, (rows,), winner, winner)
+        put_live(store_raw, (rows,), winner, raw_msg)
+        put_live(store_valid, (rows,), winner, winner)
     return state
 
 

@@ -1,8 +1,9 @@
 from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
 from .epoch import jit_scan_epoch, scan_epoch
-from .hook_pipeline import hook_epoch
+from .hook_pipeline import hook_epoch, scanned_hook_epoch
 from .programs import (
     bce_with_logits,
+    build_local_edges,
     build_dygformer_eval_core,
     build_dygformer_train_core,
     build_tgat_eval_core,
@@ -24,6 +25,7 @@ __all__ = [
     "TGNPipeline",
     "bce_with_logits",
     "build_aug_table",
+    "build_local_edges",
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
     "build_tgat_eval_core",
@@ -34,6 +36,7 @@ __all__ = [
     "restore_checkpoint",
     "save_checkpoint",
     "scan_epoch",
+    "scanned_hook_epoch",
     "tgn_eval_commit",
     "tgn_train_commit",
 ]

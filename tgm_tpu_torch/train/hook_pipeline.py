@@ -1,9 +1,11 @@
 """Hook-pipeline epochs (port of ``tgm_tpu/train/hook_pipeline.py``).
 
-``hook_epoch`` has the signature and return of the JAX ``scanned_hook_epoch``
-minus its XLA compile options: the epoch is a plain Python loop over the
-stream's batches, each batch going through the key's hook DAG and then the
-model step. PyTorch runs eagerly, so there is nothing to compile.
+``scanned_hook_epoch`` has the signature and return of the JAX function:
+the epoch is a plain Python loop over the stream's batches, each batch going
+through the key's hook DAG and then the model step. PyTorch runs eagerly, so
+there is nothing to compile: ``donate``, ``compiler_options`` and ``unroll``
+are accepted and have no effect, as ``jit_scan_epoch`` treats
+``donate_carry`` and ``unroll``. ``hook_epoch`` is the same function.
 """
 
 from __future__ import annotations
@@ -14,12 +16,15 @@ from ..core.graph import DGraph
 from .epoch import stack_outs
 
 
-def hook_epoch(
+def scanned_hook_epoch(
     stream: Any,
     hm: Any,
     key: str,
     dg: DGraph,
     step_fn: Callable[[Any, Any], Tuple[Any, Any]],
+    donate: bool = True,
+    compiler_options: Any = None,
+    unroll: int = 1,
 ):
     """One epoch over ``stream`` with ``key``'s hook pipeline.
 
@@ -43,4 +48,6 @@ def hook_epoch(
     return epoch, init_states
 
 
-__all__ = ["hook_epoch"]
+hook_epoch = scanned_hook_epoch
+
+__all__ = ["hook_epoch", "scanned_hook_epoch"]

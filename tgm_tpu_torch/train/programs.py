@@ -1,15 +1,20 @@
 """Per-batch programs (port of ``tgm_tpu/train/programs.py`` and of the
 DyGFormer example's ``train_core`` and ``eval_core``).
 
-* TGN train: staged memory of the seeds [src | dst | neg] and their recency
-  neighbours, rowwise attention with dropout, ``LinkPredictor`` scores of
-  the positives and the random negatives, masked BCE, backward, then the
-  train-mode memory commit (commit the staged src/dst rows, then store the
-  messages) with the old parameters, then the optimizer step.
-* TGN eval: stored memory of the seeds and their recency neighbours,
-  rowwise attention, ``LinkPredictor`` scores of the positives and the TGB
-  candidates, TGB MRR, then the eval-mode memory commit (store messages,
-  then flush).
+* TGN train, rowwise: staged memory of the seeds [src | dst | neg] and their
+  recency neighbours, rowwise attention with dropout, ``LinkPredictor``
+  scores of the positives and the random negatives, masked BCE, backward,
+  then the train-mode memory commit (commit the staged src/dst rows, then
+  store the messages) with the old parameters, then the optimizer step.
+* TGN train, segment (the reference example's formulation): staged memory
+  of the batch's deduplicated nodes, the segment ``GraphAttentionEmbedding``
+  over the (seed -> neighbour) local edges, the same loss, then the
+  train-mode commit through ``flush`` with the old parameters, then the
+  optimizer step.
+* TGN eval: stored memory of the seeds and their recency neighbours (or of
+  the deduplicated nodes), the encoder, ``LinkPredictor`` scores of the
+  positives and the TGB candidates, TGB MRR, then the eval-mode memory
+  commit (store messages, then flush).
 * DyGFormer train: the recency neighbour sequences of each (src, dst) and
   (src, random negative) pair through the encoder with dropout,
   ``LinkPredictor`` scores, masked BCE, backward, the optimizer step.
@@ -25,8 +30,7 @@ DyGFormer example's ``train_core`` and ``eval_core``).
 
 The memory state is updated in place. ``tgn_embed``, ``tgn_loss_and_grad``
 and ``score_candidates`` are the steps the hook cores share with
-``train/tgn_pipeline.py``. The segment-style TGN cores are queued in
-ROADMAP.md.
+``train/tgn_pipeline.py``.
 """
 
 from __future__ import annotations
@@ -38,8 +42,8 @@ import torch.nn.functional as F
 
 from ..constants import PADDED_NODE_ID
 from ..eval.metrics import mrr_sum_count
-from ..hooks.dedup import candidate_rows, seed_lookup
-from ..nn.encoder.tgn import TGNMemory, TGNMemoryState, tgn_commit_staged, tgn_store_messages
+from ..hooks.dedup import candidate_rows, local_rows, map_to_local, seed_lookup
+from ..nn.encoder.tgn import TGNMemory, tgn_commit_staged
 
 
 def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -71,34 +75,54 @@ def zero_every_grad(opt: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def tgn_train_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch, num_nodes: int,
-                     staged: Tuple[torch.Tensor, torch.Tensor]) -> TGNMemoryState:
+def tgn_train_commit(memory: TGNMemory, mem_state, batch, num_nodes: int,
+                     staged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Train-mode memory update: apply the pending messages of the batch's
     src and dst nodes, THEN store this batch's messages, in place.
 
     ``staged``: the (memory, last_update) rows the forward staged for the
     batch's src | dst seeds, which equal what ``flush`` would compute, so
-    committing them skips re-running the GRU. (The JAX function also
-    flushes when no staged rows are given; only its segment-style core,
-    not ported, does that.)
+    committing them skips re-running the GRU; without it the nodes are
+    flushed. ``memory.store`` picks the store by aggregator and layout.
     """
-    mem_state = tgn_commit_staged(mem_state, _batch_nodes(batch, num_nodes), *staged)
+    nodes = _batch_nodes(batch, num_nodes)
+    if staged is not None:
+        mem_state = tgn_commit_staged(mem_state, nodes, *staged)
+    else:
+        mem_state = memory.flush(mem_state, nodes)
     return memory.store(mem_state, batch.edge_src, batch.edge_dst, batch.edge_time,
                         _raw_msg(batch), batch.edge_valid)
 
 
-def tgn_eval_commit(memory: TGNMemory, mem_state: TGNMemoryState, batch,
-                    num_nodes: int) -> TGNMemoryState:
+def tgn_eval_commit(memory: TGNMemory, mem_state, batch, num_nodes: int):
     """Eval-mode memory update: store this batch's messages, THEN apply them
     (the reverse of the train-mode order)."""
-    mem_state = tgn_store_messages(
-        mem_state, batch.edge_src, batch.edge_dst, batch.edge_time,
-        _raw_msg(batch), batch.edge_valid,
-    )
+    mem_state = memory.store(mem_state, batch.edge_src, batch.edge_dst, batch.edge_time,
+                             _raw_msg(batch), batch.edge_valid)
     return memory.flush(mem_state, _batch_nodes(batch, num_nodes))
 
 
-def tgn_embed(memory: TGNMemory, encoder: Any, mem_state: TGNMemoryState,
+def local_edges(g2l: torch.Tensor, seeds: torch.Tensor, nbrs: torch.Tensor,
+                nbr_time: torch.Tensor, nbr_x: torch.Tensor):
+    """The (seed -> neighbour) edges of S seeds' (S, K) recency neighbours in
+    the local ids of the dense table ``g2l``: ``(e_src, e_dst, e_t, e_x,
+    valid)`` over the S * K slots, valid where neither end is PAD."""
+    src_rep = seeds.repeat_interleave(nbrs.shape[1])
+    nbr_flat = nbrs.reshape(-1)
+    valid = (nbr_flat != PADDED_NODE_ID) & (src_rep != PADDED_NODE_ID)
+    return (map_to_local(g2l, src_rep), map_to_local(g2l, nbr_flat), nbr_time.reshape(-1),
+            nbr_x.reshape(nbr_flat.shape[0], -1), valid)
+
+
+def build_local_edges(batch, num_nodes: int):
+    """``local_edges`` of a batch's recency products through the dedup
+    hook's table, as the reference example builds them; unseen ids map to
+    -1."""
+    return local_edges(batch.global_to_local, batch.seed_nids[0], batch.nbr_nids[0],
+                       batch.nbr_edge_time[0], batch.nbr_edge_x[0])
+
+
+def tgn_embed(memory: TGNMemory, encoder: Any, mem_state,
               seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
               nbr_x: torch.Tensor, training: bool, generator: Optional[torch.Generator] = None,
               nbr_msg_proj: Optional[torch.Tensor] = None):
@@ -120,7 +144,7 @@ def tgn_embed(memory: TGNMemory, encoder: Any, mem_state: TGNMemoryState,
 
 
 def tgn_loss_and_grad(memory: TGNMemory, encoder: Any, decoder: Any,
-                      opt: torch.optim.Optimizer, mem_state: TGNMemoryState,
+                      opt: torch.optim.Optimizer, mem_state,
                       seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
                       nbr_x: torch.Tensor, edge_valid: torch.Tensor,
                       generator: Optional[torch.Generator] = None):
@@ -198,7 +222,7 @@ def build_tgn_hook_cores(
     num_nodes: int,
     style: str = "segment",
 ) -> Tuple[Callable, Callable]:
-    """Return the rowwise ``(train_core, eval_core)``.
+    """Return ``(train_core, eval_core)``.
 
     * ``train_core((mem_state, generator), batch) -> ((mem_state, generator),
       loss)``; the JAX carry ``(params, opt_state, mem_state, rng)`` maps to
@@ -213,27 +237,85 @@ def build_tgn_hook_cores(
       and the recency hook's products, seeds laid out [src | dst | unique
       candidates]. No dropout, whatever the modules' train/eval mode.
 
+    ``style`` picks the attention wiring:
+
+    * ``"segment"`` (the default, the reference example's formulation):
+      pass a ``GraphAttentionEmbedding``; batches also carry the dedup
+      hook's ``unique_nids`` and ``global_to_local``. Memory is staged over
+      the unique nodes and the train commit flushes the batch's nodes.
+    * ``"rowwise"``: pass a ``GraphAttentionEmbeddingRowwise``; each seed
+      attends over its own K neighbours, and the train commit writes the
+      rows the forward staged.
+
     ``opt`` is an optimizer over the three modules' parameters (``None`` for
-    eval-only callers; ``train_core`` then raises); see ``tgn_loss_and_grad``
+    eval-only callers; ``train_core`` then raises); see ``zero_every_grad``
     for its gradients. ``train_core.loss_and_grad(mem_state, batch,
     generator) -> (loss, staged)`` and ``train_core.commit(mem_state, batch,
-    staged)`` are its first two stages; ``opt.step()`` is the third. Only
-    ``style="rowwise"`` is ported.
+    staged)`` are its first two stages (``staged`` is ``None`` for the
+    segment style); ``opt.step()`` is the third.
     """
-    if style != "rowwise":
-        raise NotImplementedError(
-            f"style={style!r}: only the rowwise cores are ported; the segment style "
-            "is ROADMAP.md queue 1 item 6"
-        )
+    if style not in ("segment", "rowwise"):
+        raise ValueError(f"Unknown style: {style!r}")
 
-    def hook_products(batch):
-        return batch.seed_nids[0], batch.nbr_nids[0], batch.nbr_edge_time[0], batch.nbr_edge_x[0]
-
-    def loss_and_grad(mem_state, batch, generator):
+    def require_opt():
         if opt is None:
             raise ValueError("train_core needs an optimizer: build the cores with opt")
-        return tgn_loss_and_grad(memory, encoder, decoder, opt, mem_state, *hook_products(batch),
-                                 batch.edge_valid, generator)
+
+    if style == "segment":
+        def embed(mem_state, batch, training, generator=None):
+            z_mem, last_upd = memory.stage(mem_state, batch.unique_nids, training=training)
+            return encoder(z_mem, last_upd, *build_local_edges(batch, num_nodes),
+                           generator=generator)
+
+        def loss_and_grad(mem_state, batch, generator):
+            require_opt()
+
+            def seed_rows():
+                z = embed(mem_state, batch, True, generator)
+                ids = torch.cat([batch.edge_src, batch.edge_dst, batch.neg])
+                return z[local_rows(batch.global_to_local, ids, z.shape[0])]
+
+            return train_loss_and_grad(opt, seed_rows, decoder, batch.edge_valid), None
+
+        @torch.no_grad()
+        def eval_core(mem_state, batch):
+            B, Q = batch.neg_batch_list.shape
+            z = embed(mem_state, batch, False)
+            rows = lambda ids: z[local_rows(batch.global_to_local, ids, z.shape[0])]
+            z_dst, z_cand = rows(batch.edge_dst), rows(batch.neg_batch_list.reshape(-1))
+            z_cand = z_cand.reshape(B, Q, -1)
+            pos, negs = score_candidates(decoder, rows(batch.edge_src), z_dst, z_cand)
+            negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
+            s, c = mrr_sum_count(pos, negs, neg_valid=batch.neg_batch_list != PADDED_NODE_ID,
+                                 edge_valid=batch.edge_valid)
+            return tgn_eval_commit(memory, mem_state, batch, num_nodes), (s, c)
+    else:
+        def hook_products(batch):
+            return (batch.seed_nids[0], batch.nbr_nids[0], batch.nbr_edge_time[0],
+                    batch.nbr_edge_x[0])
+
+        def loss_and_grad(mem_state, batch, generator):
+            require_opt()
+            return tgn_loss_and_grad(memory, encoder, decoder, opt, mem_state,
+                                     *hook_products(batch), batch.edge_valid, generator)
+
+        @torch.no_grad()
+        def eval_core(mem_state, batch):
+            B = batch.edge_src.shape[0]
+            z, _ = tgn_embed(memory, encoder, mem_state, *hook_products(batch), False)
+            # Candidates live in the trailing unique-candidate seed section;
+            # locate each candidate's row through the seed lookup.
+            lut = seed_lookup(batch.seed_nids[0], num_nodes)
+            rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
+            pos_score, neg_score = score_candidates(decoder, z[:B], z[B : 2 * B],
+                                                    z[rows_c.long()])
+            s, c = mrr_sum_count(
+                pos_score, neg_score,
+                neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
+                edge_valid=batch.edge_valid,
+            )
+            mem_state = tgn_eval_commit(memory, mem_state, batch, num_nodes)
+            return mem_state, (s, c)
 
     def commit(mem_state, batch, staged):
         return tgn_train_commit(memory, mem_state, batch, num_nodes, staged)
@@ -246,23 +328,6 @@ def build_tgn_hook_cores(
         mem_state = commit(mem_state, batch, staged)
         opt.step()
         return (mem_state, generator), loss
-
-    @torch.no_grad()
-    def eval_core(mem_state, batch):
-        B = batch.edge_src.shape[0]
-        z, _ = tgn_embed(memory, encoder, mem_state, *hook_products(batch), False)
-        # Candidates live in the trailing unique-candidate seed section;
-        # locate each candidate's row through the seed lookup.
-        lut = seed_lookup(batch.seed_nids[0], num_nodes)
-        rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
-        pos_score, neg_score = score_candidates(decoder, z[:B], z[B : 2 * B], z[rows_c.long()])
-        s, c = mrr_sum_count(
-            pos_score, neg_score,
-            neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
-            edge_valid=batch.edge_valid,
-        )
-        mem_state = tgn_eval_commit(memory, mem_state, batch, num_nodes)
-        return mem_state, (s, c)
 
     train_core.loss_and_grad = loss_and_grad
     train_core.commit = commit
@@ -476,6 +541,7 @@ def build_tgat_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
 
 __all__ = [
     "bce_with_logits",
+    "build_local_edges",
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
     "build_tgat_eval_core",

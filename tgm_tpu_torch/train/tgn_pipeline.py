@@ -16,9 +16,14 @@ decoder (``"dec"``); ``opt_state`` the ``torch.optim.Adam`` over it;
 ``rng`` the ``torch.Generator`` the negatives are drawn from. A step
 updates these objects in place and returns a carry holding the same ones.
 
-Ported: the rowwise, unpacked path in both recency layouts (``edge_x_full``
-given: eid layout, one launch of kernel K1 with the feature rows fused;
-``None``: feature layout through kernel K4), fp32. The other options of the
+Ported, fp32, in both recency layouts (``edge_x_full`` given: eid layout,
+one launch of kernel K1 with the feature rows fused; ``None``: feature
+layout through kernel K4): the rowwise path, and ``rowwise=False``, the
+reference example's segment path for training (the pipeline's own dedup of
+[src | dst | neg] and their neighbours, the segment
+``GraphAttentionEmbedding``, a flush commit; ``eval_step`` is rowwise only,
+as in JAX); ``packed_state=True`` on either (the memory state in the
+packed layout, its store in PyTorch scatters). The other options of the
 JAX constructor raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -32,6 +37,7 @@ from torch import nn
 from ..constants import PADDED_NODE_ID
 from ..device import DeviceLike, resolve_device
 from ..eval.metrics import mrr_sum_count
+from ..hooks.dedup import map_to_local, sorted_unique
 from ..hooks.neighbors import (
     recency_eid_init,
     recency_eid_update,
@@ -41,20 +47,24 @@ from ..hooks.neighbors import (
 )
 from ..nn.decoder.decoders import LinkPredictor
 from ..nn.encoder.tgn import (
+    GraphAttentionEmbedding,
     GraphAttentionEmbeddingRowwise,
     TGNMemory,
     rowwise_project_edge_feats,
     tgn_init_state,
+    tgn_pack_state,
 )
 from ..ops.recency_select import recency_eid_select
 from ..weights import load_tgn_params
 from .programs import (
+    local_edges,
     score_candidates,
     tgn_embed,
     tgn_eval_commit,
     tgn_loss_and_grad,
     tgn_train_commit,
     tie_equal_candidates,
+    train_loss_and_grad,
 )
 
 SCORE_LAYOUTS = ("lanesv", "lanes", "kmajor")
@@ -105,11 +115,6 @@ class TGNPipeline:
         attn_score_layout: str = "lanesv",
         device: DeviceLike = None,
     ) -> None:
-        if not rowwise:
-            raise _unported("rowwise=False", "the segment path is ROADMAP.md queue 1 item 6")
-        if packed_state:
-            raise _unported("packed_state=True",
-                            "the packed TGN state is ROADMAP.md queue 1 item 6")
         if packed_recency:
             raise _unported("packed_recency=True",
                             "the packed recency layout is ROADMAP.md queue 1 item 5")
@@ -127,6 +132,8 @@ class TGNPipeline:
             raise ValueError(f"attn_score_layout must be one of {SCORE_LAYOUTS}, "
                              f"got {attn_score_layout!r}")
         self.device = resolve_device(device)
+        self.rowwise = rowwise
+        self.packed_state = packed_state
         self.num_nodes = num_nodes
         self.edge_dim = edge_dim
         self.memory_dim = memory_dim
@@ -146,15 +153,16 @@ class TGNPipeline:
         """A fresh carry: weights initialised from ``seed`` (on the CPU, so
         every device starts from the same ones), or loaded from the JAX tree
         ``params`` (``{"mem", "enc", "dec"}``, ``weights.load_tgn_params``);
-        Adam at ``lr`` built after them; zero memory; empty recency buffers;
-        the negatives' generator on the device, seeded with ``seed``."""
+        Adam at ``lr`` built after them; zero memory (packed with
+        ``packed_state``); empty recency buffers; the negatives' generator on
+        the device, seeded with ``seed``."""
+        enc_cls = GraphAttentionEmbeddingRowwise if self.rowwise else GraphAttentionEmbedding
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             modules = nn.ModuleDict({
                 "mem": TGNMemory(self.num_nodes, self.edge_dim, self.memory_dim, self.time_dim),
-                "enc": GraphAttentionEmbeddingRowwise(self.memory_dim, self.embed_dim,
-                                                      self.edge_dim, self.time_dim,
-                                                      dropout=self.dropout),
+                "enc": enc_cls(self.memory_dim, self.embed_dim, self.edge_dim, self.time_dim,
+                               dropout=self.dropout),
                 "dec": LinkPredictor(node_dim=self.embed_dim, hidden_dim=self.embed_dim),
             })
         if params is not None:
@@ -162,6 +170,8 @@ class TGNPipeline:
         modules.to(self.device)
         opt = torch.optim.Adam(modules.parameters(), lr=self.lr)
         mem_state = tgn_init_state(self.num_nodes, self.memory_dim, self.edge_dim, self.device)
+        if self.packed_state:
+            mem_state = tgn_pack_state(mem_state)
         if self.edge_x_full is not None:
             rec_state = recency_eid_init(self.num_nodes, self.num_nbrs, self.device)
         else:
@@ -203,13 +213,37 @@ class TGNPipeline:
         seeds = torch.cat([batch.edge_src, batch.edge_dst, neg])
         return seeds, batch.edge_time.repeat(3)
 
+    def _segment_embed(self, params, mem_state, seeds: torch.Tensor, nbrs: torch.Tensor,
+                       nbr_t: torch.Tensor, nbr_x: torch.Tensor) -> torch.Tensor:
+        """Train-mode segment embeddings of ``seeds``' rows, in their order.
+
+        The pipeline's own dedup, unlike the hook's: capacity U = all the
+        S + S * K ids (no N + 1 cap), and the dense table is filled with U - 1,
+        so a PAD or unseen id reads the last local row. Memory is staged over
+        the unique ids, and the encoder runs over the (seed -> neighbour)
+        edges.
+        """
+        n = self.num_nodes
+        all_ids = torch.cat([seeds, nbrs.reshape(-1)])
+        U = all_ids.shape[0]
+        uniq, u_valid = sorted_unique(all_ids, n, U)
+        g2l = torch.full((n + 2,), U - 1, dtype=torch.int32, device=seeds.device)
+        g2l[torch.where(u_valid, uniq, n + 1).long()] = torch.arange(
+            U, dtype=torch.int32, device=seeds.device)
+        g2l = g2l[: n + 1]
+        z_mem, last_upd = params["mem"].stage(
+            mem_state, torch.where(u_valid, uniq, PADDED_NODE_ID), training=True)
+        z = params["enc"](z_mem, last_upd, *local_edges(g2l, seeds, nbrs, nbr_t, nbr_x))
+        return z[map_to_local(g2l, seeds).long()]
+
     # ------------------------------------------------------------------ #
     def train_step(self, carry: TGNCarry, batch) -> Tuple[TGNCarry, torch.Tensor]:
         """One train batch: negatives, the recency query, staged memory, the
         encoder, two decoder calls, masked BCE and backward; then the
-        train-mode commit (staged src | dst rows, then the message store),
-        the recency push and the optimizer step. Returns the detached loss;
-        nothing here waits for the card."""
+        train-mode commit (rowwise: the staged src | dst rows; segment: a
+        flush of them; then the message store), the recency push and the
+        optimizer step. Returns the detached loss; nothing here waits for
+        the card."""
         params, opt, mem_state, rec_state, rng = carry
         neg = self.draw_neg(rng, batch.edge_src.shape[0])
         # Padded rows must not inject live seeds into the batch.
@@ -217,8 +251,15 @@ class TGNPipeline:
         seeds, seed_t = self._train_seeds(batch, neg)
         nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t)
         # No generator: the JAX pipeline's train step draws no dropout.
-        loss, staged = tgn_loss_and_grad(params["mem"], params["enc"], params["dec"], opt,
-                                         mem_state, seeds, nbrs, nbr_t, nbr_x, batch.edge_valid)
+        if self.rowwise:
+            loss, staged = tgn_loss_and_grad(params["mem"], params["enc"], params["dec"], opt,
+                                             mem_state, seeds, nbrs, nbr_t, nbr_x,
+                                             batch.edge_valid)
+        else:
+            loss = train_loss_and_grad(
+                opt, lambda: self._segment_embed(params, mem_state, seeds, nbrs, nbr_t, nbr_x),
+                params["dec"], batch.edge_valid)
+            staged = None
         # The reference order: the commit runs with the old parameters.
         mem_state = tgn_train_commit(params["mem"], mem_state, batch, self.num_nodes, staged)
         rec_state = self._push(rec_state, batch)
@@ -245,6 +286,8 @@ class TGNPipeline:
         Positives and candidates are scored in one decoder call, and a
         candidate whose embedding equals the positive's ties with it.
         """
+        if not self.rowwise:
+            raise ValueError("eval_step requires the rowwise pipeline")
         if mem_bf16 is not None:
             raise _unported("eval_step(mem_bf16=...)",
                             "bf16 features are ROADMAP.md queue 1 item 1c")
@@ -280,8 +323,9 @@ class TGNPipeline:
         """``edge_x_full @ W_m^T`` for frozen weights: pass it to ``eval_step``
         as ``nbr_proj_table`` for a whole eval epoch (one (E, msg) x (msg,
         embed) product)."""
-        if self.edge_x_full is None:
-            raise ValueError("eval_proj_table needs the eid layout (edge_x_full)")
+        if self.edge_x_full is None or not self.rowwise:
+            raise ValueError("eval_proj_table needs the rowwise pipeline in the eid layout "
+                             "(edge_x_full)")
         return rowwise_project_edge_feats(params["enc"], self.edge_x_full)
 
     def flush_all(self, carry: TGNCarry) -> TGNCarry:
@@ -297,7 +341,11 @@ class TGNPipeline:
         B = batch.edge_src.shape[0]
         seeds, seed_t = self._train_seeds(batch, torch.flip(batch.edge_dst, (0,)))
         nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t)
-        z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x, True)
+        if self.rowwise:
+            z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x,
+                             True)
+        else:
+            z = self._segment_embed(params, mem_state, seeds, nbrs, nbr_t, nbr_x)
         dec = params["dec"]
         return torch.stack([dec(z[:B], z[B : 2 * B]), dec(z[:B], z[2 * B :])])
 

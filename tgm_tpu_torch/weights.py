@@ -3,12 +3,16 @@
 ``load_tgn_params`` takes the flax parameter tree ``{"mem", "enc", "dec"}``
 as nested dicts of arrays (anything ``numpy.asarray`` reads), as the JAX TGN
 example builds it, and copies it into a ``TGNMemory``, a
-``GraphAttentionEmbeddingRowwise`` and a ``LinkPredictor``.
+``GraphAttentionEmbeddingRowwise`` or ``GraphAttentionEmbedding`` (the
+two flax encoders share their parameter names) and a ``LinkPredictor``.
 ``load_dygformer_params`` takes ``{"enc", "dec"}`` as the JAX ``DyGFormer``
 and ``LinkPredictor`` ``init`` build it (either attention layout) and copies
 it into a ``DyGFormer`` and a ``LinkPredictor``. ``load_tgat_params`` takes
 ``{"enc", "dec"}`` as the JAX ``TGAT`` and ``LinkPredictor`` ``init`` build
-it and copies it into a ``TGAT`` and a ``LinkPredictor``. The mappings:
+it and copies it into a ``TGAT`` and a ``LinkPredictor``.
+``load_tgn_memory_params`` takes the ``"mem"`` subtree alone.
+``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
+variables and copies them into the port's. The mappings:
 
 * Dense ``kernel (in, out)`` -> ``Linear.weight`` = kernel^T, ``bias`` -> ``bias``
   (``lin_edge`` has no bias);
@@ -23,6 +27,7 @@ it and copies it into a ``TGAT`` and a ``LinkPredictor``. The mappings:
   ``Linear.weight`` = kernel^T; biases (H, dh) flattened to (D,);
 * ``FusedSelfAttention_0`` (``fused_attn=True``) ``qkv`` (D, 3D) and
   ``out`` (D, D) -> ``Linear.weight`` = kernel^T;
+* ``LearnableSumMerge``'s ``Dense_0`` / ``Dense_1`` -> its ``src`` / ``dst``;
 * TGAT's ``attn_i`` ``W_Q`` / ``W_KV`` (no bias) / ``W_O`` / ``layer_norm``
   and ``merge_layers_i`` ``Dense_0`` / ``Dense_1`` -> the ``TemporalAttention``
   Linear layers and LayerNorm and the ``MergeLayer``'s ``fc1`` / ``fc2``.
@@ -65,20 +70,26 @@ def _time2vec(mod: nn.Module, p: Mapping[str, Any]) -> None:
 def load_tgn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.Module,
                     decoder: nn.Module) -> None:
     """Copy the flax tree ``{"mem", "enc", "dec"}`` into the three modules, in place."""
-    mem = params["mem"]["params"]
-    _time2vec(memory.time_enc, mem["time_enc"])
-    gru = mem["gru"]
-    _copy(memory.gru.weight_ih, gru["wi"], transpose=True)
-    _copy(memory.gru.bias_ih, gru["bi"])
-    _copy(memory.gru.weight_hh, gru["wh"], transpose=True)
-    _copy(memory.gru.bias_hh, gru["bh"])
-
+    load_tgn_memory_params(params["mem"], memory)
     enc = params["enc"]["params"]
     _time2vec(encoder.time_enc, enc["time_enc"])
     for name in ("lin_query", "lin_key", "lin_value", "lin_edge", "lin_skip"):
         _dense(getattr(encoder, name), enc[name])
 
     _mlp(decoder.model, params["dec"]["params"]["mlp"])
+
+
+@torch.no_grad()
+def load_tgn_memory_params(variables: Mapping[str, Any], memory: nn.Module) -> None:
+    """Copy a flax ``TGNMemory``'s variables (``{"params": {"time_enc", "gru"}}``)
+    into a ``TGNMemory``, in place."""
+    mem = variables["params"]
+    _time2vec(memory.time_enc, mem["time_enc"])
+    gru = mem["gru"]
+    _copy(memory.gru.weight_ih, gru["wi"], transpose=True)
+    _copy(memory.gru.bias_ih, gru["bi"])
+    _copy(memory.gru.weight_hh, gru["wh"], transpose=True)
+    _copy(memory.gru.bias_hh, gru["bh"])
 
 
 def _mlp(seq: nn.Sequential, p: Mapping[str, Any]) -> None:
@@ -173,3 +184,12 @@ def load_tgat_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.
         _dense(merge.fc1, enc[f"merge_layers_{i}"]["Dense_0"])
         _dense(merge.fc2, enc[f"merge_layers_{i}"]["Dense_1"])
     _mlp(decoder.model, params["dec"]["params"]["mlp"])
+
+
+@torch.no_grad()
+def load_learnable_sum_merge(variables: Mapping[str, Any], merge: nn.Module) -> None:
+    """Copy a flax ``LearnableSumMerge``'s ``{"params": {"Dense_0", "Dense_1"}}``
+    into the port's ``LearnableSumMerge``, in place."""
+    p = variables["params"]
+    _dense(merge.src, p["Dense_0"])
+    _dense(merge.dst, p["Dense_1"])
