@@ -2,14 +2,16 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-segment]
+        [--only-nodeprop]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
 training with TGAT's TGB eval; TGN in both the rowwise and the segment
 formulation), TGN through the fused ``TGNPipeline`` (train, eval, a
 checkpointed serving flow; the segment and packed-state variants), TGAT
-through the fused ``TGATPipeline`` (train, eval), and its hand-written
-CUDA kernels, in phases:
+through the fused ``TGATPipeline`` (train, eval), TGN and TGAT node
+property prediction (train, NDCG@10 eval), and its hand-written CUDA
+kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -160,12 +162,36 @@ CUDA kernels, in phases:
               PyTorch, so no store-commit launch); the mean aggregator's
               flush and store over 5 batches, card against CPU (integer
               state exact, memory within 1e-5).
-22. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+22. np-train: the TGN node-property example at its full width (memory and
+              embed 64, time 32, K = 10, 10 classes; 200 events a batch,
+              edges and label events together; Adam at 1e-4, no dropout)
+              on the wiki-shaped stream with a label on every 20th edge, in
+              the scanned route (``DeviceEventStream`` +
+              ``scanned_hook_epoch``): one train epoch, then val and test
+              (NDCG@10). ms per batch, events/s and labels/s, peak device
+              memory (absolute and the rise over the phase's start),
+              launches (K4 once, the push twice and the store commit once a
+              batch), and one train batch split into hook step,
+              forward+backward, commit and optimizer step.
+23. np-agree: the same code and weights on the card and on the CPU: the
+              loader's and the stream's batches and the hook products exact,
+              the recency state and integer memory exact after 10 train
+              batches, the first loss within 1e-5 and every loss within
+              5e-3; 3 val batches on the card's weights and memory on both,
+              NDCG within 1e-4 (the CPU's own beside them).
+24. tgat-np: the TGAT node-property example at its full width (one hop of
+              K = 10, dims 64/32, dropout 0.1) through the loader: one train
+              epoch, val, the hook reset, train and val streamed through the
+              hooks again, test; the same readings, launches K4 once and the
+              push twice a batch, the split into loader, hook,
+              forward+backward and optimizer. ``--only-nodeprop`` runs
+              np-train, np-agree and tgat-np alone.
+25. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
-23. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+26. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -220,6 +246,7 @@ TGAT_TIME, TGAT_EMBED, TGAT_HEADS = 100, 172, 2
 TGAT_PIPE_NBRS = (10, 10)
 TGAT_AGREE_TRAIN, TGAT_AGREE_EVAL = 5, 3
 TGAT_TIMING_ITERS = 20  # calls per timing of K1 at TGAT's large seed counts
+NP_LABEL_SEEDS = 16  # K4's seeds on the node path: a batch's label count, padded to 8
 
 # Published H100 SXM rates (NVIDIA data sheet, at the 700 W limit): HBM3
 # bytes/s, the fp32 rate outside the tensor cores, taken as the rate of the
@@ -513,11 +540,14 @@ def k4_phase(rng, dev, card: str):
     """K4 at the DyGFormer eval (4,400) and train (600) seed counts, B = K =
     20, D = 172, the eval entry (the DyGFormer serving path) reported and the
     train case with the prefix ``dygformer_train``; then at the TGN
-    pipeline's feature layout (S = 600, B = K = 10), prefix ``tgn_feature``."""
+    pipeline's feature layout (S = 600, B = K = 10), prefix ``tgn_feature``;
+    then at the node-property path's label seeds (S = 16, the plan's padded
+    label count at 200 events a batch, B = K = 10), prefix ``nodeprop``."""
     train = k4_case(rng, 3 * BATCH, DYG_NBRS, dev, card)
     entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
     entry.update(_measured("dygformer_train", train))
     entry.update(_measured("tgn_feature", k4_case(rng, 600, NUM_NBRS, dev, card)))
+    entry.update(_measured("nodeprop", k4_case(rng, NP_LABEL_SEEDS, NUM_NBRS, dev, card)))
     return entry
 
 
@@ -1327,7 +1357,7 @@ def train_phase(data, train, val, cands, seed: int, dev, card: str):
     fn, states = hm.as_transform("train", dg)
     mem_state = memory.init_state(dev)
     stages = {k: [] for k in ("hook", "forward_backward", "commit", "optimizer")}
-    for i in range(SPLIT_BATCHES):
+    for i in range(min(SPLIT_BATCHES, n)):
         b = stream.batch_at(i)
         torch.cuda.synchronize()
         t = [time.perf_counter()]
@@ -2778,6 +2808,340 @@ def seg_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
     return seg_launches, pk["train"][1], pk["eval"][2]
 
 
+# ---------------------------------------------------------------------- #
+# Node property prediction: the TGN and TGAT node examples
+# (examples/nodeproppred/*.py; bench.py --model tgn-nodeprop's widths).
+NP_CLASSES = 10
+NP_MEM, NP_EMBED, NP_TIME = 64, 64, 32
+NP_AGREE_TRAIN, NP_AGREE_EVAL = 10, 3
+NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+TGAT_NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}  # one hop of K = 10
+BATCH_TENSORS = ("edge_src", "edge_dst", "edge_time", "edge_valid", "edge_ids", "edge_x",
+                 "node_y_time", "node_y_nids", "node_y", "node_y_valid")
+
+
+def build_np_stream():
+    """The wiki-shaped synthetic stream with a label on every 20th edge's
+    source (10 classes), as ``bench.py --model tgn-nodeprop`` builds it."""
+    from tgm_tpu_torch.examples._datasets import load_dataset
+
+    return load_dataset(f"synthetic-{WIKI_NODES}-{WIKI_EDGES}", node_label_classes=NP_CLASSES)[0]
+
+
+def np_args(seed: int, device, **kw):
+    """The node examples' flags at their defaults (``bench.py``'s widths)."""
+    base = dict(dataset=f"synthetic-{WIKI_NODES}-{WIKI_EDGES}", seed=seed, bsize=BATCH, epochs=1,
+                lr=TRAIN_LR, n_nbrs=[NUM_NBRS], time_dim=NP_TIME, embed_dim=NP_EMBED,
+                memory_dim=NP_MEM, num_classes=NP_CLASSES, eager=False, dropout=TRAIN_DROPOUT,
+                device=str(device))
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def np_train_phase(data, seed: int, dev, card: str):
+    """The TGN node example's scanned route at full width: one train epoch,
+    then val and test (NDCG@10); launches per batch; the stage split."""
+    from tgm_tpu_torch.data import DGDataLoader
+    from tgm_tpu_torch.examples.nodeproppred import tgn as tgn_np
+    from tgm_tpu_torch.train import DeviceEventStream
+    from tgm_tpu_torch.train.programs import has_node_labels
+
+    args = np_args(seed, dev)
+    ctx = tgn_np.build(args, data=data)
+    t0 = time.perf_counter()  # the example builds these on first use; here, before the timing
+    ctx.streams = {i: DeviceEventStream(DGDataLoader(dg, BATCH, device=dev))
+                   for i, dg in enumerate(ctx.dgs)}
+    streams = ctx.streams
+    torch.cuda.synchronize()
+    log("np-train", f"{data.num_nodes} nodes, {data.num_edge_events} edges, "
+                    f"{data.node_y.shape[0]} labels of {NP_CLASSES} classes; splits "
+                    f"{[dg.num_events for dg in ctx.dgs]} events, "
+                    f"{[dg.num_node_labels for dg in ctx.dgs]} labels; plan widths: edges "
+                    f"{streams[0]._plan.pad_edges}, labels {streams[0]._plan.pad_node_y}; "
+                    f"streams uploaded in {time.perf_counter() - t0:.2f} s [{card}]")
+
+    dg, stream = ctx.dgs[0], streams[0]
+    n = stream.num_batches
+    mem_state = ctx.memory.init_state(dev)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    mem_state, losses, has = tgn_np.run_split(ctx, args, 0, mem_state, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    check_launches("TGN nodeprop train", launches, NP_STEP, n)
+    losses, has = losses.cpu(), has.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all() or not bool(has.any()):
+        raise AssertionError(f"nodeprop train losses not finite or of the wrong shape: {losses}")
+    lab = losses[has]
+    log("np-train", f"train: {dg.num_events} events ({dg.num_edge_events} edges, "
+                    f"{dg.num_node_labels} labels) in {n} batches ({int(has.sum())} with labels), "
+                    f"{dt:.3f} s: train_ms_per_batch={dt / n * 1e3:.3f} "
+                    f"events_per_s={dg.num_events / dt:.0f} labels_per_s="
+                    f"{dg.num_node_labels / dt:.0f}; loss first {float(lab[0]):.6f} last "
+                    f"{float(lab[-1]):.6f} mean {float(lab.mean()):.6f}; {peak}; "
+                    f"launches={launches} per_batch={ {k: v / n for k, v in launches.items()} } "
+                    f"[{card}]")
+
+    base = _reset_peak()
+    reset_launches()
+    ndcg, n_batches, n_events, n_labels, seconds = {}, 0, 0, 0, 0.0
+    for split, name in ((1, "val"), (2, "test")):
+        sdg, sstream = ctx.dgs[split], streams[split]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem_state, vals, vhas = tgn_np.run_split(ctx, args, split, mem_state, False)
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        ndcg[name] = tgn_np.mean_over_labelled(vals, vhas)
+        n_batches += sstream.num_batches
+        n_events += sdg.num_events
+        n_labels += sdg.num_node_labels
+        seconds += dt_eval
+        log("np-train", f"{name}: {sdg.num_events} events, {sdg.num_node_labels} labels in "
+                        f"{sstream.num_batches} batches, {dt_eval:.3f} s, "
+                        f"{sdg.num_events / dt_eval:.0f} events/s, NDCG@10 {ndcg[name]:.6f} "
+                        f"[{card}]")
+    eval_launches = read_launches()
+    check_launches("TGN nodeprop eval", eval_launches, NP_STEP, n_batches)
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in ndcg.values()):
+        raise AssertionError(f"nodeprop NDCG out of range: {ndcg}")
+    if not torch.isfinite(mem_state.mem).all():
+        raise AssertionError("non-finite memory after the node path")
+    log("np-train", f"eval: val_ndcg={ndcg['val']:.6f} test_ndcg={ndcg['test']:.6f} "
+                    f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f} eval_events_per_s="
+                    f"{n_events / seconds:.0f} eval_labels_per_s={n_labels / seconds:.0f}; "
+                    f"{_peak_line(base)}; launches={eval_launches} per_batch="
+                    f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
+
+    # Where one train batch's time goes: each stage ends in a synchronize.
+    q = tgn_np.build(args, data=data)
+    fn, states = q.hm.as_transform("all", dg)
+    mem_state = q.memory.init_state(dev)
+    stages = {k: [] for k in ("hook", "forward_backward", "commit", "optimizer")}
+    for i in range(min(SPLIT_BATCHES, n)):
+        b = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        labelled = has_node_labels(batch)
+        if labelled:
+            q.train_core.loss_and_grad(mem_state, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        mem_state = q.train_core.commit(mem_state, batch)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if labelled:
+            q.opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log("np-train", f"one train batch split, medians over {min(SPLIT_BATCHES, n)} batches, "
+                    f"us from "
+                    f"Python with a synchronize after each stage: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f}; dedup capacity U = {int(batch.unique_nids.shape[0])}, "
+          f"label seeds {int(batch.node_y_nids.shape[0])} [{card}]")
+    return launches, eval_launches
+
+
+def _batch_tensors(batch):
+    """A batch's tensors on the CPU: its own fields and the hooks' products."""
+    out = {}
+    for k, v in batch.__dict__.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.cpu().clone()
+        elif isinstance(v, list):
+            out.update({f"{k}[{i}]": x.cpu().clone() for i, x in enumerate(v)})
+    return out
+
+
+def _same_batches(path: str, a, b) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.keys() != y.keys():
+            raise AssertionError(f"{path}: batch {i} fields differ: {sorted(x)} {sorted(y)}")
+        for k in x:
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"{path}: batch {i}: {k} differs between card and CPU")
+
+
+def np_agree_phase(data, seed: int, dev, card: str):
+    """The TGN node example on the card and on the CPU, same code and
+    weights: the loader's and the stream's batches and the hook products
+    exact, the recency state and the integer memory exact after
+    ``NP_AGREE_TRAIN`` train batches, losses within 1e-5 (first) and 5e-3;
+    then ``NP_AGREE_EVAL`` val batches on the card's weights and memory on
+    both, NDCG within 1e-4 (the CPU's own weights and memory beside them)."""
+    from tgm_tpu_torch.data import DGDataLoader
+    from tgm_tpu_torch.examples.nodeproppred import tgn as tgn_np
+    from tgm_tpu_torch.nn import TGNMemoryState
+    from tgm_tpu_torch.train import DeviceEventStream, build_tgn_node_cores
+
+    runs = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        ctx = tgn_np.build(np_args(seed, device), data=data)
+        mods = (ctx.memory, ctx.encoder, ctx.decoder)
+        if label == "cpu":
+            _load_weights(mods, runs["card"]["init"])
+        run = dict(init=_weights(mods), losses=[], ndcg=[], own=[], loader=[], stream=[])
+        loaders = [DGDataLoader(dg, BATCH, device=device) for dg in ctx.dgs]
+        for loader in loaders[:2]:
+            for i, b in zip(range(NP_AGREE_EVAL), loader):
+                run["loader"].append(_batch_tensors(b))
+        mem_state = ctx.memory.init_state(device)
+        for split, n_batches in ((0, NP_AGREE_TRAIN), (1, NP_AGREE_EVAL)):
+            stream = DeviceEventStream(loaders[split])
+            fn, states = ctx.hm.as_transform("all", ctx.dgs[split])
+            if split == 1:
+                run["weights"] = _weights(mods)
+                run["mem"] = [x.cpu().clone() for x in mem_state]
+                if label == "cpu":  # its own weights and memory beside the card's
+                    own = [copy.deepcopy(m) for m in mods]
+                    _, own_eval = build_tgn_node_cores(*own, None, data.num_nodes)
+                    own_state = mem_state
+                    _load_weights(mods, runs["card"]["weights"])
+                    mem_state = TGNMemoryState(*(x.clone().to(device) for x in runs["card"]["mem"]))
+            for i in range(n_batches):
+                states, batch = fn(states, stream.batch_at(i))
+                run["stream"].append(_batch_tensors(batch))
+                if split == 0:
+                    mem_state, (loss, has) = ctx.train_core(mem_state, batch)
+                    if bool(has):
+                        run["losses"].append(float(loss))
+                    continue
+                mem_state, (v, _) = ctx.eval_core(mem_state, batch)
+                run["ndcg"].append(float(v))
+                if label == "cpu":
+                    own_state, (v, _) = own_eval(own_state, batch)
+                    run["own"].append(float(v))
+            ctx.hm.adopt_states("all", states)
+            if split == 0:
+                run["rec"] = [t.cpu().clone() for t in ctx.hm._shared_hooks[0].state]
+        run["seconds"] = time.perf_counter() - t0
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    _same_batches("nodeprop loader", g["loader"], c["loader"])
+    _same_batches("nodeprop stream + hooks", g["stream"], c["stream"])
+    for name, x, y in zip(("nbr_ids", "nbr_times", "nbr_feats", "write_pos"), g["rec"], c["rec"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"nodeprop: recency {name} differs between card and CPU")
+    mem_err = _state_gap("nodeprop memory after training", TGNMemoryState(*g["mem"]),
+                         TGNMemoryState(*c["mem"]))
+    loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+    ndcg_err = max(abs(a - b) for a, b in zip(g["ndcg"], c["ndcg"]))
+    own_err = max(abs(a - b) for a, b in zip(g["ndcg"], c["own"]))
+    if not (len(g["losses"]) == len(c["losses"]) > 0 and loss_err[0] <= 1e-5
+            and max(loss_err) <= 5e-3 and ndcg_err <= 1e-4):
+        raise AssertionError(f"nodeprop card vs CPU: losses {g['losses']} against "
+                             f"{c['losses']}, NDCG {g['ndcg']} against {c['ndcg']}")
+    log("np-agree", f"{NP_AGREE_TRAIN} train + {NP_AGREE_EVAL} val batches: loader batches, "
+                    f"stream batches and hook products, recency state and integer memory exact; "
+                    f"first-loss diff {loss_err[0]:.3g}, max loss diff {max(loss_err):.3g} over "
+                    f"{len(loss_err)} labelled batches, max float memory diff {mem_err:.3g}; val "
+                    f"on the card's weights and memory: max NDCG diff {ndcg_err:.3g} (card "
+                    f"{g['ndcg']}); the CPU's own weights ({_weight_gap(g['weights'], c['weights'])}"
+                    f" from the card's) and memory give NDCG {own_err:.3g} from the card's; card "
+                    f"{g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
+
+
+def tgat_np_phase(data, seed: int, dev, card: str):
+    """The TGAT node example at full width on the card: one train epoch
+    through the loader (dropout 0.1), val, the hook reset, train and val
+    streamed through the hooks again, test; launches per batch; the stage
+    split."""
+    from tgm_tpu_torch.examples.nodeproppred import tgat as tgat_np
+
+    args = np_args(seed, dev)
+    ctx = tgat_np.build(args, data=data)
+    dg = ctx.dgs[0]
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = tgat_np.run_split(ctx, args, 0, "train")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    n = losses.shape[0]
+    check_launches("TGAT nodeprop train", launches, TGAT_NP_STEP, n)
+    losses = losses.cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"TGAT nodeprop losses not finite: {losses}")
+    log("tgat-np", f"train: {dg.num_events} events ({dg.num_node_labels} labels) in {n} loader "
+                   f"batches, {dt:.3f} s: train_ms_per_batch={dt / n * 1e3:.3f} events_per_s="
+                   f"{dg.num_events / dt:.0f} labels_per_s={dg.num_node_labels / dt:.0f}; loss "
+                   f"first {float(losses[0]):.6f} last {float(losses[-1]):.6f} mean "
+                   f"{float(losses.mean()):.6f}; {peak}; launches={launches} per_batch="
+                   f"{ {k: v / n for k, v in launches.items()} } [{card}]")
+
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    vals = tgat_np.run_split(ctx, args, 1, "eval")
+    torch.cuda.synchronize()
+    dt_val = time.perf_counter() - t0
+    val_launches = read_launches()
+    check_launches("TGAT nodeprop eval", val_launches, TGAT_NP_STEP, vals.shape[0])
+    val = float(vals.mean())
+    ctx.hm.reset_state()
+    for split in (0, 1):
+        tgat_np.run_split(ctx, args, split, None)
+    t0 = time.perf_counter()
+    tests = tgat_np.run_split(ctx, args, 2, "eval")
+    torch.cuda.synchronize()
+    dt_test = time.perf_counter() - t0
+    test = float(tests.mean())
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in (val, test)):
+        raise AssertionError(f"TGAT nodeprop NDCG out of range: {val}, {test}")
+    n_eval = vals.shape[0] + tests.shape[0]
+    ev = ctx.dgs[1].num_events + ctx.dgs[2].num_events
+    log("tgat-np", f"eval: val_ndcg={val:.6f} test_ndcg={test:.6f} over {n_eval} batches, "
+                   f"eval_ms_per_batch={(dt_val + dt_test) / n_eval * 1e3:.3f} eval_events_per_s="
+                   f"{ev / (dt_val + dt_test):.0f}; {_peak_line(base)}; val launches="
+                   f"{val_launches} [{card}]")
+
+    # Where one train batch's time goes: each stage ends in a synchronize.
+    from tgm_tpu_torch.data import DGDataLoader
+
+    ctx.hm.reset_state()
+    stages = {k: [] for k in ("loader", "hook", "forward_backward", "optimizer")}
+    loader = DGDataLoader(dg, BATCH, device=dev)
+    n_split = min(SPLIT_BATCHES, len(loader))
+    loader = iter(loader)
+    fn, states = ctx.hm.as_transform("all", dg)
+    for _ in range(n_split):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        b = next(loader)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ctx.train_core.loss_and_grad(batch, ctx.generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ctx.opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log("tgat-np", f"one train batch split, medians over {n_split} batches, us from "
+                   f"Python with a synchronize after each stage: "
+                   + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f} [{card}]")
+    return launches, val_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2787,6 +3151,9 @@ def main() -> int:
                     help="build, run the store-step phase alone and stop (no result lines)")
     ap.add_argument("--only-segment", action="store_true",
                     help="build, run the seg-train, seg-agree and seg-pipe phases and stop "
+                    "(no result lines)")
+    ap.add_argument("--only-nodeprop", action="store_true",
+                    help="build, run the np-train, np-agree and tgat-np phases and stop "
                     "(no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2820,6 +3187,12 @@ def main() -> int:
         seg_train_phase(data, train, val, test, cands, args.seed, dev, card)
         seg_agree_phase(data, train, val, cands, args.seed, dev, card)
         seg_pipe_phase(data, train, val, test, cands, args.seed, dev, card)
+        return 0
+    if args.only_nodeprop:
+        np_data = build_np_stream()
+        np_train_phase(np_data, args.seed, dev, card)
+        np_agree_phase(np_data, args.seed, dev, card)
+        tgat_np_phase(np_data, args.seed, dev, card)
         return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
@@ -2863,6 +3236,13 @@ def main() -> int:
     seg_agree_phase(data, train, val, cands, args.seed, dev, card)
     seg_pipe_launches, packed_train_launches, packed_eval_launches = seg_pipe_phase(
         data, train, val, test, cands, args.seed, dev, card)
+    t0 = time.perf_counter()
+    np_data = build_np_stream()
+    log("np-train", f"node-label stream built in {time.perf_counter() - t0:.1f} s")
+    np_train_launches, np_eval_launches = np_train_phase(np_data, args.seed, dev, card)
+    np_agree_phase(np_data, args.seed, dev, card)
+    tgat_np_train_launches, tgat_np_eval_launches = tgat_np_phase(np_data, args.seed, dev, card)
+    del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
@@ -2895,8 +3275,10 @@ def main() -> int:
     # (val + test) and its serving run, the DyGFormer train epoch and the
     # val eval after it, TGAT's hook-path train epoch and its val + test
     # eval, TGATPipeline's train epoch and its val + test eval, the TGN
-    # segment route's train epoch and its val + test eval, and
-    # TGNPipeline's segment train epoch and its packed train and eval.
+    # segment route's train epoch and its val + test eval,
+    # TGNPipeline's segment train epoch and its packed train and eval, the
+    # TGN node example's train epoch and its val + test eval, and the TGAT
+    # node example's train epoch and its val eval.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"])
@@ -2915,7 +3297,11 @@ def main() -> int:
              "launches_tgn_segment_eval": per_kernel(seg_eval_launches),
              "launches_tgn_pipeline_segment_train": per_kernel(seg_pipe_launches),
              "launches_tgn_pipeline_packed_train": per_kernel(packed_train_launches),
-             "launches_tgn_pipeline_packed_eval": per_kernel(packed_eval_launches)}
+             "launches_tgn_pipeline_packed_eval": per_kernel(packed_eval_launches),
+             "launches_tgn_nodeprop_train": per_kernel(np_train_launches),
+             "launches_tgn_nodeprop_eval": per_kernel(np_eval_launches),
+             "launches_tgat_nodeprop_train": per_kernel(tgat_np_train_launches),
+             "launches_tgat_nodeprop_eval": per_kernel(tgat_np_eval_launches)}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]

@@ -29,7 +29,10 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.linkproppred.tgat", "tgm_tpu_torch.train.tgat_pipeline",
              "tgm_tpu_torch.nn.encoder.tgat", "tgm_tpu_torch.nn.modules.attention",
              "tgm_tpu_torch.ops.segment", "tgm_tpu_torch.hooks.dedup",
-             "tgm_tpu_torch.nn.modules.aggregation", "tgm_tpu_torch.train.hook_pipeline"):
+             "tgm_tpu_torch.nn.modules.aggregation", "tgm_tpu_torch.train.hook_pipeline",
+             "tgm_tpu_torch.timedelta", "tgm_tpu_torch.data.loader", "tgm_tpu_torch.train.stream",
+             "tgm_tpu_torch.examples.nodeproppred.tgn",
+             "tgm_tpu_torch.examples.nodeproppred.tgat"):
     assert name in names, names
 print("imported", len(names))
 """

@@ -251,10 +251,11 @@ def test_fused_select_kernel_matches_plain(card, B, D, k_of):
 
 
 @pytest.mark.parametrize("S, B, k, D", [(700, 10, 3, 172), (4400, 20, 20, 172), (300, 64, 64, 5),
-                                        (90, 40, 33, 7)])
+                                        (90, 40, 33, 7), (16, 10, 10, 172)])
 def test_feature_select_kernel_matches_plain(card, S, B, k, D):
     """Random ring rows in no time order (PAD slots, wp past B); D = 5 and 7
-    take the scalar copy, D = 172 the float4 one."""
+    take the scalar copy, D = 172 the float4 one. S = 16, B = K = 10 is the
+    node-property path's shape (the padded label count of a batch)."""
     rng = np.random.default_rng(S + B)
     up = lambda x: torch.as_tensor(x, device=card)
     args = (up(rng.integers(-1, 9, (S, B)).astype(np.int32)),
@@ -493,3 +494,44 @@ def test_segment_ops_on_the_card_equal_the_cpu(card, E, U, H):
     for g, c in zip(gpu[1:], cpu[1:]):
         scale = float(c.abs().max())
         assert float((g.cpu() - c).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("kw", [dict(batch_size=200), dict(batch_size=50, batch_unit="s")])
+def test_device_event_stream_on_the_card_equals_the_cpu(card, kw):
+    """``DeviceEventStream`` batches (edges, edge ids, features and the
+    node-label fields) on the card equal the CPU's, bit for bit; then the
+    node path's hooks (the recency hook seeded by the label nodes, the
+    dedup hook) launch K4 once and the push twice a batch and give the
+    CPU's products."""
+    from tgm_tpu_torch import DGDataLoader, DGraph
+    from tgm_tpu_torch.examples._datasets import load_dataset
+    from tgm_tpu_torch.hooks import DeduplicationHook, HookManager, RecencyNeighborHook
+    from tgm_tpu_torch.train import DeviceEventStream
+
+    data = load_dataset("synthetic-500-8000", node_label_classes=10)[0]
+    dg = DGraph(data.split()[0])
+    n = data.num_nodes
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        stream = DeviceEventStream(DGDataLoader(dg, device=dev, **kw))
+        hm = HookManager(keys=["all"])
+        hm.register_shared(RecencyNeighborHook(n, [10], ["node_y_nids"], ["node_y_time"],
+                                               edge_dim=172, device=dev))
+        hm.register_shared(DeduplicationHook(n, seed_nodes_keys=["nbr_nids"]))
+        fn, states = hm.as_transform("all", dg)
+        k4, push = recency_window_select.launches, recency_push.launches
+        batches = []
+        for i in range(stream.num_batches):
+            states, b = fn(states, stream.batch_at(i))
+            batches.append({k: (v[0] if isinstance(v, list) else v).cpu()
+                            for k, v in b.__dict__.items()
+                            if isinstance(v, (list, torch.Tensor))})
+        if dev.type == "cuda":
+            assert recency_window_select.launches - k4 == stream.num_batches
+            assert recency_push.launches - push == 2 * stream.num_batches
+        out[dev.type] = batches
+    assert len(out["cuda"]) == len(out["cpu"]) > 10
+    for i, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert g.keys() == c.keys()
+        for name in g:
+            assert torch.equal(g[name], c[name]), (i, name)

@@ -9,6 +9,7 @@ CPU tensors.
 """
 
 from .core import DGBatch, DGraph
-from .data import DGData
+from .data import DGData, DGDataLoader
+from .timedelta import TimeDeltaDG
 
-__all__ = ["DGBatch", "DGData", "DGraph"]
+__all__ = ["DGBatch", "DGData", "DGDataLoader", "DGraph", "TimeDeltaDG"]

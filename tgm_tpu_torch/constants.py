@@ -9,3 +9,6 @@ from typing import Final
 
 # Sentinel id used to pad neighbor lists / invalid node slots.
 PADDED_NODE_ID: Final[int] = -1
+
+# Default cutoff for NDCG@k (TGB node property prediction).
+DEFAULT_NDCG_K: Final[int] = 10

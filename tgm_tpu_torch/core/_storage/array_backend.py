@@ -1,6 +1,6 @@
 """Array-backed storage engine (port of ``tgm_tpu/core/_storage/array_backend.py``).
 
-Reduced to the edge accessors the serving slice reads. It shares the
+Reduced to the edge and node-label accessors the port reads. It shares the
 ``DGData`` arrays without copying and resolves a slice by binary search over
 the sorted timeline. The temporal CSR and uniform neighbour sampling are
 queued in ROADMAP.md.
@@ -15,25 +15,48 @@ import numpy as np
 from .base import DGSliceTracker
 
 
+def slice_range(sorted_idx: np.ndarray, lb: int, ub: int) -> slice:
+    """Event masks are sorted, so a [lb, ub) timeline window maps to a
+    contiguous range of one kind's rows."""
+    a = int(np.searchsorted(sorted_idx, lb, side="left"))
+    b = int(np.searchsorted(sorted_idx, ub, side="left"))
+    return slice(a, b)
+
+
 class DGStorageArrayBackend:
     """Sorted host arrays of one ``DGData``."""
 
     def __init__(self, data: "DGData") -> None:
         self._data = data
 
-    def _edge_sel(self, sl: DGSliceTracker) -> slice:
+    def _bounds(self, sl: DGSliceTracker) -> Tuple[int, int]:
+        """The slice's [lb, ub) window of the global timeline."""
         ts = self._data.time
         t_lo = ts[0] if sl.start_time is None else sl.start_time
         t_hi = ts[-1] if sl.end_time is None else sl.end_time
         lo = sl.start_idx or 0
         hi = len(ts) if sl.end_idx is None else sl.end_idx
         clamp = lambda x: max(lo, min(hi, x))
-        lb = clamp(int(np.searchsorted(ts, t_lo, side="left")))
-        ub = clamp(int(np.searchsorted(ts, t_hi, side="right")))
-        # Event masks are sorted, so a [lb, ub) timeline window is a
-        # contiguous run of edges.
-        em = self._data.edge_mask
-        return slice(int(np.searchsorted(em, lb)), int(np.searchsorted(em, ub)))
+        return (clamp(int(np.searchsorted(ts, t_lo, side="left"))),
+                clamp(int(np.searchsorted(ts, t_hi, side="right"))))
+
+    def _edge_sel(self, sl: DGSliceTracker) -> slice:
+        return slice_range(self._data.edge_mask, *self._bounds(sl))
+
+    def _label_sel(self, sl: DGSliceTracker) -> slice:
+        return slice_range(self._data.node_y_mask, *self._bounds(sl))
+
+    def get_start_time(self, sl: DGSliceTracker) -> Optional[int]:
+        lb, ub = self._bounds(sl)
+        return None if lb >= ub else int(self._data.time[lb])
+
+    def get_end_time(self, sl: DGSliceTracker) -> Optional[int]:
+        lb, ub = self._bounds(sl)
+        return None if lb >= ub else int(self._data.time[ub - 1])
+
+    def get_num_events(self, sl: DGSliceTracker) -> int:
+        lb, ub = self._bounds(sl)
+        return ub - lb
 
     def get_nodes(self, sl: DGSliceTracker) -> Set[int]:
         return set(np.unique(self._data.edge_index[self._edge_sel(sl)]).tolist())
@@ -44,10 +67,32 @@ class DGStorageArrayBackend:
         time = self._data.time[self._data.edge_mask[sel]]
         return edges[:, 0], edges[:, 1], time
 
+    def get_edge_rows(self, sl: DGSliceTracker) -> slice:
+        """The slice's edges as a contiguous range of this storage's edge rows."""
+        return self._edge_sel(sl)
+
+    def get_node_labels(self, sl: DGSliceTracker) -> Tuple[np.ndarray, np.ndarray]:
+        """(node ids, times) of the slice's label events (empty without labels)."""
+        if self._data.node_y_mask is None:
+            return np.empty(0, np.int32), np.empty(0, np.int64)
+        sel = self._label_sel(sl)
+        return self._data.node_y_nids[sel], self._data.time[self._data.node_y_mask[sel]]
+
+    def get_node_y(self, sl: DGSliceTracker):
+        """(times, node ids, labels) of the slice's label events, or None."""
+        if self._data.node_y_mask is None or self._data.node_y is None:
+            return None
+        sel = self._label_sel(sl)
+        return (self._data.time[self._data.node_y_mask[sel]], self._data.node_y_nids[sel],
+                self._data.node_y[sel])
+
     def get_edge_x(self, sl: DGSliceTracker) -> Optional[np.ndarray]:
         if self._data.edge_x is None:
             return None
         return self._data.edge_x[self._edge_sel(sl)]
+
+    def get_node_y_dim(self) -> Optional[int]:
+        return None if self._data.node_y is None else self._data.node_y.shape[1]
 
     def get_edge_x_dim(self) -> Optional[int]:
         return None if self._data.edge_x is None else self._data.edge_x.shape[1]

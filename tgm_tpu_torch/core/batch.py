@@ -1,8 +1,11 @@
 """Batch container (port of ``tgm_tpu/core/batch.py``).
 
 A plain attribute container of tensors. Edge arrays have a static width: padded
-slots hold ``PADDED_NODE_ID`` / 0 and are marked invalid in ``edge_valid``.
-Hooks attach their products as attributes (``batch.neg = ...``).
+slots hold ``PADDED_NODE_ID`` / 0 and are marked invalid in ``edge_valid``
+(node-label arrays likewise, in ``node_y_valid``). Hooks attach their
+products as attributes (``batch.neg = ...``). ``num_node_labels``, where
+set, is the batch's real label count as a host int, so a step can branch on
+it without waiting for the card.
 """
 
 from __future__ import annotations

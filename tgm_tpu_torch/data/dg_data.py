@@ -1,23 +1,25 @@
-"""Validated host-side container for temporal graph edge events.
+"""Validated host-side container for temporal graph events.
 
-Port of ``tgm_tpu/data/dg_data.py`` reduced to what the serving slice reads:
-``DGData.from_raw`` over edge events with its validation, ``split()``,
-``num_nodes``, ``edge_x`` and ``edge_global_offset``. Node features, node
-labels, discretization and the CSV/pandas/TGB constructors are queued in
-ROADMAP.md. Everything here is numpy on the host; device upload happens once,
-in ``train.stream.DeviceEdgeStream``.
+Port of ``tgm_tpu/data/dg_data.py`` reduced to edge events and node-label
+events: ``DGData.from_raw`` with its validation, the sorted unified timeline
+(a stable sort keeps edges before labels at equal times), ``split()``,
+``num_nodes``, ``edge_x``, ``static_node_x`` and ``edge_global_offset``.
+Dynamic node features, edge and node types, discretization and the
+CSV/pandas/TGB constructors are queued in ROADMAP.md. Everything here is
+numpy on the host; device upload happens once, in ``train.stream``.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 
 from ..constants import PADDED_NODE_ID
 from ..exceptions import EmptyGraphError, InvalidNodeIDError
+from ..timedelta import TimeDeltaDG
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -48,17 +50,23 @@ def _to_int32(x: np.ndarray, name: str) -> np.ndarray:
 
 @dataclass
 class DGData:
-    """Edge events of a dynamic graph, sorted by time.
+    """Edge and node-label events of a dynamic graph, sorted by time.
 
-    ``time`` is the sorted int64 event timeline and ``edge_mask`` indexes the
-    edge events in it (every event is an edge event in this port).
+    ``time`` is the sorted int64 timeline of every event; ``edge_mask`` and
+    ``node_y_mask`` index each kind's events in it.
     """
 
-    time_delta: str
+    time_delta: Union[TimeDeltaDG, str]
     time: np.ndarray  # [num_events] int64, sorted
     edge_mask: np.ndarray  # [num_edge_events] int32 indices into `time`
     edge_index: np.ndarray  # [num_edge_events, 2] int32
     edge_x: Optional[np.ndarray] = None  # [num_edge_events, D_edge] float32
+
+    node_y_mask: Optional[np.ndarray] = None  # [num_node_labels] int32
+    node_y_nids: Optional[np.ndarray] = None  # [num_node_labels] int32
+    node_y: Optional[np.ndarray] = None  # [num_node_labels, D_label] float32
+
+    static_node_x: Optional[np.ndarray] = None  # [num_nodes, D_static] float32
 
     _split_strategy: Any = None
 
@@ -68,6 +76,8 @@ class DGData:
     edge_global_offset: int = 0
 
     def __post_init__(self) -> None:
+        if isinstance(self.time_delta, str):
+            self.time_delta = TimeDeltaDG(self.time_delta)
         self.time = _as_array(self.time, "timestamps")
         _require_integral(self.time, "timestamps")
         if self.time.size and self.time.min() < 0:
@@ -109,30 +119,115 @@ class DGData:
                 )
             self.edge_x = _to_float32(self.edge_x, "edge_x")
 
-        if self.time.ndim != 1 or self.time.shape[0] != num_edges:
-            raise ValueError(f"time must have shape [{num_edges}], got {self.time.shape}")
+        num_node_labels = self._validate_node_triplet()
+        # Labels do not widen the node range: a label id at or past the
+        # edges' range raises.
+        num_nodes = self.num_nodes
+        if self.node_y_nids is not None and int(self.node_y_nids.max()) + 1 > num_nodes:
+            raise InvalidNodeIDError(
+                "Node labels reference node IDs outside the graph's node ID range: "
+                f"{int(self.node_y_nids.max()) + 1} > {num_nodes}"
+            )
+
+        if self.static_node_x is not None:
+            self.static_node_x = _as_array(self.static_node_x, "static_node_x")
+            if self.static_node_x.ndim != 2:
+                raise ValueError(
+                    f"static_node_x must be 2D [N, D_static], got shape {self.static_node_x.shape}"
+                )
+            if self.static_node_x.shape[0] < num_nodes:
+                raise ValueError(
+                    f"static_node_x has {self.static_node_x.shape[0]} rows but data requires "
+                    f">= {num_nodes}"
+                )
+            self.static_node_x = _to_float32(self.static_node_x, "static_node_x")
+
+        expected = num_edges + num_node_labels
+        if self.time.ndim != 1 or self.time.shape[0] != expected:
+            raise ValueError(
+                f"time must have shape [{expected}] (edges {num_edges} + node labels "
+                f"{num_node_labels}), got {self.time.shape}"
+            )
         self._sort_if_needed()
 
+    def _validate_node_triplet(self) -> int:
+        """Check and normalise the label events (``node_y_mask``,
+        ``node_y_nids``, ``node_y``); returns their number (0 without a mask)."""
+        if self.node_y_mask is None:
+            return 0
+        mask = _as_array(self.node_y_mask, "node_y_mask")
+        _require_integral(mask, "node_y_mask")
+        self.node_y_mask = mask.astype(np.int32)
+        n = mask.shape[0]
+        if n == 0:
+            raise ValueError("node_y_mask is an empty array; double-check your inputs")
+
+        if self.node_y_nids is None:
+            raise ValueError("node_y_mask given without node_y_nids")
+        nids = _as_array(self.node_y_nids, "node_y_nids")
+        _require_integral(nids, "node_y_nids")
+        if nids.ndim != 1 or nids.shape[0] != n:
+            raise ValueError(f"node_y_nids must have shape [{n}], got {nids.shape}")
+        if np.any(nids == PADDED_NODE_ID):
+            raise InvalidNodeIDError(
+                f"node_y_nids contains node ids matching PADDED_NODE_ID ({PADDED_NODE_ID})"
+            )
+        if int(nids.max()) >= _INT32_MAX:
+            raise InvalidNodeIDError("node_y_nids exceed the int32 limit")
+        self.node_y_nids = _to_int32(nids, "node_y_nids")
+
+        if self.node_y is not None:
+            y = _as_array(self.node_y, "node_y")
+            if y.ndim != 2 or y.shape[0] != n:
+                raise ValueError(f"node_y must have shape [{n}, D], got {y.shape}")
+            self.node_y = _to_float32(y, "node_y")
+        return n
+
     def _sort_if_needed(self) -> None:
+        """Sort the timeline stably (equal times keep their order: edges
+        before labels) and each kind's rows by their new positions."""
         if np.all(np.diff(self.time) >= 0):
             return
-        order = np.argsort(self.time, kind="stable")
-        self.time = self.time[order]
+        sort_idx = np.argsort(self.time, kind="stable").astype(np.int32)
+        inverse = np.empty_like(sort_idx)
+        inverse[sort_idx] = np.arange(len(sort_idx), dtype=np.int32)
+        self.time = self.time[sort_idx]
+
+        self.edge_mask = inverse[self.edge_mask]
+        order = np.argsort(self.edge_mask, kind="stable")
+        self.edge_mask = self.edge_mask[order]
         self.edge_index = self.edge_index[order]
         if self.edge_x is not None:
             self.edge_x = self.edge_x[order]
+
+        if self.node_y_mask is not None:
+            mask = inverse[self.node_y_mask]
+            order = np.argsort(mask, kind="stable")
+            self.node_y_mask = mask[order]
+            self.node_y_nids = self.node_y_nids[order]
+            if self.node_y is not None:
+                self.node_y = self.node_y[order]
 
     @property
     def edge_time(self) -> np.ndarray:
         return self.time[self.edge_mask]
 
     @property
+    def node_y_time(self) -> Optional[np.ndarray]:
+        return None if self.node_y_mask is None else self.time[self.node_y_mask]
+
+    @property
     def num_nodes(self) -> int:
+        """Edge ids only: labels never widen the range."""
         return int(self.edge_index.max()) + 1
 
     @property
     def num_edge_events(self) -> int:
         return self.edge_index.shape[0]
+
+    @property
+    def num_events(self) -> int:
+        return self.time.shape[0]
 
     def split(self, strategy: Any = None) -> Tuple["DGData", ...]:
         """Split into train/val/test (default: 70/15/15 ``TemporalRatioSplit``).
@@ -152,14 +247,29 @@ class DGData:
         edge_time: np.ndarray,
         edge_index: np.ndarray,
         edge_x: Optional[np.ndarray] = None,
-        time_delta: str = "r",
+        node_y_time: Optional[np.ndarray] = None,
+        node_y_nids: Optional[np.ndarray] = None,
+        node_y: Optional[np.ndarray] = None,
+        static_node_x: Optional[np.ndarray] = None,
+        time_delta: Union[TimeDeltaDG, str] = "r",
     ) -> "DGData":
-        """Build the sorted timeline from per-edge times."""
+        """Build the sorted timeline from per-kind event times: the edges,
+        then the labels, concatenated; the masks locate each kind in it."""
         edge_time = _as_array(edge_time, "edge_time")
+        parts = [edge_time]
+        node_y_mask = None
+        if node_y_time is not None:
+            node_y_time = _as_array(node_y_time, "node_y_time")
+            parts.append(node_y_time)
+            node_y_mask = len(edge_time) + np.arange(len(node_y_time))
         return cls(
             time_delta=time_delta,
-            time=edge_time,
+            time=np.concatenate(parts),
             edge_mask=np.arange(len(edge_time)),
             edge_index=edge_index,
             edge_x=edge_x,
+            node_y_mask=node_y_mask,
+            node_y_nids=node_y_nids,
+            node_y=node_y,
+            static_node_x=static_node_x,
         )

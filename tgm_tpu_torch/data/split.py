@@ -1,20 +1,25 @@
 """Temporal dataset split strategies (port of ``tgm_tpu/data/split.py``).
 
-``TemporalSplit`` (absolute boundaries, [start, end) per split),
-``TemporalRatioSplit`` (ratios of the time span) and ``TGBSplit`` (inclusive
-per-split edge-time bounds), over edge events only.
+``TemporalSplit`` (absolute boundaries, [start, end) per split, for edges
+and labels), ``TemporalRatioSplit`` (ratios of the time span) and
+``TGBSplit`` (inclusive per-split edge-time bounds; labels in
+``[start - 1, end)``). A split whose labels are all masked out drops them
+and logs a warning; ``static_node_x`` is shared, not copied.
 """
 
 from __future__ import annotations
 
+import logging
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import numpy as np
 
 if TYPE_CHECKING:  # pragma: no cover
     from .dg_data import DGData
+
+logger = logging.getLogger(__name__)
 
 
 class SplitStrategy(ABC):
@@ -24,14 +29,29 @@ class SplitStrategy(ABC):
     def apply(self, data: "DGData") -> Tuple["DGData", ...]:
         raise NotImplementedError
 
-    def _masked_copy(self, data: "DGData", edge_mask: np.ndarray) -> "DGData":
+    def _masked_copy(self, data: "DGData", edge_mask: np.ndarray,
+                     node_y_mask: Optional[np.ndarray] = None) -> "DGData":
         from .dg_data import DGData
 
+        labels = {}
+        if data.node_y_nids is not None:
+            if node_y_mask is None:
+                node_y_mask = np.ones(data.node_y_nids.shape[0], dtype=bool)
+            if not node_y_mask.any():
+                logger.warning("All node_y events masked out; dropping from split")
+            else:
+                labels = dict(
+                    node_y_nids=data.node_y_nids[node_y_mask],
+                    node_y_time=data.time[data.node_y_mask[node_y_mask]],
+                    node_y=None if data.node_y is None else data.node_y[node_y_mask],
+                )
         out = DGData.from_raw(
             time_delta=data.time_delta,
             edge_time=data.time[data.edge_mask[edge_mask]],
             edge_index=data.edge_index[edge_mask],
             edge_x=None if data.edge_x is None else data.edge_x[edge_mask],
+            static_node_x=data.static_node_x,  # shared, not copied
+            **labels,
         )
         # Where this split's edges live in the parent's row space (temporal
         # splits select contiguous runs; anything else keeps 0).
@@ -56,13 +76,17 @@ class TemporalSplit(SplitStrategy):
 
     def apply(self, data: "DGData") -> Tuple["DGData", ...]:
         edge_times = data.edge_time
-        ranges = ((-np.inf, self.val_time), (self.val_time, self.test_time),
-                  (self.test_time, np.inf))
+        node_y_times = data.node_y_time
+        ranges = {"train": (-np.inf, self.val_time), "val": (self.val_time, self.test_time),
+                  "test": (self.test_time, np.inf)}
         splits = []
-        for start, end in ranges:
+        for name, (start, end) in ranges.items():
             edge_mask = (edge_times >= start) & (edge_times < end)
-            if edge_mask.any():
-                splits.append(self._masked_copy(data, edge_mask))
+            if not edge_mask.any():
+                logger.warning("No edges in %s split range [%s, %s)", name, start, end)
+                continue
+            nym = None if node_y_times is None else (node_y_times >= start) & (node_y_times < end)
+            splits.append(self._masked_copy(data, edge_mask, nym))
         return tuple(splits)
 
 
@@ -97,8 +121,15 @@ class TGBSplit(SplitStrategy):
 
     def apply(self, data: "DGData") -> Tuple["DGData", "DGData", "DGData"]:
         edge_times = data.edge_time
+        node_y_times = data.node_y_time
         splits = []
         for name in ("train", "val", "test"):
             start, end = self.split_bounds[name]
-            splits.append(self._masked_copy(data, (edge_times >= start) & (edge_times <= end)))
+            edge_mask = (edge_times >= start) & (edge_times <= end)
+            node_y_mask = None
+            if node_y_times is not None and edge_mask.any():
+                # TGB convention: labels attach to the window that starts one
+                # tick before the split's first edge, and end before ``end``.
+                node_y_mask = (node_y_times >= (start - 1)) & (node_y_times < end)
+            splits.append(self._masked_copy(data, edge_mask, node_y_mask))
         return tuple(splits)

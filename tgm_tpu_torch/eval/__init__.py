@@ -1,3 +1,3 @@
-from .metrics import mrr, mrr_per_edge, mrr_sum_count
+from .metrics import mrr, mrr_per_edge, mrr_sum_count, ndcg_at_k
 
-__all__ = ["mrr", "mrr_per_edge", "mrr_sum_count"]
+__all__ = ["mrr", "mrr_per_edge", "mrr_sum_count", "ndcg_at_k"]

@@ -1,9 +1,9 @@
-"""TGB link-prediction metrics (port of ``tgm_tpu/eval/metrics.py``).
+"""TGB metrics (port of ``tgm_tpu/eval/metrics.py``).
 
 MRR with TGB's tie handling: the rank of the positive among its candidates is
-the mean of the optimistic (#neg > pos) and pessimistic (#neg >= pos) ranks.
-Mask-aware: padded candidates and padded batch rows are excluded. NDCG and
-the other metrics are queued in ROADMAP.md.
+the mean of the optimistic (#neg > pos) and pessimistic (#neg >= pos) ranks;
+NDCG@k for node property prediction. Mask-aware: padded candidates and
+padded batch rows are excluded. The other metrics are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ..constants import DEFAULT_NDCG_K
 
 
 def mrr_per_edge(
@@ -55,3 +57,27 @@ def mrr_sum_count(
         return rr.sum(), torch.tensor(float(rr.shape[0]), dtype=rr.dtype, device=rr.device)
     w = edge_valid.to(rr.dtype)
     return (rr * w).sum(), w.sum()
+
+
+def ndcg_at_k(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    k: int = DEFAULT_NDCG_K,
+    row_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """NDCG@k of (B, C) scores against (B, C) non-negative relevances, the
+    mean over the valid rows (at least 1); a row whose labels are all zero
+    scores 0. Ties between scores keep the lower class first (a stable
+    sort, as ``jnp.argsort``): they decide which gains are counted. The
+    discounts are fp32."""
+    k = min(k, scores.shape[-1])
+    discounts = 1.0 / torch.log2(torch.arange(k, dtype=torch.float32, device=scores.device) + 2.0)
+    order = torch.argsort(-scores, dim=-1, stable=True)[:, :k]
+    dcg = (torch.gather(labels, -1, order) * discounts).sum(-1)
+    ideal = torch.sort(labels, dim=-1, descending=True).values[:, :k]
+    idcg = (ideal * discounts).sum(-1)
+    ndcg = torch.where(idcg > 0, dcg / idcg.clamp_min(1e-12), 0.0)
+    if row_valid is None:
+        return ndcg.mean()
+    w = row_valid.to(ndcg.dtype)
+    return (ndcg * w).sum() / w.sum().clamp_min(1.0)

@@ -27,3 +27,15 @@ class EmptyGraphError(TGMError):
 
 class CheckpointError(TGMError):
     """Checkpoint save/restore failed or state tree mismatch."""
+
+
+class EmptyBatchError(TGMError):
+    """A materialized batch contains no events and skip_empty is disabled."""
+
+
+class EventOrderedConversionError(TGMError):
+    """Tried to convert an event-ordered ('r') granularity to a timed one."""
+
+
+class InvalidDiscretizationError(TGMError):
+    """Discretization target granularity is finer than the current one."""

@@ -1,4 +1,4 @@
-from .decoder.decoders import LinkPredictor
+from .decoder.decoders import LinkPredictor, NodePredictor
 from .encoder.dygformer import (
     DyGFormer,
     FusedSelfAttention,
@@ -48,6 +48,7 @@ __all__ = [
     "MergeLayer",
     "MultiHeadDotProductAttention",
     "NeighborCooccurrenceEncoder",
+    "NodePredictor",
     "SumEmbdPooling",
     "TGAT",
     "TGNMeanMemoryState",

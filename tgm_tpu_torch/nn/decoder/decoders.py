@@ -1,8 +1,10 @@
-"""Link prediction head (port of ``tgm_tpu/nn/decoder/decoders.py::LinkPredictor``).
+"""Link and node prediction heads (port of ``tgm_tpu/nn/decoder/decoders.py``).
 
-merge(z_src, z_dst) -> ReLU MLP -> logits. ``model`` holds the MLP's layers
-in order; its Linear layers are the JAX ``mlp/Dense_0``, ``Dense_1``, ...
-The node and graph heads are queued in ROADMAP.md.
+``LinkPredictor``: merge(z_src, z_dst) -> ReLU MLP -> logits.
+``NodePredictor``: z_node -> ReLU MLP -> logits. ``model`` holds the MLP's
+layers in order; its Linear layers are the JAX ``mlp/Dense_0``, ``Dense_1``,
+... (``_MLP_0/Dense_i`` for the node head). The graph head is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,6 +16,15 @@ from torch import nn
 
 from ...exceptions import BadAggregatorProtocolError
 from ..modules.aggregation import Aggregator, ConcatMerge
+
+
+def _mlp(in_dim: int, out_dim: int, nlayers: int, hidden_dim: int) -> nn.Sequential:
+    """The JAX ``_MLP``: ``nlayers`` Linear layers, ReLU between them."""
+    layers = [nn.Linear(in_dim, hidden_dim), nn.ReLU()]
+    for _ in range(1, nlayers - 1):
+        layers += [nn.Linear(hidden_dim, hidden_dim), nn.ReLU()]
+    layers.append(nn.Linear(hidden_dim, out_dim))
+    return nn.Sequential(*layers)
 
 
 class LinkPredictor(nn.Module):
@@ -36,12 +47,20 @@ class LinkPredictor(nn.Module):
             )
         self.merge = merge
         self.out_dim = out_dim
-        layers = [nn.Linear(merge.out_channels, hidden_dim), nn.ReLU()]
-        for _ in range(1, nlayers - 1):
-            layers += [nn.Linear(hidden_dim, hidden_dim), nn.ReLU()]
-        layers.append(nn.Linear(hidden_dim, out_dim))
-        self.model = nn.Sequential(*layers)
+        self.model = _mlp(merge.out_channels, out_dim, nlayers, hidden_dim)
 
     def forward(self, z_src: torch.Tensor, z_dst: torch.Tensor) -> torch.Tensor:
         out = self.model(self.merge(z_src, z_dst))
         return out.reshape(-1) if self.out_dim == 1 else out
+
+
+class NodePredictor(nn.Module):
+    """z_node (S, in_dim) -> MLP -> logits (S, out_dim)."""
+
+    def __init__(self, in_dim: int, out_dim: int = 1, nlayers: int = 2,
+                 hidden_dim: int = 64) -> None:
+        super().__init__()
+        self.model = _mlp(in_dim, out_dim, nlayers, hidden_dim)
+
+    def forward(self, z_node: torch.Tensor) -> torch.Tensor:
+        return self.model(z_node)

@@ -7,18 +7,21 @@ from .programs import (
     build_dygformer_eval_core,
     build_dygformer_train_core,
     build_tgat_eval_core,
+    build_tgat_node_cores,
     build_tgat_train_core,
     build_tgn_hook_cores,
+    build_tgn_node_cores,
     tgn_eval_commit,
     tgn_train_commit,
 )
-from .stream import DeviceEdgeStream
+from .stream import DeviceEdgeStream, DeviceEventStream
 from .tgat_pipeline import TGATCarry, TGATPipeline, build_aug_table
 from .tgn_pipeline import TGNCarry, TGNPipeline
 
 __all__ = [
     "CheckpointManager",
     "DeviceEdgeStream",
+    "DeviceEventStream",
     "TGATCarry",
     "TGATPipeline",
     "TGNCarry",
@@ -29,8 +32,10 @@ __all__ = [
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
     "build_tgat_eval_core",
+    "build_tgat_node_cores",
     "build_tgat_train_core",
     "build_tgn_hook_cores",
+    "build_tgn_node_cores",
     "hook_epoch",
     "jit_scan_epoch",
     "restore_checkpoint",

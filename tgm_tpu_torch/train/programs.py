@@ -27,6 +27,18 @@ DyGFormer example's ``train_core`` and ``eval_core``).
 * TGAT eval: TGAT embeddings of [src | dst | unique candidates], each
   candidate's row found through the seed lookup, ``LinkPredictor`` scores,
   TGB MRR.
+* TGN node property prediction (``examples/nodeproppred/tgn.py``): memory
+  staged (train mode, in train and eval alike) over the batch's
+  deduplicated nodes, the segment ``GraphAttentionEmbedding`` over the
+  (label node -> recency neighbour) edges, ``NodePredictor`` logits of the
+  label nodes' rows, soft-label cross-entropy or NDCG@k, then the
+  train-order commit (flush, then store) with the old parameters, then the
+  optimizer step; a batch without labels moves neither the weights nor the
+  optimizer's state.
+* TGAT node property prediction (``examples/nodeproppred/tgat.py``): TGAT
+  embeddings of the label nodes with dropout, ``NodePredictor`` logits,
+  soft-label cross-entropy and the optimizer step on every batch, or
+  NDCG@k.
 
 The memory state is updated in place. ``tgn_embed``, ``tgn_loss_and_grad``
 and ``score_candidates`` are the steps the hook cores share with
@@ -40,8 +52,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..constants import PADDED_NODE_ID
-from ..eval.metrics import mrr_sum_count
+from ..constants import DEFAULT_NDCG_K, PADDED_NODE_ID
+from ..eval.metrics import mrr_sum_count, ndcg_at_k
 from ..hooks.dedup import candidate_rows, local_rows, map_to_local, seed_lookup
 from ..nn.encoder.tgn import TGNMemory, tgn_commit_staged
 
@@ -539,15 +551,161 @@ def build_tgat_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
     return eval_core
 
 
+def soft_label_ce(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``optax.softmax_cross_entropy`` with soft labels, mean over ``mask``
+    (at least 1)."""
+    loss = -(target * F.log_softmax(logits, dim=-1)).sum(-1)
+    w = mask.to(loss.dtype)
+    return (loss * w).sum() / w.sum().clamp_min(1.0)
+
+
+def has_node_labels(batch) -> bool:
+    """Whether the batch holds a real label: the host count the loader and
+    ``DeviceEventStream`` attach, so no step waits for the card to ask."""
+    if not batch.has("num_node_labels"):
+        raise ValueError("the batch carries no num_node_labels: build it with "
+                         "DGDataLoader or DeviceEventStream")
+    return batch.num_node_labels > 0
+
+
+def _label_loss_and_grad(opt: torch.optim.Optimizer, logits: Callable[[], torch.Tensor],
+                         batch) -> torch.Tensor:
+    zero_every_grad(opt)
+    with torch.enable_grad():
+        loss = soft_label_ce(logits(), batch.node_y, batch.node_y_valid)
+        loss.backward()
+    return loss.detach()
+
+
+def build_tgn_node_cores(memory: TGNMemory, encoder: Any, decoder: Any,
+                         opt: Optional[torch.optim.Optimizer], num_nodes: int,
+                         k: int = DEFAULT_NDCG_K) -> Tuple[Callable, Callable]:
+    """Return the TGN node-property ``(train_core, eval_core)`` of
+    ``examples/nodeproppred/tgn.py``.
+
+    * ``train_core(mem_state, batch) -> (mem_state, (loss, has))``; the JAX
+      carry ``(params, opt_state, mem_state)`` maps to the modules'
+      parameters, ``opt``'s state and ``mem_state``. ``loss`` (a 0-dim
+      tensor on the batch's device) is the masked soft-label cross-entropy,
+      0 without labels; ``has`` is a CPU bool tensor.
+    * ``eval_core(mem_state, batch) -> (mem_state, (ndcg, has))``: NDCG@k of
+      the batch's valid label rows, 0 without labels.
+
+    ``encoder`` is a ``GraphAttentionEmbedding``; batches carry the node-
+    label fields, the recency hook's products seeded by ``node_y_nids`` and
+    the dedup hook's ``unique_nids`` / ``global_to_local``. As in JAX:
+
+    * memory is staged in train mode in both cores;
+    * both commit in the train order (flush the batch's nodes, then store
+      its messages) with the old parameters, before the optimizer step;
+    * a batch without labels only commits: no forward, no backward, no
+      optimizer step (JAX masks the step out with ``jnp.where``; Adam's
+      step count does not advance either);
+    * a label node that is neither an endpoint of the batch's edges nor
+      anyone's neighbour is unseen by the dedup hook; its logits read row
+      U - 1 of the embeddings, as a JAX gather at -1 does (ROADMAP.md
+      fault 14).
+
+    ``train_core.loss_and_grad(mem_state, batch) -> loss`` and
+    ``train_core.commit(mem_state, batch) -> mem_state`` are its first two
+    stages; ``opt.step()`` is the third.
+    """
+
+    def logits(mem_state, batch):
+        z_mem, last_upd = memory.stage(mem_state, batch.unique_nids)
+        z = encoder(z_mem, last_upd, *build_local_edges(batch, num_nodes))
+        return decoder(z[local_rows(batch.global_to_local, batch.node_y_nids, z.shape[0])])
+
+    def commit(mem_state, batch):
+        return tgn_train_commit(memory, mem_state, batch, num_nodes)
+
+    def loss_and_grad(mem_state, batch):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        return _label_loss_and_grad(opt, lambda: logits(mem_state, batch), batch)
+
+    def train_core(mem_state, batch):
+        has = has_node_labels(batch)
+        if has:
+            loss = loss_and_grad(mem_state, batch)
+        else:
+            loss = torch.zeros((), device=batch.edge_src.device)
+        mem_state = commit(mem_state, batch)
+        if has:
+            opt.step()
+        return mem_state, (loss, torch.tensor(has))
+
+    @torch.no_grad()
+    def eval_core(mem_state, batch):
+        has = has_node_labels(batch)
+        if has:
+            ndcg = ndcg_at_k(logits(mem_state, batch), batch.node_y, k,
+                             row_valid=batch.node_y_valid)
+        else:
+            ndcg = torch.zeros((), device=batch.edge_src.device)
+        return commit(mem_state, batch), (ndcg, torch.tensor(has))
+
+    train_core.loss_and_grad = loss_and_grad
+    train_core.commit = commit
+    return train_core, eval_core
+
+
+def build_tgat_node_cores(encoder: Any, decoder: Any, opt: Optional[torch.optim.Optimizer],
+                          node_x: torch.Tensor,
+                          k: int = DEFAULT_NDCG_K) -> Tuple[Callable, Callable]:
+    """Return the TGAT node-property ``(train_core, eval_core)`` of
+    ``examples/nodeproppred/tgat.py``.
+
+    * ``train_core((generator,), batch) -> ((generator,), loss)``: the
+      masked soft-label cross-entropy of the label nodes' logits, its
+      backward and the optimizer step. The step runs on every batch, with
+      labels or without, as the JAX example's does. The ``torch.Generator``
+      draws the dropout masks (``None``: no dropout).
+    * ``eval_core(carry, batch) -> (carry, ndcg)``: NDCG@k of the valid
+      label rows (0 without labels); no dropout.
+
+    Batches carry the node-label fields and the multi-hop recency hook's
+    products seeded by ``node_y_nids``.
+    ``train_core.loss_and_grad(batch, generator) -> loss`` is its first
+    stage; ``opt.step()`` is the second.
+    """
+
+    def logits(batch, generator):
+        return decoder(_tgat_embed(encoder, node_x, batch, generator))
+
+    def loss_and_grad(batch, generator):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        return _label_loss_and_grad(opt, lambda: logits(batch, generator), batch)
+
+    def train_core(carry, batch):
+        (generator,) = carry
+        loss = loss_and_grad(batch, generator)
+        opt.step()
+        return (generator,), loss
+
+    @torch.no_grad()
+    def eval_core(carry, batch):
+        return carry, ndcg_at_k(logits(batch, None), batch.node_y, k,
+                                row_valid=batch.node_y_valid)
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core, eval_core
+
+
 __all__ = [
     "bce_with_logits",
     "build_local_edges",
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
     "build_tgat_eval_core",
+    "build_tgat_node_cores",
     "build_tgat_train_core",
     "build_tgn_hook_cores",
+    "build_tgn_node_cores",
+    "has_node_labels",
     "score_candidates",
+    "soft_label_ce",
     "tgn_embed",
     "tgn_eval_commit",
     "tgn_loss_and_grad",

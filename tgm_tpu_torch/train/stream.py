@@ -1,10 +1,15 @@
-"""Device-resident edge stream (port of ``tgm_tpu/train/stream.py::DeviceEdgeStream``).
+"""Device-resident event streams (port of ``tgm_tpu/train/stream.py``).
 
-Uploads a split's edge events to the device once and serves fixed-width
-batch windows with global ``edge_ids``: the split's rows offset by its place
-in the pre-split dataset (``DGData.edge_global_offset``), so one full-dataset
-feature table serves every split. ``DeviceEventStream`` (node events and
-labels) is queued in ROADMAP.md.
+``DeviceEdgeStream`` uploads a split's edge events to the device once and
+serves fixed-width batch windows with global ``edge_ids``: the split's rows
+offset by its place in the pre-split dataset (``DGData.edge_global_offset``),
+so one full-dataset feature table serves every split.
+
+``DeviceEventStream`` serves a ``DGDataLoader``'s batch plan (edge and
+node-label windows, event- or time-ordered) from arrays uploaded once. The
+plan's offsets and counts stay on the host, so ``batch_at(i)`` only issues
+slices and masks and never waits for the card; it keeps empty batches, as
+the JAX stream's scan does.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from ..constants import PADDED_NODE_ID
 from ..core.batch import DGBatch
-from ..core.graph import DGraph
+from ..core.graph import DGraph, pad_rows
 from ..device import DeviceLike, resolve_device
 
 
@@ -63,4 +68,85 @@ class DeviceEdgeStream:
                         edge_ids=self._edge_ids[sl])
         if self._edge_x is not None:
             batch.edge_x = self._edge_x[sl]
+        return batch
+
+
+class DeviceEventStream:
+    """A ``DGDataLoader``'s batch plan served from arrays on the loader's device.
+
+    ``batch_at(i)`` gives what the loader's ``materialize`` gives for batch
+    ``i`` at the plan's widths (``edge_ids``, ``edge_x`` and the node-label
+    fields included), plus ``num_node_labels``, the batch's label count
+    from the plan (a host int). Batches the loader skips as empty are kept.
+    """
+
+    def __init__(self, loader):
+        self.device = loader.device
+        plan = loader.plan()
+        data = loader.dgraph._storage._data
+        self.num_batches = len(plan)
+        self._plan = plan
+        # ``x`` on the device followed by ``w`` rows of ``fill``: every window
+        # of width ``w`` that starts at a row of ``x`` stays in bounds.
+        up = lambda x, w, fill: torch.as_tensor(pad_rows(x, len(x) + w, fill)[0],
+                                                device=self.device)
+
+        W = self._We = plan.pad_edges
+        E = data.num_edge_events
+        self._src = up(data.edge_index[:, 0].astype(np.int32), W, PADDED_NODE_ID)
+        self._dst = up(data.edge_index[:, 1].astype(np.int32), W, PADDED_NODE_ID)
+        self._t = up(data.edge_time.astype(np.int32), W, 0)
+        ids = data.edge_global_offset + np.arange(E, dtype=np.int32)
+        self._ids = up(ids.astype(np.int32), W, -1)
+        self._edge_x = None if data.edge_x is None else up(data.edge_x, W, 0.0)
+        self._e_off = plan.edge_offsets.tolist()
+        self._e_cnt = plan.edge_counts.tolist()
+        self._ar_e = torch.arange(W, device=self.device)
+
+        self._ny = None
+        if plan.node_y_offsets is not None and data.node_y_nids is not None:
+            Wy = plan.pad_node_y
+            y = data.node_y
+            self._ny = {
+                "W": Wy,
+                "nids": up(data.node_y_nids.astype(np.int32), Wy, PADDED_NODE_ID),
+                "t": up(data.node_y_time.astype(np.int32), Wy, 0),
+                "y": None if y is None else up(y, Wy, 0.0),
+                "off": plan.node_y_offsets.tolist(),
+                "cnt": plan.node_y_counts.tolist(),
+                "ar": torch.arange(Wy, device=self.device),
+            }
+
+    @property
+    def edge_x(self) -> Optional[torch.Tensor]:
+        """The data's edge feature table on the device (padded rows zero)."""
+        return self._edge_x
+
+    def batch_at(self, i: int) -> DGBatch:
+        """Batch ``i``: the plan's windows, rows past each count masked."""
+        if not 0 <= i < self.num_batches:
+            raise IndexError(f"batch {i} out of range [0, {self.num_batches})")
+        W, s = self._We, self._e_off[i]
+        valid = self._ar_e < self._e_cnt[i]
+        win = lambda a: a[s : s + W]
+        batch = DGBatch(
+            torch.where(valid, win(self._src), PADDED_NODE_ID),
+            torch.where(valid, win(self._dst), PADDED_NODE_ID),
+            torch.where(valid, win(self._t), 0),
+            valid,
+            edge_ids=torch.where(valid, win(self._ids), -1),
+        )
+        if self._edge_x is not None:
+            batch.edge_x = torch.where(valid[:, None], win(self._edge_x), 0.0)
+        ny = self._ny
+        if ny is not None:
+            s, Wy = ny["off"][i], ny["W"]
+            v = ny["ar"] < ny["cnt"][i]
+            wy = lambda a: a[s : s + Wy]
+            batch.node_y_time = torch.where(v, wy(ny["t"]), 0)
+            batch.node_y_nids = torch.where(v, wy(ny["nids"]), PADDED_NODE_ID)
+            if ny["y"] is not None:
+                batch.node_y = torch.where(v[:, None], wy(ny["y"]), 0.0)
+            batch.node_y_valid = v
+            batch.num_node_labels = ny["cnt"][i]
         return batch

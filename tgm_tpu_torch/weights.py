@@ -9,7 +9,9 @@ two flax encoders share their parameter names) and a ``LinkPredictor``.
 and ``LinkPredictor`` ``init`` build it (either attention layout) and copies
 it into a ``DyGFormer`` and a ``LinkPredictor``. ``load_tgat_params`` takes
 ``{"enc", "dec"}`` as the JAX ``TGAT`` and ``LinkPredictor`` ``init`` build
-it and copies it into a ``TGAT`` and a ``LinkPredictor``.
+it and copies it into a ``TGAT`` and a ``LinkPredictor``. The TGN and TGAT
+loaders also take a ``NodePredictor`` head for ``"dec"`` (its tree holds
+``_MLP_0`` where the link head's holds ``mlp``).
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
 variables and copies them into the port's. The mappings:
@@ -19,8 +21,9 @@ variables and copies them into the port's. The mappings:
 * ``TorchGRUCell`` ``wi/bi/wh/bh`` -> ``weight_ih``^T / ``bias_ih`` /
   ``weight_hh``^T / ``bias_hh``;
 * ``Time2Vec`` ``w (1, T)`` / ``b (T,)`` -> ``w.weight`` (T, 1) / ``w.bias``;
-* the ``LinkPredictor`` MLP's ``Dense_0``, ``Dense_1``, ... -> its Linear
-  layers in order (the same for the co-occurrence encoder's MLP);
+* the ``LinkPredictor`` MLP's ``Dense_0``, ``Dense_1``, ... (under ``mlp``;
+  ``_MLP_0`` for the ``NodePredictor``) -> its Linear layers in order (the
+  same for the co-occurrence encoder's MLP);
 * ``LayerNorm_i`` ``scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``;
 * ``MultiHeadDotProductAttention_0`` ``query``/``key``/``value`` kernels
   (D, H, dh) and ``out`` kernel (H, dh, D), flattened to (D, D), ->
@@ -69,14 +72,14 @@ def _time2vec(mod: nn.Module, p: Mapping[str, Any]) -> None:
 @torch.no_grad()
 def load_tgn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.Module,
                     decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"mem", "enc", "dec"}`` into the three modules, in place."""
+    """Copy the flax tree ``{"mem", "enc", "dec"}`` into the three modules, in
+    place; ``decoder`` is a ``LinkPredictor`` or a ``NodePredictor``."""
     load_tgn_memory_params(params["mem"], memory)
     enc = params["enc"]["params"]
     _time2vec(encoder.time_enc, enc["time_enc"])
     for name in ("lin_query", "lin_key", "lin_value", "lin_edge", "lin_skip"):
         _dense(getattr(encoder, name), enc[name])
-
-    _mlp(decoder.model, params["dec"]["params"]["mlp"])
+    _head(decoder, params["dec"])
 
 
 @torch.no_grad()
@@ -98,6 +101,12 @@ def _mlp(seq: nn.Sequential, p: Mapping[str, Any]) -> None:
         raise ValueError(f"the module has {len(linears)} Linear layers, the tree {len(p)}")
     for i, lin in enumerate(linears):
         _dense(lin, p[f"Dense_{i}"])
+
+
+def _head(decoder: nn.Module, variables: Mapping[str, Any]) -> None:
+    """A link head's ``mlp`` or a node head's ``_MLP_0``, whichever the tree holds."""
+    p = variables["params"]
+    _mlp(decoder.model, p["mlp"] if "mlp" in p else p["_MLP_0"])
 
 
 def _layer_norm(ln: nn.LayerNorm, p: Mapping[str, Any]) -> None:
@@ -170,7 +179,8 @@ def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
 
 @torch.no_grad()
 def load_tgat_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a TGAT and a LinkPredictor, in place."""
+    """Copy the flax tree ``{"enc", "dec"}`` into a TGAT and a LinkPredictor
+    or NodePredictor, in place."""
     enc = params["enc"]["params"]
     _time2vec(encoder.time_encoder, enc["time_encoder"])
     n_tree = sum(1 for k in enc if k.startswith("attn_"))
@@ -183,7 +193,7 @@ def load_tgat_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.
         _layer_norm(attn.layer_norm, sub["layer_norm"])
         _dense(merge.fc1, enc[f"merge_layers_{i}"]["Dense_0"])
         _dense(merge.fc2, enc[f"merge_layers_{i}"]["Dense_1"])
-    _mlp(decoder.model, params["dec"]["params"]["mlp"])
+    _head(decoder, params["dec"])
 
 
 @torch.no_grad()
