@@ -2,16 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-segment]
-        [--only-nodeprop]
+        [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
 training with TGAT's TGB eval; TGN in both the rowwise and the segment
 formulation), TGN through the fused ``TGNPipeline`` (train, eval, a
 checkpointed serving flow; the segment and packed-state variants), TGAT
-through the fused ``TGATPipeline`` (train, eval), TGN and TGAT node
-property prediction (train, NDCG@10 eval), and its hand-written CUDA
-kernels, in phases:
+through the fused ``TGATPipeline`` (train, eval), TGN, TGAT and DyGFormer
+node property prediction (train, NDCG@10 eval), TGAT with uniform
+neighbour sampling, TGN with the packed recency layout, every other hook,
+and its hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -21,11 +22,13 @@ kernels, in phases:
               same thing, and the least time the card could take (bound): K1
               on the ring state with the feature rows fused (S = 600 and
               4,400; and 4,400 over the pre-projected D = 100 table) and on
-              pre-gathered rows, the push into the TGN and DyGFormer states
+              pre-gathered rows (S = 600 and 4,400, B = K = 10: the packed
+              layout's query), the push into the TGN and DyGFormer states
               (and at E2 = 8,192 events), the TGN store commit (E = 200 and
               8,192 events), the single-buffer K2, K3, K4 (B = K = 20 at S =
               600 and 4,400; B = K = 10 at S = 600, the pipeline's feature
-              layout), K5; for K5 also the device time of each of its five
+              layout; S = 16 with B = K = 10 and 7, the node paths' label
+              seeds), K5; for K5 also the device time of each of its five
               kernels per layer and their CTAs per SM. TGAT's shapes: K1 at
               the hop-2 seed counts of the TGAT hook path (12,000 and
               88,000, B = K = 20), K1 over the (2E, 173) side-augmented
@@ -154,7 +157,13 @@ kernels, in phases:
               products, recency state and integer memory exact, the first
               loss within 1e-5 and every loss within 5e-3, memory within
               1e-4; the val batches on the card's trained weights and memory
-              on both (MRR sums within 1e-4), the CPU's own beside them.
+              on both: scores within 1e-4 * max |score|, the card's MRR sums
+              equal to the plain MRR of its scores, and MRR sums within 1e-4
+              unless a rank decision flipped between the devices, where every
+              flipped decision must be a tie within the score band (the
+              bench stream's val batches score one node pair, ROADMAP fault
+              4); the CPU's own weights and memory beside them.
+              ``--only-seg-agree N`` runs it alone N times.
 21. seg-pipe: ``TGNPipeline(rowwise=False)`` for one train epoch;
               ``TGNPipeline(packed_state=True)`` for a train epoch, val and
               test against the unpacked pipeline on the same batches
@@ -186,12 +195,40 @@ kernels, in phases:
               push twice a batch, the split into loader, hook,
               forward+backward and optimizer. ``--only-nodeprop`` runs
               np-train, np-agree and tgat-np alone.
-25. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+25. dyg-np:   the DyGFormer node example at its full width (channel 16,
+              time 32, embed 64, one layer, sequences of 8, K = 7 in the
+              feature layout, the seen-node hook, dropout 0.1) on the node
+              stream through the loader: one train epoch, val, the hook
+              reset, train and val streamed again, test; ms per batch,
+              events/s, labels/s, peak rise, launches (K4 once, the push
+              twice a batch); then 10 train and 3 val batches card against
+              CPU with dropout off (hook states exact, the first loss within
+              1e-5, all within 5e-3, NDCG on the card's weights within 1e-4).
+26. tgat-uni: tgat-train and tgat-agree with ``NeighborSamplerHook``
+              (``--sampling uniform``, the CSR of the train split): no kernel
+              of the port runs; the card's sampler draws are fed to the CPU
+              and every batch's sampled ids and times must be equal.
+27. pk:       TGN with the packed recency layout: the hook route's train
+              epoch, val and test (K1's pre-gathered entry and the store
+              commit once a batch, the push as a PyTorch row write); the
+              packed hook against the eid hook after every batch of the
+              three splits (planes, write positions, products equal); val
+              from one trained state through both routes (MRR sums within
+              1e-4); ``TGNPipeline(packed_recency=True)`` train, val and
+              test; 10 train batches in lockstep with the eid pipeline.
+28. hooks:    the historical, THG and TKG negative samplers, the time-gap
+              mean (2,000 events), both analytics hooks with the exact and
+              the hashed bitmap, the seen-node track and the device hooks on
+              the train split, card against CPU with the same draws (integer
+              products and states exact, floats within 1e-6 * max), ms per
+              batch. ``--only-hooks`` runs dyg-np, tgat-uni, pk and hooks
+              alone.
+29. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
-26. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+30. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -542,12 +579,16 @@ def k4_phase(rng, dev, card: str):
     train case with the prefix ``dygformer_train``; then at the TGN
     pipeline's feature layout (S = 600, B = K = 10), prefix ``tgn_feature``;
     then at the node-property path's label seeds (S = 16, the plan's padded
-    label count at 200 events a batch, B = K = 10), prefix ``nodeprop``."""
+    label count at 200 events a batch, B = K = 10), prefix ``nodeprop``,
+    and at the DyGFormer node example's (S = 16, B = K = 7), prefix
+    ``dygformer_nodeprop``."""
     train = k4_case(rng, 3 * BATCH, DYG_NBRS, dev, card)
     entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
     entry.update(_measured("dygformer_train", train))
     entry.update(_measured("tgn_feature", k4_case(rng, 600, NUM_NBRS, dev, card)))
     entry.update(_measured("nodeprop", k4_case(rng, NP_LABEL_SEEDS, NUM_NBRS, dev, card)))
+    entry.update(_measured("dygformer_nodeprop", k4_case(rng, NP_LABEL_SEEDS, DYG_NP_NBRS, dev,
+                                                         card)))
     return entry
 
 
@@ -792,23 +833,27 @@ def kernel_phase(rng, dev, card: str):
     proj = torch.as_tensor(rng.normal(size=(WIKI_EDGES, DIMS)).astype(np.float32), device=dev)
     report["recency_eid_select"].update(
         _measured("proj_d100", k1_fused_case(rng, eval_seeds, proj, dev, card)))
-    # K1 on pre-gathered rows (the Pallas function's contract), eval count.
-    args = k1_inputs(rng, eval_seeds, B, dev)
-    got = recency_window_select_eid(*args, K)
-    want = recency_window_select_eid_plain(*args, K)
-    torch.cuda.synchronize()
-    err = _max_abs_err(got, want)
-    if err:
-        raise AssertionError(f"K1 differs from its plain version: {err}")
-    S = eval_seeds
-    filled = int((got[0] != -1).sum())
-    pre = _time_and_report(
-        f"K1 recency_window_select_eid (pre-gathered rows) S={S} B={B} K={K} "
-        f"(filled {filled}/{S * K})",
-        lambda: recency_window_select_eid(*args, K),
-        lambda: recency_window_select_eid_plain(*args, K),
-        None, 4 * (3 * S * B + 2 * S + 3 * S * K), 6 * S * B, err, card)
-    report["recency_eid_select"].update(_measured("pregathered", pre))
+    # K1 on pre-gathered rows (the Pallas function's contract; the packed
+    # recency layout's query), at the packed train (600) and eval (4,400)
+    # seed counts, B = K = 10; the eval count's entry is "pregathered".
+    for prefix, S in (("pregathered_packed_train", 3 * BATCH), ("pregathered", eval_seeds)):
+        args = k1_inputs(rng, S, B, dev)
+        got = recency_window_select_eid(*args, K)
+        want = recency_window_select_eid_plain(*args, K)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"K1 differs from its plain version at S={S}: {err}")
+        filled = int((got[0] != -1).sum())
+        # Bytes: the gathered ids, times, eids and write positions and the
+        # query times read once; the three (S, K) outputs written once.
+        pre = _time_and_report(
+            f"K1 recency_window_select_eid (pre-gathered rows) S={S} B={B} K={K} "
+            f"(filled {filled}/{S * K})",
+            lambda: recency_window_select_eid(*args, K),
+            lambda: recency_window_select_eid_plain(*args, K),
+            None, 4 * (3 * S * B + 2 * S + 3 * S * K), 6 * S * B, err, card)
+        report["recency_eid_select"].update(_measured(prefix, pre))
 
     # TGAT: the hook path's hop-2 select at its train (12,000 seeds) and eval
     # (88,000) counts, B = K = 20, D = 172; TGATPipeline's deepest eval hop
@@ -1272,10 +1317,10 @@ def dyg_agree_phase(val, cands, models, dev, card):
 # ---------------------------------------------------------------------- #
 # The TGN train path
 # ---------------------------------------------------------------------- #
-def make_train_pipeline(data, train, cands, models, device, seed: int):
-    """Hooks (random negatives on ``train``, TGB candidates on ``val``, the
-    shared eid-layout recency hook), Adam and the rowwise cores, as the TGN
-    example builds them."""
+def make_train_pipeline(data, train, cands, models, device, seed: int, packed: bool = False):
+    """Hooks (random negatives on ``train``, TGB candidates on ``val`` and
+    ``test``, the shared eid-layout recency hook, packed with ``packed``),
+    Adam and the rowwise cores, as the TGN example builds them."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.hooks import (
         HookManager,
@@ -1287,14 +1332,15 @@ def make_train_pipeline(data, train, cands, models, device, seed: int):
 
     memory, encoder, decoder = (m.to(device) for m in models)
     dst = DGraph(train).edge_dst
-    hm = HookManager(keys=["train", "val"])
+    hm = HookManager(keys=["train", "val", "test"])
     hm.register("train", RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()),
                                                        device=device, seed=seed))
-    hm.register("val", TGBNegativeEdgeSamplerHook(cands["val"], device=device))
+    for split in ("val", "test"):
+        hm.register(split, TGBNegativeEdgeSamplerHook(cands[split], device=device))
     rec = RecencyNeighborHook(
         WIKI_NODES, [NUM_NBRS], ["edge_src", "edge_dst", "neg"],
         ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
-        edge_x_full=data.edge_x, device=device,
+        edge_x_full=data.edge_x, packed_buffers=packed, device=device,
     )
     hm.register_shared(rec)
     opt = torch.optim.Adam([p for m in (memory, encoder, decoder) for p in m.parameters()],
@@ -1688,17 +1734,20 @@ PIPE_SERVE_TRAIN_BATCHES = 50
 TGN_STEP = {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
 
 
-def make_tgn_pipeline(data, train, device, feature_layout: bool = False):
+def make_tgn_pipeline(data, train, device, feature_layout: bool = False,
+                      packed_recency: bool = False):
     """``TGNPipeline`` as ``bench.py`` builds it: dims 100, 2 heads, K = 10,
     Adam at 1e-4, negatives over the train split's destination range, the
-    eid layout over the pre-split feature table (or the feature layout)."""
+    eid layout over the pre-split feature table (packed with
+    ``packed_recency``, ``bench.py --recency packed``) or the feature layout."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import TGNPipeline
 
     dst = DGraph(train).edge_dst
     return TGNPipeline(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS, DIMS, NUM_NBRS, TRAIN_LR,
                        int(dst.min()), int(dst.max()),
-                       edge_x_full=None if feature_layout else data.edge_x, device=device)
+                       edge_x_full=None if feature_layout else data.edge_x,
+                       packed_recency=packed_recency, device=device)
 
 
 def split_stream(d, device):
@@ -1799,9 +1848,11 @@ def pipe_train_phase(data, train, seed: int, dev, card: str):
     return pipe, carry, launches
 
 
-def pipe_eval_phase(pipe, carry, val, test, cands, dev, card: str):
+def pipe_eval_phase(pipe, carry, val, test, cands, dev, card: str, need=None,
+                    phase: str = "pipe-eval"):
     """``flush_all``, then val and test through ``eval_step`` with the
-    pre-projected table; then val again from the same state without it."""
+    pre-projected table; then val again from the same state without it.
+    Each batch launches ``need`` (default ``TGN_STEP``)."""
     carry = pipe.flush_all(carry)
     start = clone_state(carry)
     table = pipe.eval_proj_table(carry.params)
@@ -1821,11 +1872,11 @@ def pipe_eval_phase(pipe, carry, val, test, cands, dev, card: str):
         n_batches += stream.num_batches
         n_edges += stream.num_edges
         seconds += dt
-        log("pipe-eval", f"{name}: {stream.num_edges} edges in {stream.num_batches} batches, "
+        log(phase, f"{name}: {stream.num_edges} edges in {stream.num_batches} batches, "
                          f"{dt:.3f} s, {stream.num_edges / dt:.0f} edges/s, MRR "
                          f"{float(s.sum() / c.sum()):.6f} (projected table) [{card}]")
     launches = read_launches()
-    check_launches("TGNPipeline eval", launches, TGN_STEP, n_batches)
+    check_launches(f"TGNPipeline eval ({phase})", launches, need or TGN_STEP, n_batches)
     mrr = {k: float(s.sum() / c.sum()) for k, (s, c) in out.items()}
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"pipeline MRR out of range: {mrr}")
@@ -1840,7 +1891,7 @@ def pipe_eval_phase(pipe, carry, val, test, cands, dev, card: str):
                              f"table, {float(s_raw.sum() / c_raw.sum())} without: per-batch sums "
                              f"{sum_err} apart, counts {float(c_tab.sum())} and "
                              f"{float(c_raw.sum())}")
-    log("pipe-eval", f"val_mrr={mrr['val']:.6f} (projected table) and "
+    log(phase, f"val_mrr={mrr['val']:.6f} (projected table) and "
                      f"{float(s_raw.sum() / c_raw.sum()):.6f} (raw features): counts equal, max "
                      f"per-batch sum diff {sum_err:.3g}, total {float(s_raw.sum() - s_tab.sum()):.3g}; "
                      f"test_mrr={mrr['test']:.6f} eval_edges_per_s={n_edges / seconds:.0f} "
@@ -2031,13 +2082,16 @@ def make_tgat_models(seed: int):
     return encoder, LinkPredictor(node_dim=TGAT_EMBED), node_x
 
 
-def make_tgat_pipeline(data, train, cands, models, device, seed: int):
+def make_tgat_pipeline(data, train, cands, models, device, seed: int,
+                       sampling: str = "recency"):
     """Hooks (random negatives on ``train``, TGB candidates on ``val`` and
-    ``test``, the shared two-hop eid-layout recency hook), Adam and the
-    cores, as the TGAT example builds them."""
+    ``test``, the shared two-hop neighbour hook: eid-layout recency, or
+    with ``sampling="uniform"`` the uniform sampler over train's CSR), Adam
+    and the cores, as the TGAT example builds them."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.hooks import (
         HookManager,
+        NeighborSamplerHook,
         RandomNegativeEdgeSamplerHook,
         RecencyNeighborHook,
         TGBNegativeEdgeSamplerHook,
@@ -2054,9 +2108,12 @@ def make_tgat_pipeline(data, train, cands, models, device, seed: int):
             for split in ("val", "test")}
     for split, h in tgbs.items():
         hm.register(split, h)
-    rec = RecencyNeighborHook(WIKI_NODES, TGAT_NBRS, ["edge_src", "edge_dst", "neg"],
-                              ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
-                              edge_x_full=data.edge_x, device=device)
+    keys = (["edge_src", "edge_dst", "neg"], ["edge_time", "edge_time", "neg_time"])
+    if sampling == "uniform":
+        rec = NeighborSamplerHook(TGAT_NBRS, *keys, device=device, seed=seed)
+    else:
+        rec = RecencyNeighborHook(WIKI_NODES, TGAT_NBRS, *keys, edge_dim=WIKI_EDGE_DIM,
+                                  edge_x_full=data.edge_x, device=device)
     hm.register_shared(rec)
     opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=TRAIN_LR)
     x = torch.as_tensor(node_x, device=device)
@@ -2064,20 +2121,22 @@ def make_tgat_pipeline(data, train, cands, models, device, seed: int):
             build_tgat_eval_core(encoder, decoder, x, WIKI_NODES))
 
 
-def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
+def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str,
+                     sampling: str = "recency"):
     """One TGAT train epoch (dropout 0.1), val and test through ``eval_core``,
-    then the stage split."""
+    then the stage split; ``sampling="uniform"`` is the tgat-uni phase."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
 
+    phase, step = ("tgat-uni", TGAT_UNI_STEP) if sampling == "uniform" else ("tgat-train",
+                                                                             TGAT_STEP)
     hm, _, _, _, opt, train_core, eval_core = make_tgat_pipeline(
-        data, train, cands, make_tgat_models(seed), dev, seed)
+        data, train, cands, make_tgat_models(seed), dev, seed, sampling)
     dg = DGraph(train)
     stream = DeviceEdgeStream(dg, BATCH, device=dev)
     generator = torch.Generator(device=dev).manual_seed(seed)
     epoch, states = hook_epoch(stream, hm, "train", dg, train_core)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    base = _reset_peak()
     reset_launches()
     t0 = time.perf_counter()
     (generator,), states, losses = epoch((generator,), states)
@@ -2085,18 +2144,20 @@ def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
     dt = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    rise = peak - base
     hm.adopt_states("train", states)
     n = stream.num_batches
-    check_launches("TGAT train", launches, TGAT_STEP, n)
+    check_launches(f"TGAT train ({phase})", launches, step, n)
     losses = losses.cpu()
     if losses.shape != (n,) or not torch.isfinite(losses).all():
         raise AssertionError(f"TGAT train losses not finite or of the wrong shape: {losses}")
-    log("tgat-train", f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
-                      f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
-                      f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
-                      f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; "
-                      f"max_memory_allocated={peak / 2**30:.3f} GiB; launches={launches} "
-                      f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
+    log(phase, f"{stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+               f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+               f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+               f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; "
+               f"max_memory_allocated={peak / 2**30:.3f} GiB (rise {rise / 2**30:.3f}); "
+               f"launches={launches} "
+               f"per_batch={ {k: v / n for k, v in launches.items()} } [{card}]")
 
     # Val, then test, through eval_core from the trained state.
     torch.cuda.reset_peak_memory_stats()
@@ -2116,19 +2177,19 @@ def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
         n_batches += sstream.num_batches
         n_edges += sstream.num_edges
         seconds += dt_eval
-        log("tgat-train", f"{split}: {sstream.num_edges} edges in {sstream.num_batches} batches, "
-                          f"{dt_eval:.3f} s, {sstream.num_edges / dt_eval:.0f} edges/s, MRR "
-                          f"{mrr[split]:.6f} [{card}]")
+        log(phase, f"{split}: {sstream.num_edges} edges in {sstream.num_batches} batches, "
+                   f"{dt_eval:.3f} s, {sstream.num_edges / dt_eval:.0f} edges/s, MRR "
+                   f"{mrr[split]:.6f} [{card}]")
     eval_launches = read_launches()
     eval_peak = torch.cuda.max_memory_allocated()
-    check_launches("TGAT eval", eval_launches, TGAT_STEP, n_batches)
+    check_launches(f"TGAT eval ({phase})", eval_launches, step, n_batches)
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"TGAT MRR out of range: {mrr}")
-    log("tgat-train", f"eval after the epoch: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
-                      f"eval_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
-                      f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f}; max_memory_allocated="
-                      f"{eval_peak / 2**30:.3f} GiB; launches={eval_launches} per_batch="
-                      f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
+    log(phase, f"eval after the epoch: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
+               f"eval_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
+               f"eval_ms_per_batch={seconds / n_batches * 1e3:.3f}; max_memory_allocated="
+               f"{eval_peak / 2**30:.3f} GiB; launches={eval_launches} per_batch="
+               f"{ {k: v / n_batches for k, v in eval_launches.items()} } [{card}]")
 
     # Where one train batch's time goes: each stage ends in a synchronize.
     hm.reset_state()
@@ -2150,8 +2211,8 @@ def tgat_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
         for k, a, z in zip(stages, t, t[1:]):
             stages[k].append((z - a) * 1e6)
     med = {k: float(np.median(v)) for k, v in stages.items()}
-    log("tgat-train", f"one train batch split, medians over {SPLIT_BATCHES} batches, us from "
-                      f"Python with a synchronize after each stage: "
+    log(phase, f"one train batch split, medians over {SPLIT_BATCHES} batches, us from "
+               f"Python with a synchronize after each stage: "
                       + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
         + f"; sum {sum(med.values()):.1f} [{card}]")
     return launches, eval_launches
@@ -2201,33 +2262,42 @@ def _z_gap(z_card, z_cpu) -> str:
             f"1e-4 (first {far[:8].tolist()})")
 
 
-def tgat_agree_phase(data, train, val, cands, seed: int, dev, card: str):
+def tgat_agree_phase(data, train, val, cands, seed: int, dev, card: str,
+                     sampling: str = "recency"):
     """The first TGAT train batches on the card and on the CPU from the same
     weights, no dropout, the card's negatives fed to the CPU; then val
     batches (the card's ``neg_time`` draws fed to the CPU) with the card's
     trained weights on both, so the eval compares one function on one
     input. The CPU's own trained weights are reported against the card's,
-    with the embeddings they give."""
+    with the embeddings they give. With ``sampling="uniform"`` the card's
+    sampler draws are fed to the CPU too, and every batch's sampled ids and
+    times (and the val batches' features) must be equal."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import DeviceEdgeStream
 
     base = make_tgat_models(seed)
-    negs, neg_times = [], []
+    negs, neg_times, offsets = [], [], []
+    phase = "tgat-uni" if sampling == "uniform" else "tgat-agree"
     runs = {}
     for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
         t0 = time.perf_counter()
         models = (copy.deepcopy(base[0]), copy.deepcopy(base[1]), base[2])
         hm, rec, rnd, tgbs, _, train_core, eval_core = make_tgat_pipeline(
-            data, train, cands, models, device, seed)
+            data, train, cands, models, device, seed, sampling)
         if label == "card":
             draw, draw_t = rnd.draw_neg, tgbs["val"].draw_neg_time
             rnd.draw_neg = lambda size: negs.append(draw(size)) or negs[-1]
             tgbs["val"].draw_neg_time = lambda *a: neg_times.append(draw_t(*a)) or neg_times[-1]
+            if sampling == "uniform":
+                draw_o = rec.draw_offsets
+                rec.draw_offsets = lambda *a: offsets.append(draw_o(*a)) or offsets[-1]
         else:
-            it, it_t = iter(negs), iter(neg_times)
+            it, it_t, it_o = iter(negs), iter(neg_times), iter(offsets)
             rnd.draw_neg = lambda size: next(it).to(device)
             tgbs["val"].draw_neg_time = lambda *a: next(it_t).to(device)
-        run = dict(losses=[], z=[], sums=[], prods=[])
+            if sampling == "uniform":
+                rec.draw_offsets = lambda *a: next(it_o).to(device)
+        run = dict(losses=[], z=[], sums=[], prods=[], train_prods=[])
         for split, d, n_batches in (("train", train, TGAT_AGREE_TRAIN),
                                     ("val", val, TGAT_AGREE_EVAL)):
             dg = DGraph(d)
@@ -2238,6 +2308,8 @@ def tgat_agree_phase(data, train, val, cands, seed: int, dev, card: str):
             for i in range(n_batches):
                 states, batch = fn(states, stream.batch_at(i))
                 if split == "train":
+                    run["train_prods"].append([x.cpu() for name in ("nbr_nids", "nbr_edge_time")
+                                               for x in getattr(batch, name)])
                     run["losses"].append(float(train_core((None,), batch)[1]))
                     continue
                 if label == "cpu" and i == 0:  # its own weights, then the card's
@@ -2249,22 +2321,26 @@ def tgat_agree_phase(data, train, val, cands, seed: int, dev, card: str):
                 run["z"].append(eval_core.embed(batch))
                 run["sums"].append(float(eval_core.score(batch, run["z"][-1])[0]))
             hm.adopt_states(split, states)
-        run.update(rec=[t.cpu() for t in rec.state], seconds=time.perf_counter() - t0)
+        rec_state = [] if sampling == "uniform" else [t.cpu() for t in rec.state]
+        run.update(rec=rec_state, seconds=time.perf_counter() - t0)
         runs[label] = run
     g, c = runs["card"], runs["cpu"]
     for name, x, y in zip(("nbr_ids", "nbr_times", "nbr_eids", "write_pos"), g["rec"], c["rec"]):
         if not torch.equal(x, y):
             raise AssertionError(f"TGAT: recency {name} differs between card and CPU")
-    for b, (gp, cp) in enumerate(zip(g["prods"], c["prods"])):
-        for i, (x, y) in enumerate(zip(gp, cp)):
-            if not torch.equal(x, y):
-                raise AssertionError(f"TGAT: val batch {b}: hook product {i} differs")
-    log("tgat-agree", _drift_line(g, c) + f" [{card}]")
-    gaps = _agree_report("TGAT", g["losses"], c["losses"], zip(g["z"], c["z"]), g["sums"],
-                         c["sums"])
-    log("tgat-agree", f"{TGAT_AGREE_TRAIN} train + {TGAT_AGREE_EVAL} val batches: recency state "
-                      f"and the val batches' hook products exact, {gaps}; card "
-                      f"{g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
+    for what, key in (("val", "prods"), ("train", "train_prods")):
+        for b, (gp, cp) in enumerate(zip(g[key], c[key])):
+            for i, (x, y) in enumerate(zip(gp, cp)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"TGAT ({phase}): {what} batch {b}: hook product {i} "
+                                         f"differs")
+    log(phase, _drift_line(g, c) + f" [{card}]")
+    gaps = _agree_report(f"TGAT ({phase})", g["losses"], c["losses"], zip(g["z"], c["z"]),
+                         g["sums"], c["sums"])
+    state = ("sampled ids and times of every batch and the val batches' features"
+             if sampling == "uniform" else "recency state and the val batches' hook products")
+    log(phase, f"card vs CPU, {TGAT_AGREE_TRAIN} train + {TGAT_AGREE_EVAL} val batches: {state} "
+               f"exact, {gaps}; card {g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
 
 
 def _drift_line(g, c) -> str:
@@ -2408,6 +2484,7 @@ def tgat_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
 # TGN memory variants
 # ---------------------------------------------------------------------- #
 SEG_AGREE_TRAIN, SEG_AGREE_EVAL = 10, 3
+SEG_SCORE_TOL = 1e-4  # card vs CPU val scores, relative to the batch's max |score|
 MEAN_AGREE_BATCHES = 5
 TGN_STEP_PACKED = {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES}
 
@@ -2580,14 +2657,68 @@ def seg_train_phase(data, train, val, test, cands, seed: int, dev, card: str):
     return launches, eval_launches
 
 
+class _RecordedScores:
+    """While active, record the (pos, negs, neg_valid, edge_valid) that each
+    eval core hands ``mrr_sum_count``, moved to the CPU, in ``self.calls``."""
+
+    def __init__(self):
+        from tgm_tpu_torch.train import programs
+
+        self.programs, self.plain, self.calls = programs, programs.mrr_sum_count, []
+
+    def _record(self, pos, negs, neg_valid=None, edge_valid=None):
+        self.calls.append(tuple(x.cpu() for x in (pos, negs, neg_valid, edge_valid)))
+        return self.plain(pos, negs, neg_valid=neg_valid, edge_valid=edge_valid)
+
+    def __enter__(self):
+        self.programs.mrr_sum_count = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.programs.mrr_sum_count = self.plain
+
+
+def _score_gap(g, c, rel_tol: float):
+    """One val batch's scores on the card ``g`` against the CPU's ``c``, each
+    ``(pos, negs, neg_valid, edge_valid)``: the max score difference over the
+    batch's max |score|, the rank decisions (``neg > pos`` and ``neg >= pos``,
+    the two halves of ``mrr_per_edge``'s rank) that differ between the devices
+    although ``|neg - pos|`` exceeds ``rel_tol * max |score|`` on one of them,
+    those that differ inside that band, and the narrowest span of one edge's
+    scores (positive and candidates, on the card) over the max |score|."""
+    (pos_g, neg_g, nv, ev), (pos_c, neg_c) = g, c[:2]
+    valid = nv & ev[:, None]
+    both = torch.cat([pos_g[ev], neg_g[valid]])
+    scale = max(float(both.abs().max()) if both.numel() else 0.0, 1e-30)
+    diff = torch.cat([(pos_g - pos_c)[ev], (neg_g - neg_c)[valid]]).abs()
+    err = (float(diff.max()) if diff.numel() else 0.0) / scale
+    gap_g, gap_c = neg_g - pos_g[:, None], neg_c - pos_c[:, None]
+    flip = (((gap_g > 0) != (gap_c > 0)) | ((gap_g >= 0) != (gap_c >= 0))) & valid
+    near = (gap_g.abs() <= rel_tol * scale) & (gap_c.abs() <= rel_tol * scale)
+    span = (torch.where(valid, gap_g, -torch.inf).amax(1).clamp_min(0)
+            - torch.where(valid, gap_g, torch.inf).amin(1).clamp_max(0))[ev]
+    span = (float(span.min()) if span.numel() else 0.0) / scale
+    return err, int((flip & ~near).sum()), int((flip & near).sum()), span
+
+
 def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
     """The first segment train batches, then val batches, on the card and on
     the CPU from the same weights, no dropout, the card's negatives and
     ``neg_time`` draws fed to the CPU. The val batches run on the card's
     trained weights and memory on both (fault 10); the CPU's own weights
     and memory score the same batches beside them, which shows the drift
-    of the two devices' summation orders."""
+    of the two devices' summation orders.
+
+    The bench stream's val batches score one node pair against two candidate
+    nodes, and after these train steps the three scores may lie within 1e-6
+    of each other (ROADMAP fault 4): then the devices' roundings decide ranks
+    and a whole batch's MRR sum. So the scores themselves are held within
+    ``SEG_SCORE_TOL`` * max |score|, the card's MRR sums against the plain
+    MRR of its own scores, and the two devices' MRR sums within 1e-4 except
+    where a rank decision flipped between them, which is allowed only where
+    ``|neg - pos|`` lies within the score band on both."""
     from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.eval import mrr_sum_count
     from tgm_tpu_torch.nn import TGNMemoryState
     from tgm_tpu_torch.train import DeviceEdgeStream, build_tgn_hook_cores
 
@@ -2607,7 +2738,7 @@ def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
             it, it_t = iter(negs), iter(neg_times)
             rnd.draw_neg = lambda size: next(it).to(device)
             tgb.draw_neg_time = lambda *a: next(it_t).to(device)
-        run = dict(losses=[], sums=[], own_sums=[], prods=[])
+        run = dict(losses=[], sums=[], own_sums=[], prods=[], scores=[])
         mem_state = p["memory"].init_state(device)
         for split, d, n_batches in (("train", train, SEG_AGREE_TRAIN),
                                     ("val", val, SEG_AGREE_EVAL)):
@@ -2632,8 +2763,10 @@ def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
                     (mem_state, _), loss = p["train_core"]((mem_state, None), batch)
                     run["losses"].append(float(loss))
                     continue
-                mem_state, (s, _) = p["eval_core"](mem_state, batch)
+                with _RecordedScores() as rec_scores:
+                    mem_state, (s, _) = p["eval_core"](mem_state, batch)
                 run["sums"].append(float(s))
+                run["scores"].append(rec_scores.calls[-1])
                 if label == "cpu":
                     own_state, (s, _) = own_eval(own_state, batch)
                     run["own_sums"].append(float(s))
@@ -2655,15 +2788,34 @@ def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
     sum_err = max(abs(a - b) for a, b in zip(g["sums"], c["sums"]))
     end_err = float((g["end_mem"] - c["end_mem"]).abs().max())
     own_err = max(abs(a - b) for a, b in zip(g["sums"], c["own_sums"]))
+    gaps = [_score_gap(gs, cs, SEG_SCORE_TOL) for gs, cs in zip(g["scores"], c["scores"])]
+    score_err = max(gap[0] for gap in gaps)
+    far_flips = sum(gap[1] for gap in gaps)
+    near_flips = [gap[2] for gap in gaps]
+    spans = [gap[3] for gap in gaps]
+    reduce_err = max(abs(float(mrr_sum_count(pos, negs, neg_valid=nv, edge_valid=ev)[0]) - s)
+                     for (pos, negs, nv, ev), s in zip(g["scores"], g["sums"]))
+    sums_agree = all(abs(a - b) <= 1e-4 or near > 0
+                     for a, b, near in zip(g["sums"], c["sums"], near_flips))
     if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and mem_err <= 1e-4
-            and sum_err <= 1e-4):
+            and score_err <= SEG_SCORE_TOL and far_flips == 0 and reduce_err <= 1e-4
+            and sums_agree):
         raise AssertionError(f"segment card vs CPU: losses {g['losses']} against {c['losses']}, "
-                             f"mem {mem_err}, MRR sums {g['sums']} against {c['sums']}")
+                             f"mem {mem_err}, MRR sums {g['sums']} against {c['sums']}, scores "
+                             f"{score_err:.3g} * max apart, {far_flips} rank decisions flipped "
+                             f"outside the score band and {near_flips} inside it, card MRR "
+                             f"{reduce_err:.3g} from the plain MRR of its scores")
     log("seg-agree", f"{SEG_AGREE_TRAIN} train + {SEG_AGREE_EVAL} val batches: dedup products, "
                      f"recency state and integer memory exact; first-loss diff {loss_err[0]:.3g}, "
                      f"max loss diff {max(loss_err):.3g}, max float state diff after training "
-                     f"{mem_err:.3g}; val on the card's weights and memory: max per-batch "
-                     f"MRR-sum diff {sum_err:.3g}, max |mem| diff after val {end_err:.3g}; the "
+                     f"{mem_err:.3g}; val on the card's weights and memory: scores "
+                     f"{score_err:.3g} * max |score| apart, rank decisions flipped inside the "
+                     f"{SEG_SCORE_TOL:g} band per batch {near_flips} (outside it 0), the "
+                     f"narrowest edge's scores per batch spanning "
+                     f"{[f'{x:.3g}' for x in spans]} * max |score|, max "
+                     f"per-batch MRR-sum diff {sum_err:.3g} (CPU on the card's weights "
+                     f"{c['sums']}), card MRR {reduce_err:.3g} from the plain MRR of its "
+                     f"scores, max |mem| diff after val {end_err:.3g}; the "
                      f"drift of the devices' summation orders: weights "
                      f"{_weight_gap(g['weights'], c['weights'])} apart after {SEG_AGREE_TRAIN} "
                      f"Adam steps, and the CPU's own weights and memory give MRR sums "
@@ -3142,6 +3294,465 @@ def tgat_np_phase(data, seed: int, dev, card: str):
     return launches, val_launches
 
 
+# ---------------------------------------------------------------------- #
+# The rest of the hook layer: DyGFormer node property prediction, TGAT
+# with uniform sampling, the packed recency layout, the other hooks
+# ---------------------------------------------------------------------- #
+DYG_NP_NBRS, DYG_NP_TIME, DYG_NP_CHANNEL, DYG_NP_EMBED, DYG_NP_SEQ = 7, 32, 16, 64, 8
+DYG_NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}
+TGAT_UNI_STEP: dict = {}  # the uniform sampler is PyTorch: no kernel of the port runs
+PK_HOOK_STEP = {"recency_window_select_eid": 1, "tgn_store_commit": 1}
+PK_PIPE_STEP = {"recency_window_select_eid": 1, "tgn_store_commit": 1}
+PK_AGREE_BATCHES = 10
+TIME_GAP = 2000  # GraphMixer's default window, in events
+
+
+def dyg_np_args(seed: int, device, **kw):
+    """The DyGFormer node example's flags at their defaults."""
+    base = dict(dataset=f"synthetic-{WIKI_NODES}-{WIKI_EDGES}", seed=seed, bsize=BATCH,
+                epochs=1, lr=TRAIN_LR, dropout=TRAIN_DROPOUT, n_nbrs=DYG_NP_NBRS,
+                time_dim=DYG_NP_TIME, channel_dim=DYG_NP_CHANNEL, embed_dim=DYG_NP_EMBED,
+                compute_bf16="auto", max_seq_len=DYG_NP_SEQ, num_classes=NP_CLASSES,
+                device=str(device))
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def dyg_np_phase(data, seed: int, dev, card: str):
+    """The DyGFormer node example at its full width on the card: one train
+    epoch through the loader (dropout 0.1), val, the hook reset, train and
+    val streamed through the hooks again, test; launches per batch; then 10
+    train and 3 val batches card against CPU (dropout off, one set of
+    weights; val on the card's trained weights)."""
+    from tgm_tpu_torch.data import DGDataLoader
+    from tgm_tpu_torch.examples.nodeproppred import dygformer as dyg_np
+
+    args = dyg_np_args(seed, dev)
+    ctx = dyg_np.build(args, data=data)
+    dg = ctx.dgs[0]
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = dyg_np.run_split(ctx, args, 0, "train")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    n = losses.shape[0]
+    check_launches("DyGFormer nodeprop train", launches, DYG_NP_STEP, n)
+    losses = losses.cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"DyGFormer nodeprop losses not finite: {losses}")
+    log("dyg-np", f"train: {dg.num_events} events ({dg.num_node_labels} labels) in {n} loader "
+                  f"batches, {dt:.3f} s: train_ms_per_batch={dt / n * 1e3:.3f} events_per_s="
+                  f"{dg.num_events / dt:.0f} labels_per_s={dg.num_node_labels / dt:.0f}; loss "
+                  f"first {float(losses[0]):.6f} last {float(losses[-1]):.6f} mean "
+                  f"{float(losses.mean()):.6f}; {peak}; launches={launches} per_batch="
+                  f"{ {k: v / n for k, v in launches.items()} } [{card}]")
+
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    vals = dyg_np.run_split(ctx, args, 1, "eval")
+    torch.cuda.synchronize()
+    dt_val = time.perf_counter() - t0
+    val_launches = read_launches()
+    check_launches("DyGFormer nodeprop eval", val_launches, DYG_NP_STEP, vals.shape[0])
+    val = float(vals.mean())
+    ctx.hm.reset_state()
+    for split in (0, 1):
+        dyg_np.run_split(ctx, args, split, None)
+    reset_launches()
+    t0 = time.perf_counter()
+    tests = dyg_np.run_split(ctx, args, 2, "eval")
+    torch.cuda.synchronize()
+    dt_test = time.perf_counter() - t0
+    for k, v in read_launches().items():
+        val_launches[k] += v
+    test = float(tests.mean())
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in (val, test)):
+        raise AssertionError(f"DyGFormer nodeprop NDCG out of range: {val}, {test}")
+    n_eval = vals.shape[0] + tests.shape[0]
+    check_launches("DyGFormer nodeprop val + test", val_launches, DYG_NP_STEP, n_eval)
+    ev = ctx.dgs[1].num_events + ctx.dgs[2].num_events
+    log("dyg-np", f"eval: val_ndcg={val:.6f} test_ndcg={test:.6f} over {n_eval} batches, "
+                  f"eval_ms_per_batch={(dt_val + dt_test) / n_eval * 1e3:.3f} eval_events_per_s="
+                  f"{ev / (dt_val + dt_test):.0f}; {_peak_line(base)}; val + test launches="
+                  f"{val_launches} [{card}]")
+
+    # Card against CPU: one set of weights, no dropout.
+    runs = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        a = dyg_np_args(seed, device, dropout=0.0)
+        c = dyg_np.build(a, data=data)
+        if label == "cpu":
+            for m, w in ((c.encoder, runs["card"]["enc0"]), (c.decoder, runs["card"]["dec0"])):
+                m.load_state_dict(w)
+        run = dict(enc0={k: v.detach().cpu().clone() for k, v in c.encoder.state_dict().items()},
+                   dec0={k: v.detach().cpu().clone() for k, v in c.decoder.state_dict().items()},
+                   losses=[], ndcg=[])
+        with c.hm.activate("all"):
+            for split, n_batches in ((0, NP_AGREE_TRAIN), (1, NP_AGREE_EVAL)):
+                if split == 1:
+                    if label == "card":
+                        run["trained"] = [{k: v.detach().cpu().clone()
+                                           for k, v in m.state_dict().items()}
+                                          for m in (c.encoder, c.decoder)]
+                    else:
+                        for m, w in zip((c.encoder, c.decoder), runs["card"]["trained"]):
+                            m.load_state_dict(w)
+                loader = DGDataLoader(c.dgs[split], BATCH, hook_manager=c.hm, device=device)
+                for i, batch in zip(range(n_batches), loader):
+                    if split == 0:
+                        run["losses"].append(float(c.train_core((None,), batch)[1]))
+                    else:
+                        run["ndcg"].append(float(c.eval_core(None, batch)[1]))
+        run["state"] = [t.cpu() for h in c.hm._shared_hooks
+                        for t in (h.state if isinstance(h.state, tuple) else (h.state,))]
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    for i, (x, y) in enumerate(zip(g["state"], c["state"])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"DyGFormer nodeprop: hook state tensor {i} differs")
+    loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+    ndcg_err = max(abs(a - b) for a, b in zip(g["ndcg"], c["ndcg"]))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and ndcg_err <= 1e-4):
+        raise AssertionError(f"DyGFormer nodeprop card vs CPU: losses {g['losses']} against "
+                             f"{c['losses']}, NDCG {g['ndcg']} against {c['ndcg']}")
+    log("dyg-np", f"card vs CPU, {NP_AGREE_TRAIN} train + {NP_AGREE_EVAL} val batches, dropout "
+                  f"off: recency (feature buffer included) and seen-node state exact, first-loss "
+                  f"diff {loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}, max NDCG diff "
+                  f"{ndcg_err:.3g} on the card's weights (card losses {g['losses']}, NDCG "
+                  f"{g['ndcg']}) [{card}]")
+    return launches, val_launches
+
+
+def _pk_planes(state):
+    """The packed buffer's [id, time, edge id] planes and write positions,
+    in the eid layout's order."""
+    buf, wp = state
+    return tuple(buf[:, :, c].contiguous() for c in range(3)) + (wp.clone(),)
+
+
+def pk_phase(data, train, val, test, cands, seed: int, dev, card: str):
+    """TGN with the packed recency layout: the hook route's train epoch and
+    val and test eval (K1's pre-gathered entry once a batch, no push
+    kernel); the packed hook against the eid hook after every batch of the
+    three splits, hooks alone; val from one trained state through both
+    routes (MRR sums within 1e-4); ``TGNPipeline(packed_recency=True)``
+    train and eval, and 10 train batches in lockstep with the eid pipeline
+    (recency state exact, losses within 1e-5)."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import (
+        RandomNegativeEdgeSamplerHook,
+        RecencyNeighborHook,
+        TGBNegativeEdgeSamplerHook,
+    )
+    from tgm_tpu_torch.nn import TGNMemoryState
+    from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
+
+    models = make_models(seed)
+    hm, rec, memory, opt, train_core, eval_core = make_train_pipeline(
+        data, train, cands, models, dev, seed, packed=True)
+    dgs = {k: DGraph(d) for k, d in (("train", train), ("val", val), ("test", test))}
+    streams = {k: DeviceEdgeStream(dg, BATCH, device=dev) for k, dg in dgs.items()}
+    stream = streams["train"]
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    mem_state = memory.init_state(dev)
+    epoch, states = hook_epoch(stream, hm, "train", dgs["train"], train_core)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    (mem_state, generator), states, losses = epoch((mem_state, generator), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    hm.adopt_states("train", states)
+    n = stream.num_batches
+    check_launches("TGN packed train", launches, PK_HOOK_STEP, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"packed train losses not finite or of the wrong shape: {losses}")
+    log("pk", f"hook route train: {stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+              f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+              f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+              f"{float(losses[-1]):.6f}; {peak}; launches={launches} per_batch="
+              f"{ {k: v / n for k, v in launches.items()} } [{card}]")
+
+    mem_state = memory.flush_all(mem_state)
+    start_mem = TGNMemoryState(*(x.clone() for x in mem_state))
+    start_rec = tuple(x.clone() for x in rec.state)
+    reset_launches()
+    sums, n_eval, seconds = {}, 0, 0.0
+    for split in ("val", "test"):
+        epoch, states = hook_epoch(streams[split], hm, split, dgs[split], eval_core)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem_state, states, (s, c) = epoch(mem_state, states)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        hm.adopt_states(split, states)
+        sums[split] = (s.cpu(), c.cpu())
+        n_eval += streams[split].num_batches
+    eval_launches = read_launches()
+    check_launches("TGN packed eval", eval_launches, PK_HOOK_STEP, n_eval)
+    mrr = {k: float(s.sum() / c.sum()) for k, (s, c) in sums.items()}
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"packed MRR out of range: {mrr}")
+    log("pk", f"hook route eval: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} over "
+              f"{n_eval} batches, eval_ms_per_batch={seconds / n_eval * 1e3:.3f}; launches="
+              f"{eval_launches} [{card}]")
+
+    # Val from the same trained state through the eid route.
+    hm_e, rec_e, memory_e, _, _, eval_core_e = make_train_pipeline(data, train, cands, models, dev,
+                                                                   seed)
+    rec_e.state = _pk_planes(start_rec)
+    epoch, states = hook_epoch(streams["val"], hm_e, "val", dgs["val"], eval_core_e)
+    _, states, (s_e, c_e) = epoch(start_mem, states)
+    s_pk, c_pk = sums["val"]
+    sum_err = float((s_e.cpu() - s_pk).abs().max())
+    if not (torch.equal(c_e.cpu(), c_pk) and sum_err <= 1e-4):
+        raise AssertionError(f"packed vs eid route val: per-batch MRR sums {sum_err} apart")
+    log("pk", f"val from one trained state, packed route against eid route: counts equal, max "
+              f"per-batch MRR-sum diff {sum_err:.3g} [{card}]")
+
+    # The packed hook against the eid hook after every batch, hooks alone.
+    kw = dict(num_nodes=WIKI_NODES, num_nbrs=[NUM_NBRS],
+              seed_nodes_keys=["edge_src", "edge_dst", "neg"],
+              seed_times_keys=["edge_time", "edge_time", "neg_time"], edge_x_full=data.edge_x,
+              device=dev)
+    pk_hook, eid_hook = RecencyNeighborHook(packed_buffers=True, **kw), RecencyNeighborHook(**kw)
+    pk_state, eid_state = pk_hook.init_state(), eid_hook.init_state()
+    dst = dgs["train"].edge_dst
+    negs = {"train": RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()), device=dev,
+                                                   seed=seed)}
+    for split in ("val", "test"):
+        negs[split] = TGBNegativeEdgeSamplerHook(cands[split], device=dev)
+    checked = 0
+    t0 = time.perf_counter()
+    for split in ("train", "val", "test"):
+        neg_state = negs[split].init_state()
+        for i in range(streams[split].num_batches):
+            neg_state, b = negs[split].apply(neg_state, streams[split].batch_at(i))
+            pk_state, pb = pk_hook.apply(pk_state, b.replace())
+            eid_state, eb = eid_hook.apply(eid_state, b.replace())
+            same = all(torch.equal(x, y) for x, y in zip(_pk_planes(pk_state), eid_state))
+            same &= all(torch.equal(getattr(pb, k)[0], getattr(eb, k)[0])
+                        for k in ("nbr_nids", "nbr_edge_time", "nbr_edge_x"))
+            if not same:
+                raise AssertionError(f"pk: {split} batch {i}: packed hook differs from the eid "
+                                     f"hook")
+            checked += 1
+    log("pk", f"packed hook against the eid hook after each of {checked} batches (train, val, "
+              f"test; hooks alone): planes, write positions and products equal, "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # TGNPipeline(packed_recency=True): train and eval, then lockstep with the eid pipeline.
+    from tgm_tpu_torch.train import jit_scan_epoch
+
+    pipe = make_tgn_pipeline(data, train, dev, packed_recency=True)
+    carry = pipe.init_carry(seed)
+    ep = jit_scan_epoch(pipe.train_step, stream.batch_at, n)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, plosses = ep(carry)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pipe_launches = read_launches()
+    check_launches("TGNPipeline packed train", pipe_launches, PK_PIPE_STEP, n)
+    plosses = plosses.cpu()
+    if not torch.isfinite(plosses).all():
+        raise AssertionError(f"packed pipeline losses not finite: {plosses}")
+    log("pk", f"TGNPipeline(packed_recency=True) train: {n} batches, {dt:.3f} s: "
+              f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+              f"{stream.num_edges / dt:.0f}; loss first {float(plosses[0]):.6f} last "
+              f"{float(plosses[-1]):.6f}; {_peak_line(base)}; launches={pipe_launches} [{card}]")
+    pipe_eval_launches = pipe_eval_phase(pipe, carry, val, test, cands, dev, card,
+                                         need=PK_PIPE_STEP, phase="pk")
+    del pipe, carry
+    pipes = [make_tgn_pipeline(data, train, dev, packed_recency=p) for p in (True, False)]
+    carries = [p.init_carry(seed) for p in pipes]
+    loss_err = 0.0
+    for i in range(PK_AGREE_BATCHES):
+        b = stream.batch_at(i)
+        (c_pk, l_pk), (c_eid, l_eid) = (p.train_step(c, b) for p, c in zip(pipes, carries))
+        carries = [c_pk, c_eid]
+        loss_err = max(loss_err, abs(float(l_pk) - float(l_eid)))
+        if not all(torch.equal(x, y) for x, y in zip(_pk_planes(c_pk.rec_state),
+                                                     c_eid.rec_state)):
+            raise AssertionError(f"pk: pipeline batch {i}: packed recency state differs")
+    if loss_err > 1e-5:
+        raise AssertionError(f"pk: packed and eid pipelines' losses {loss_err} apart")
+    log("pk", f"TGNPipeline packed against eid, {PK_AGREE_BATCHES} train batches in lockstep: "
+              f"recency state equal after each, max loss diff {loss_err:.3g} [{card}]")
+    return launches, eval_launches, pipe_launches, pipe_eval_launches
+
+
+def _same(path: str, got, want, rel: float = 0.0) -> None:
+    """Exact for integer and bool tensors, within ``rel`` * max |want| for floats."""
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{path}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if got.is_floating_point():
+        if not got.numel():
+            return
+        tol = rel * max(float(want.abs().max()), 1.0)
+        err = float((got - want).abs().max())
+        if err > tol:
+            raise AssertionError(f"{path}: {err} > {tol}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{path}: differs")
+
+
+def _flat(x, prefix=""):
+    """(name, tensor) pairs of a hook product or state: a tensor, or a dict
+    or tuple of them."""
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in _flat(v, f"{prefix}.{k}")]
+    if isinstance(x, (tuple, list)):
+        return [p for i, v in enumerate(x) for p in _flat(v, f"{prefix}[{i}]")]
+    return [(prefix, x)]
+
+
+def hooks_phase(data, train, val, np_data, seed: int, dev, card: str):
+    """Every other hook on the train split, on the card against the CPU with
+    the same draws: integer products and states exact, float products
+    within 1e-6 * max; ms per batch on the card from Python."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.data import DGDataLoader
+    from tgm_tpu_torch.hooks import (
+        BatchAnalyticsHook,
+        DeviceTransferHook,
+        EdgeEventsSeenNodesTrackHook,
+        HistoricalNegativeEdgeSamplerHook,
+        NodeAnalyticsHook,
+        PinMemoryHook,
+        TGBTHGNegativeEdgeSamplerHook,
+        TGBTKGNegativeEdgeSamplerHook,
+        TimeGapNeighborMeanHook,
+    )
+    from tgm_tpu_torch.train import DeviceEdgeStream
+
+    cpu = torch.device("cpu")
+    dg, vdg = DGraph(train), DGraph(val)
+    src, dst, t = dg._storage.get_edges(dg._slice)
+    node_x = np.random.default_rng(seed).normal(size=(WIKI_NODES, 8)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    tracked = rng.choice(WIKI_NODES, 64, replace=False)
+    q_cands = rng.integers(0, WIKI_NODES, (vdg.num_edge_events, NUM_CANDIDATES))
+    offset = dg._storage._data.edge_global_offset
+
+    def make(name, device):
+        if name == "historical":
+            return HistoricalNegativeEdgeSamplerHook(device=device, seed=seed)
+        if name in ("thg", "tkg"):
+            cls = TGBTHGNegativeEdgeSamplerHook if name == "thg" else TGBTKGNegativeEdgeSamplerHook
+            return cls(q_cands, device=device, seed=seed)
+        if name == "time_gap":
+            return TimeGapNeighborMeanHook(src, dst, t, node_x, TIME_GAP,
+                                           ["edge_src", "edge_dst"], edge_id_base=offset,
+                                           device=device)
+        if name == "batch_analytics":
+            return BatchAnalyticsHook()
+        return NodeAnalyticsHook(tracked, WIKI_NODES, exact_edges=name == "node_analytics_exact",
+                                 device=device)
+
+    names = ("historical", "thg", "tkg", "time_gap", "batch_analytics", "node_analytics_exact",
+             "node_analytics_hashed")
+    lines = []
+    for name in names:
+        split_dg = vdg if name in ("thg", "tkg") else dg
+        outs = {}
+        for label, device in (("card", dev), ("cpu", cpu)):
+            hook = make(name, device)
+            if name == "historical" and label == "card":
+                weights, draw = [], hook.draw_weights
+                hook.draw_weights = lambda *a: weights.append(draw(*a)) or weights[-1]
+            elif name == "historical":
+                it = iter(weights)
+                hook.draw_weights = lambda *a: next(it).to(cpu)
+            stream = DeviceEdgeStream(split_dg, BATCH, device=device)
+            state = hook.init_state(split_dg) if hook.has_state else None
+            prods, seconds = [], 0.0
+            for i in range(stream.num_batches):
+                b = stream.batch_at(i)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, b = hook.apply(state, b)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                seconds += time.perf_counter() - t0
+                prods.append([(k, x.cpu()) for p in sorted(hook.produces)
+                              for k, x in _flat(getattr(b, p), p)])
+            final = state[1:] if name == "historical" else state
+            outs[label] = (prods, _flat(final, "state") if final is not None else [], seconds,
+                           stream.num_batches)
+        (g_prods, g_state, g_sec, nb), (c_prods, c_state, _, _) = outs["card"], outs["cpu"]
+        for i, (gp, cp) in enumerate(zip(g_prods, c_prods)):
+            for (k, x), (_, y) in zip(gp, cp):
+                _same(f"hooks: {name} batch {i} {k}", x, y, 1e-6)
+        if isinstance(g_state, list):
+            for (k, x), (_, y) in zip(g_state, c_state):
+                _same(f"hooks: {name} final {k}", x, y)
+        lines.append(f"{name} {nb} batches {g_sec / nb * 1e3:.3f} ms")
+
+    # The seen-node track on the node-label stream's train split, through the loader.
+    n_dg = DGraph(np_data.split()[0])
+    outs = {}
+    for label, device in (("card", dev), ("cpu", cpu)):
+        hook = EdgeEventsSeenNodesTrackHook(WIKI_NODES, device=device)
+        state, prods = hook.init_state(), []
+        for b in DGDataLoader(n_dg, BATCH, device=device):
+            state, b = hook.apply(state, b)
+            prods.append((b.batch_nodes_mask.cpu(), b.seen_nodes.cpu()))
+        outs[label] = (prods, state.cpu())
+    for i, (gp, cp) in enumerate(zip(*(o[0] for o in outs.values()))):
+        for x, y in zip(gp, cp):
+            _same(f"hooks: seen-node batch {i}", x, y)
+    _same("hooks: seen-node state", outs["card"][1], outs["cpu"][1])
+    lines.append(f"seen_nodes {len(outs['card'][0])} loader batches")
+
+    # The device hooks: pin a CPU batch, copy it to the card and back.
+    host = DeviceEdgeStream(dg, BATCH, device=cpu).batch_at(0)
+    pinned = PinMemoryHook()(dg, host)
+    on_card = DeviceTransferHook(dev)(dg, pinned)
+    back = DeviceTransferHook(cpu)(dg, on_card)
+    torch.cuda.synchronize()
+    if not (pinned.edge_src.is_pinned() and on_card.edge_src.device.type == "cuda"
+            and all(torch.equal(getattr(back, k), getattr(host, k))
+                    for k in ("edge_src", "edge_dst", "edge_time", "edge_x"))):
+        raise AssertionError("hooks: the device hooks did not pin, copy or round-trip the batch")
+    lines.append("pin + transfer round trip equal")
+    log("hooks", "card against CPU, same draws, integer products and states exact, floats "
+                 "within 1e-6 * max; card ms per batch from Python: " + "; ".join(lines)
+        + f" [{card}]")
+
+
+def hook_layer_phases(data, train, val, test, cands, np_data, seed: int, dev, card: str):
+    """dyg-np, tgat-uni (with its card-against-CPU check), pk and hooks;
+    returns each path's launches under its ``kernels``-line key."""
+    t0 = time.perf_counter()
+    dyg_train, dyg_eval = dyg_np_phase(np_data, seed, dev, card)
+    uni_train, uni_eval = tgat_train_phase(data, train, val, test, cands, seed, dev, card,
+                                           sampling="uniform")
+    tgat_agree_phase(data, train, val, cands, seed, dev, card, sampling="uniform")
+    pk = pk_phase(data, train, val, test, cands, seed, dev, card)
+    hooks_phase(data, train, val, np_data, seed, dev, card)
+    log("hooks", f"the four hook-layer phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches_dygformer_nodeprop_train": dyg_train,
+            "launches_dygformer_nodeprop_eval": dyg_eval,
+            "launches_tgat_uniform_train": uni_train,
+            "launches_tgat_uniform_eval": uni_eval,
+            "launches_tgn_packed_train": pk[0],
+            "launches_tgn_packed_eval": pk[1],
+            "launches_tgn_packed_pipeline_train": pk[2],
+            "launches_tgn_packed_pipeline_eval": pk[3]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3152,8 +3763,13 @@ def main() -> int:
     ap.add_argument("--only-segment", action="store_true",
                     help="build, run the seg-train, seg-agree and seg-pipe phases and stop "
                     "(no result lines)")
+    ap.add_argument("--only-seg-agree", type=int, default=0, metavar="N",
+                    help="build, run the seg-agree phase N times and stop (no result lines)")
     ap.add_argument("--only-nodeprop", action="store_true",
                     help="build, run the np-train, np-agree and tgat-np phases and stop "
+                    "(no result lines)")
+    ap.add_argument("--only-hooks", action="store_true",
+                    help="build, run the dyg-np, tgat-uni, pk and hooks phases and stop "
                     "(no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3188,11 +3804,21 @@ def main() -> int:
         seg_agree_phase(data, train, val, cands, args.seed, dev, card)
         seg_pipe_phase(data, train, val, test, cands, args.seed, dev, card)
         return 0
+    if args.only_seg_agree:
+        data, train, val, _, cands = build_stream(args.seed)
+        for _ in range(args.only_seg_agree):
+            seg_agree_phase(data, train, val, cands, args.seed, dev, card)
+        return 0
     if args.only_nodeprop:
         np_data = build_np_stream()
         np_train_phase(np_data, args.seed, dev, card)
         np_agree_phase(np_data, args.seed, dev, card)
         tgat_np_phase(np_data, args.seed, dev, card)
+        return 0
+    if args.only_hooks:
+        data, train, val, test, cands = build_stream(args.seed)
+        np_data = build_np_stream()
+        hook_layer_phases(data, train, val, test, cands, np_data, args.seed, dev, card)
         return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
@@ -3242,6 +3868,7 @@ def main() -> int:
     np_train_launches, np_eval_launches = np_train_phase(np_data, args.seed, dev, card)
     np_agree_phase(np_data, args.seed, dev, card)
     tgat_np_train_launches, tgat_np_eval_launches = tgat_np_phase(np_data, args.seed, dev, card)
+    hook_paths = hook_layer_phases(data, train, val, test, cands, np_data, args.seed, dev, card)
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
@@ -3277,8 +3904,11 @@ def main() -> int:
     # eval, TGATPipeline's train epoch and its val + test eval, the TGN
     # segment route's train epoch and its val + test eval,
     # TGNPipeline's segment train epoch and its packed train and eval, the
-    # TGN node example's train epoch and its val + test eval, and the TGAT
-    # node example's train epoch and its val eval.
+    # TGN node example's train epoch and its val + test eval, the TGAT
+    # node example's train epoch and its val eval, the DyGFormer node
+    # example's train epoch and its val + test eval, TGAT's uniform-sampling
+    # train epoch and its val + test eval, and the packed recency layout's
+    # hook-route train epoch and val + test eval and its pipeline's.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"])
@@ -3301,7 +3931,8 @@ def main() -> int:
              "launches_tgn_nodeprop_train": per_kernel(np_train_launches),
              "launches_tgn_nodeprop_eval": per_kernel(np_eval_launches),
              "launches_tgat_nodeprop_train": per_kernel(tgat_np_train_launches),
-             "launches_tgat_nodeprop_eval": per_kernel(tgat_np_eval_launches)}
+             "launches_tgat_nodeprop_eval": per_kernel(tgat_np_eval_launches),
+             **{k: per_kernel(v) for k, v in hook_paths.items()}}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": count, **{k: v[name] for k, v in paths.items()}, **report[name]}
                for name, (src, replaces, count) in kernels_of.items()]

@@ -89,8 +89,12 @@ def test_recency_hook_stream_matches_jax(monkeypatch, dense_push, directed):
 def test_recency_hook_rejects_unported_layouts():
     edge_x = np.zeros((4, 2), np.float32)
     keys = (["edge_src"], ["edge_time"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RecencyNeighborHook(N, [K], *keys, edge_x_full=edge_x, packed_buffers=True, device="cpu")
+    # The packed layout is ported and, as in JAX, needs the eid layout.
+    with pytest.raises(ValueError, match="edge_x_full"):
+        RecencyNeighborHook(N, [K], *keys, packed_buffers=True, device="cpu")
+    packed = RecencyNeighborHook(N, [K], *keys, edge_x_full=edge_x, packed_buffers=True,
+                                 device="cpu")
+    assert packed.init_state()[0].shape == (N + 1, K, 3)
     # Multi-hop queries are ported: the hook builds, its rings hold max(num_nbrs) slots.
     hook = RecencyNeighborHook(N, [2, K], *keys, edge_x_full=edge_x, device="cpu")
     assert hook.num_nbrs == [2, K] and hook.init_state()[0].shape == (N + 1, K)

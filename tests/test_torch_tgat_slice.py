@@ -16,8 +16,8 @@ Bands (the North star's): per-batch losses within 5e-3 and the first within
 1e-5; val MRR within 0.01 per epoch and test MRR within 0.02; the recency
 state exact after each epoch. The measured gaps are printed.
 
-The port's example script runs one epoch on the CPU, narrowed, and
-``--sampling uniform`` raises.
+The port's example script runs one epoch on the CPU, narrowed, with
+either ``--sampling``, and an unknown one raises.
 """
 
 import json
@@ -290,5 +290,10 @@ def test_example_script_runs_one_epoch_on_the_cpu(tmp_path):
 
 
 def test_example_script_uniform_sampling_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tgat_example.main(["--device", "cpu", "--sampling", "uniform"])
+    # --sampling uniform is ported: it runs; a sampling the example lacks raises.
+    out = tgat_example.main(["--dataset", "synthetic-120-800", "--device", "cpu",
+                             "--sampling", "uniform", "--n-nbrs", "3", "2", "--time-dim", "4",
+                             "--embed-dim", "8"])
+    assert np.isfinite(out["loss"]) and 0.0 < out["test_mrr"] <= 1.0
+    with pytest.raises(SystemExit):
+        tgat_example.main(["--device", "cpu", "--sampling", "random"])

@@ -313,7 +313,6 @@ def test_train_step_draws_no_dropout():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    ({"packed_recency": True}, "queue 1 item 5"),
     ({"dedup_staging": True}, "queue 1 item 1c"),
     ({"state_row_multiple": 8}, "not queued"),
     ({"feat_bf16": True}, "queue 1 item 1c"),
@@ -328,6 +327,7 @@ def test_unported_options_raise(kwargs, match):
 @pytest.mark.parametrize("kwargs", [
     {"attn_score_layout": "lanes"}, {"attn_score_layout": "kmajor"}, {"attn_bf16": "auto"},
     {"attn_bf16": "off"}, {"attn_bf16": False}, {"feat_bf16": False}, {"rowwise": False},
+    {"packed_recency": True},
     {"packed_state": True}, {"rowwise": False, "packed_state": True},
 ])
 def test_same_math_options_are_accepted(kwargs):

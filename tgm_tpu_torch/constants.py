@@ -12,3 +12,6 @@ PADDED_NODE_ID: Final[int] = -1
 
 # Default cutoff for NDCG@k (TGB node property prediction).
 DEFAULT_NDCG_K: Final[int] = 10
+
+# Recipe identifiers.
+RECIPE_TGB_LINK_PRED: Final[str] = "tgb-link-pred"

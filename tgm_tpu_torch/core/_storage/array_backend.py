@@ -1,14 +1,14 @@
 """Array-backed storage engine (port of ``tgm_tpu/core/_storage/array_backend.py``).
 
-Reduced to the edge and node-label accessors the port reads. It shares the
-``DGData`` arrays without copying and resolves a slice by binary search over
-the sorted timeline. The temporal CSR and uniform neighbour sampling are
-queued in ROADMAP.md.
+Reduced to the edge and node-label accessors the port reads, and the
+temporal CSR the uniform neighbour sampler queries. It shares the ``DGData``
+arrays without copying and resolves a slice by binary search over the
+sorted timeline.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Set, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 
@@ -28,6 +28,7 @@ class DGStorageArrayBackend:
 
     def __init__(self, data: "DGData") -> None:
         self._data = data
+        self._csr: Dict[bool, Tuple[np.ndarray, ...]] = {}
 
     def _bounds(self, sl: DGSliceTracker) -> Tuple[int, int]:
         """The slice's [lb, ub) window of the global timeline."""
@@ -96,3 +97,40 @@ class DGStorageArrayBackend:
 
     def get_edge_x_dim(self) -> Optional[int]:
         return None if self._data.edge_x is None else self._data.edge_x.shape[1]
+
+    def temporal_csr(self, directed: bool) -> Tuple[np.ndarray, ...]:
+        """``(row_ptr, nbr_nids, nbr_times, nbr_eids, composite_key, key_base)``
+        over every edge of this storage, sorted by (node, time), cached.
+
+        Undirected, each edge appears under both ends, interleaved eid-major,
+        so the stable sort leaves equal (node, time) entries in edge-id
+        order. ``composite_key = node * key_base + time`` with ``key_base =
+        max time + 2`` is sorted too, so one ``searchsorted`` finds a row's
+        time window. Edge ids index this storage's own edge rows.
+        """
+        if directed not in self._csr:
+            d = self._data
+            src = d.edge_index[:, 0].astype(np.int64)
+            dst = d.edge_index[:, 1].astype(np.int64)
+            eid = np.arange(len(src), dtype=np.int64)
+            t = d.time[d.edge_mask]
+            if directed:
+                nodes, nbrs, eids, times = src, dst, eid, t
+            else:
+                nodes = np.stack([src, dst], axis=1).ravel()
+                nbrs = np.stack([dst, src], axis=1).ravel()
+                eids = np.repeat(eid, 2)
+                times = np.repeat(t, 2)
+            order = np.lexsort((times, nodes))  # stable: the input order breaks ties
+            nodes, nbrs, eids, times = nodes[order], nbrs[order], eids[order], times[order]
+            row_ptr = np.searchsorted(nodes, np.arange(d.num_nodes + 1, dtype=np.int64))
+            key_base = int(d.time.max()) + 2
+            self._csr[directed] = (
+                row_ptr.astype(np.int64),
+                nbrs.astype(np.int32),
+                times.astype(np.int64),
+                eids.astype(np.int64),
+                nodes * key_base + times,
+                np.int64(key_base),
+            )
+        return self._csr[directed]

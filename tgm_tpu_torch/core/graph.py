@@ -4,8 +4,9 @@ Slicing by event index (``slice_events``) or timestamp (``slice_time``,
 end-exclusive), ``materialize()`` of a slice into a ``DGBatch`` padded to
 static widths (edges, global ``edge_ids``, ``edge_x`` and the node-label
 events), and the slice properties the loader, the streams and the hooks
-read. Dynamic node features, edge and node types and the uniform sampler's
-CSR are queued in ROADMAP.md.
+read. The uniform sampler's temporal CSR lives in the storage
+(``temporal_csr``). Dynamic node features and edge and node types are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations

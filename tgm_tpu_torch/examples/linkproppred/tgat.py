@@ -4,17 +4,19 @@
         [--epochs 1] [--n-nbrs 20 20] [--device cuda] ...
 
 Per epoch: the train split runs through the hook pipeline (random
-negatives, then the shared multi-hop recency hook over [src | dst | neg]
-in the eid layout) and ``train_core`` (TGAT with dropout,
+negatives, then the shared multi-hop neighbour hook over [src | dst | neg]:
+the recency hook in the eid layout, or with ``--sampling uniform`` the
+uniform ``NeighborSamplerHook`` over train's temporal CSR, as in JAX) and
+``train_core`` (TGAT with dropout,
 ``LinkPredictor``, BCE, backward, Adam); then val through ``eval_core``
 with the TGB candidates; then the hook state is reset. After the epochs,
 train and val are replayed through the hooks alone and test is evaluated.
 
 Node features are ``normal(N, 1)`` from ``--seed``, as in the JAX example.
 The flags and defaults are the JAX example's, plus ``--device`` (default
-``cuda``). ``--sampling uniform`` raises (``NeighborSamplerHook`` is
-ROADMAP.md queue 1 item 5); ``--eager`` is accepted: the port's epochs are
-per-batch Python loops either way. The attention runs in fp32 (the JAX
+``cuda``). ``--eager`` is accepted: the port's epochs are per-batch
+Python loops either way. The uniform sampler's draws come from a generator
+on the device seeded with ``--seed``. The attention runs in fp32 (the JAX
 example's ``kv_bf16`` auto policy is off on a GPU).
 """
 
@@ -31,6 +33,7 @@ from ...core.graph import DGraph
 from ...device import resolve_device
 from ...hooks import (
     HookManager,
+    NeighborSamplerHook,
     RandomNegativeEdgeSamplerHook,
     RecencyNeighborHook,
     TGBNegativeEdgeSamplerHook,
@@ -66,9 +69,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     """Run the example; return the last epoch's loss and val MRR, and the test MRR."""
     args = parse_args(argv)
-    if args.sampling == "uniform":
-        raise NotImplementedError(
-            "--sampling uniform: NeighborSamplerHook is ROADMAP.md queue 1 item 5")
     dev = resolve_device(args.device)
     torch.manual_seed(args.seed)
 
@@ -86,11 +86,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         low=int(dst.min()), high=int(dst.max()), device=dev, seed=args.seed))
     hm.register("val", TGBNegativeEdgeSamplerHook(val_cands, device=dev, seed=args.seed))
     hm.register("test", TGBNegativeEdgeSamplerHook(test_cands, device=dev, seed=args.seed))
-    # eid-layout rings over the PRE-SPLIT feature table, one K1 launch a hop.
-    hm.register_shared(RecencyNeighborHook(
-        num_nodes, args.n_nbrs, ["edge_src", "edge_dst", "neg"],
-        ["edge_time", "edge_time", "neg_time"], edge_dim=edge_dim, edge_x_full=data.edge_x,
-        device=dev))
+    seed_keys = ["edge_src", "edge_dst", "neg"]
+    time_keys = ["edge_time", "edge_time", "neg_time"]
+    if args.sampling == "recency":
+        # eid-layout rings over the PRE-SPLIT feature table, one K1 launch a hop.
+        hm.register_shared(RecencyNeighborHook(
+            num_nodes, args.n_nbrs, seed_keys, time_keys, edge_dim=edge_dim,
+            edge_x_full=data.edge_x, device=dev))
+    else:
+        hm.register_shared(NeighborSamplerHook(args.n_nbrs, seed_keys, time_keys, device=dev,
+                                               seed=args.seed))
 
     # --- model -------------------------------------------------------- #
     encoder = TGAT(node_dim=node_x.shape[1], edge_dim=edge_dim, time_dim=args.time_dim,

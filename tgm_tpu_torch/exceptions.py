@@ -39,3 +39,7 @@ class EventOrderedConversionError(TGMError):
 
 class InvalidDiscretizationError(TGMError):
     """Discretization target granularity is finer than the current one."""
+
+
+class UndefinedRecipeError(TGMError):
+    """A recipe name was not registered in the RecipeRegistry."""

@@ -2,13 +2,17 @@
 
 * ``RandomNegativeEdgeSamplerHook``: uniform random destination ids in
   [low, high) for training, ``neg_time = edge_time``.
-* ``TGBNegativeEdgeSamplerHook`` serves pre-generated per-edge candidate
-  lists in order, given as a dense ``(E_eval, Q)`` array.
+* ``HistoricalNegativeEdgeSamplerHook``: per source, one destination drawn
+  uniformly from that source's logged past edges (a Gumbel-max over a
+  preallocated edge log), PAD and ``valid_neg_mask`` False without history.
+* ``TGBNegativeEdgeSamplerHook`` and its THG / TKG variants serve
+  pre-generated per-edge candidate lists in order, given as a dense
+  ``(E_eval, Q)`` array or loaded from the installed ``tgb`` package.
 
-Random draws come from seeded CPU ``torch.Generator`` objects and are moved
-to the hook's device, so the card and the CPU see the same numbers. Loading
-candidates from the TGB package, the THG/TKG variants and the historical
-sampler are queued in ROADMAP.md.
+Random draws come from seeded ``torch.Generator`` objects, so the card and
+the CPU see the same numbers where the generator is on the CPU (the random
+ids and the TGB link times); the historical sampler's weights come from a
+generator on the hook's device.
 """
 
 from __future__ import annotations
@@ -109,9 +113,109 @@ class RandomNegativeEdgeSamplerHook(StatefulHook):
         self._generator = None
 
 
+def _last_writer(target: torch.Tensor, size: int) -> torch.Tensor:
+    """For each write, the row of the last write in row order to the same
+    target: the rule of an XLA scatter with repeated indices. Writing every
+    row's value from that row makes repeated targets agree on any device."""
+    order = torch.arange(target.shape[0], device=target.device)
+    last = torch.full((size,), -1, dtype=torch.long, device=target.device)
+    last.scatter_reduce_(0, target, order, "amax")
+    return last[target]
+
+
 @hook
-class TGBNegativeEdgeSamplerHook(StatefulHook):
-    """Serve tgbl-* pre-generated negative candidate lists in chronological order.
+class HistoricalNegativeEdgeSamplerHook(StatefulHook):
+    """Sample negatives from each source's historical destinations.
+
+    State: ``(generator, src_log, dst_log, count)`` with a static capacity C
+    equal to the graph's edge-event count: every batch appends its valid
+    edges at ``count + cumsum(valid) - 1`` and ``count`` is clamped at C.
+    Per batch, each logged edge gets a uniform weight (:meth:`draw_weights`,
+    from the generator on the hook's device; tests replace it), and each
+    source's winner is its logged edge of largest weight (ties: the largest
+    log index), found with two ``scatter_reduce_("amax")`` passes; a source
+    without history gets PAD and ``valid_neg_mask`` False.
+    """
+
+    _cls_requires = {"edge_src", "edge_dst", "edge_time"}
+    _cls_produces = {"neg", "neg_time", "valid_neg_mask"}
+
+    def __init__(self, device: DeviceLike = None, seed: int = 0,
+                 id: Optional[str] = None) -> None:
+        super().__init__(id=id)
+        self.device = resolve_device(device)
+        self._seed = seed
+        self._num_nodes: Optional[int] = None
+
+    def init_state(self, dg: Optional[DGraph] = None) -> Any:
+        if dg is None:
+            raise ValueError("HistoricalNegativeEdgeSamplerHook needs a graph to size its log")
+        capacity = int(dg.num_edge_events)
+        self._num_nodes = int(dg.num_nodes)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return (
+            torch.Generator(device=self.device).manual_seed(self._seed),
+            torch.full((capacity,), PADDED_NODE_ID, **i32),
+            torch.full((capacity,), PADDED_NODE_ID, **i32),
+            torch.zeros((), **i32),
+        )
+
+    def draw_weights(self, generator: torch.Generator, C: int) -> torch.Tensor:
+        """(C,) float32 weights uniform in [0, 1) on the hook's device."""
+        return torch.rand((C,), generator=generator, device=self.device)
+
+    def apply(self, state: Any, batch: DGBatch) -> Tuple[Any, DGBatch]:
+        generator, src_log, dst_log, count = state
+        n = self._num_nodes
+        C = src_log.shape[0]
+        dev = src_log.device
+        idx = torch.arange(C, device=dev)
+        filled = idx < count
+        # Empty slots go to bucket n; so do slots whose id falls outside
+        # [0, n], which JAX's segment_max drops (bucket n is never read).
+        seg = torch.where(filled, src_log, n).long()
+        seg = torch.where((seg >= 0) & (seg <= n), seg, n)
+        w = torch.where(filled, self.draw_weights(generator, C), -1.0)
+        best_w = torch.full((n + 1,), float("-inf"), device=dev).scatter_reduce_(
+            0, seg, w, "amax")
+        is_best = filled & (w == best_w[seg])
+        best_idx = torch.full((n + 1,), -1, dtype=torch.long, device=dev).scatter_reduce_(
+            0, seg, torch.where(is_best, idx, -1), "amax")
+
+        src = batch.edge_src.clamp(0, n - 1).long()
+        has_hist = best_idx[src] >= 0
+        neg = torch.where(has_hist, dst_log[best_idx[src].clamp(0, C - 1)], PADDED_NODE_ID)
+        valid = has_hist
+        if batch.edge_valid is not None:
+            valid = valid & batch.edge_valid
+            neg = torch.where(batch.edge_valid, neg, PADDED_NODE_ID)
+
+        # Append the valid edges. Padded rows aim past the log, at its last
+        # slot, and write back its old value; the last write in row order
+        # wins, as in JAX, so once the log fills its last edge is lost.
+        B = batch.edge_src.shape[0]
+        if batch.edge_valid is not None:
+            pos = torch.cumsum(batch.edge_valid.int(), 0) - 1
+            write_pos = torch.where(batch.edge_valid, count + pos, C)
+            n_new = batch.edge_valid.sum(dtype=torch.int32)
+        else:
+            write_pos = count + torch.arange(B, device=dev)
+            n_new = B
+        target = write_pos.clamp(0, C - 1).long()
+        winner = _last_writer(target, C)
+        inside = write_pos < C
+        for log, vals in ((src_log, batch.edge_src), (dst_log, batch.edge_dst)):
+            log[target] = torch.where(inside, vals, log[target])[winner]
+        count = torch.clamp_max(count + n_new, C).int()
+
+        self.add_batch_attribute(batch, "neg", neg)
+        self.add_batch_attribute(batch, "neg_time", batch.edge_time)
+        self.add_batch_attribute(batch, "valid_neg_mask", valid)
+        return (generator, src_log, dst_log, count), batch
+
+
+class _TGBEvalNegativesBase(StatefulHook):
+    """Serve pre-generated negative candidate lists in chronological order.
 
     State is a cursor into the candidate rows, advanced by the count of valid
     edges of each batch. Produces:
@@ -125,15 +229,23 @@ class TGBNegativeEdgeSamplerHook(StatefulHook):
 
     _cls_requires = {"edge_src", "edge_dst", "edge_time"}
     _cls_produces = {"neg", "neg_batch_list", "neg_time", "neg_valid"}
+    _dataset_prefix = "tgbl"
 
     def __init__(
         self,
-        candidates: np.ndarray,
+        candidates: Optional[np.ndarray] = None,
         device: DeviceLike = None,
         seed: int = 0,
         id: Optional[str] = None,
+        dataset_name: Optional[str] = None,
+        split_mode: Optional[str] = None,
     ) -> None:
         super().__init__(id=id)
+        if candidates is None:
+            if dataset_name is None or split_mode is None:
+                raise ValueError("Provide either (dataset_name, split_mode) or candidates")
+            candidates = self._load_from_tgb(dataset_name, split_mode)
+        self.split_mode = split_mode
         candidates = np.asarray(candidates)
         if candidates.ndim != 2:
             raise ValueError(f"candidates must be (E_eval, Q), got {candidates.shape}")
@@ -141,6 +253,38 @@ class TGBNegativeEdgeSamplerHook(StatefulHook):
         self._candidates = torch.as_tensor(candidates.astype(np.int32), device=self.device)
         self._seed = seed
         self._generator: Optional[torch.Generator] = None
+
+    def _load_from_tgb(self, dataset_name: str, split_mode: str) -> np.ndarray:
+        """The split's candidate lists from the installed ``tgb`` package, as
+        a PAD-padded (E_eval, Q) array in chronological order."""
+        if split_mode not in ("val", "test"):
+            raise ValueError(f'split_mode must be "val" or "test", got: {split_mode}')
+        if not dataset_name.startswith(f"{self._dataset_prefix}-"):
+            raise ValueError(f"{type(self).__name__} expects {self._dataset_prefix}-* datasets, "
+                             f"got {dataset_name}")
+        try:
+            from pathlib import Path
+
+            from tgb.utils.info import DATA_VERSION_DICT, PROJ_DIR
+        except ImportError as e:
+            raise ImportError(
+                f"TGB required for {type(self).__name__}, try `pip install py-tgb`") from e
+        sampler = self._build_sampler(dataset_name)
+        root = Path(PROJ_DIR + "datasets") / dataset_name.replace("-", "_")
+        v = DATA_VERSION_DICT.get(dataset_name, 1)
+        suffix = f"_v{v}" if v > 1 else ""
+        fname = root / f"{dataset_name}_{split_mode}_ns{suffix}.pkl"
+        sampler.load_eval_set(fname=str(fname), split_mode=split_mode)
+        rows = list(sampler.eval_set[split_mode].values())
+        out = np.full((len(rows), max(len(r) for r in rows)), PADDED_NODE_ID, dtype=np.int64)
+        for i, r in enumerate(rows):
+            out[i, : len(r)] = np.asarray(r)
+        return out
+
+    def _build_sampler(self, dataset_name: str) -> Any:
+        from tgb.linkproppred.negative_sampler import NegativeEdgeSampler
+
+        return NegativeEdgeSampler(dataset_name=dataset_name)
 
     def init_state(self, dg: Optional[DGraph] = None) -> Any:
         self._generator = torch.Generator().manual_seed(self._seed)
@@ -189,3 +333,44 @@ class TGBNegativeEdgeSamplerHook(StatefulHook):
     def reset_state(self) -> None:
         self.state = None
         self._generator = None
+
+
+@hook
+class TGBNegativeEdgeSamplerHook(_TGBEvalNegativesBase):
+    """tgbl-* pre-generated negative sets."""
+
+    _dataset_prefix = "tgbl"
+
+
+@hook
+class TGBTHGNegativeEdgeSamplerHook(_TGBEvalNegativesBase):
+    """thgl-* heterogeneous pre-generated negative sets (type-constrained)."""
+
+    _dataset_prefix = "thgl"
+
+    def _build_sampler(self, dataset_name: str) -> Any:
+        from tgb.linkproppred.dataset import LinkPropPredDataset
+        from tgb.linkproppred.thg_negative_sampler import THGNegativeEdgeSampler
+
+        dataset = LinkPropPredDataset(name=dataset_name)
+        return THGNegativeEdgeSampler(dataset_name=dataset_name,
+                                      first_dst_id=dataset.min_dst_idx,
+                                      last_dst_id=dataset.max_dst_idx,
+                                      node_type=dataset.node_type)
+
+
+@hook
+class TGBTKGNegativeEdgeSamplerHook(_TGBEvalNegativesBase):
+    """tkgl-* knowledge-graph pre-generated negative sets (dst-id range)."""
+
+    _dataset_prefix = "tkgl"
+
+    def _build_sampler(self, dataset_name: str) -> Any:
+        from tgb.linkproppred.dataset import LinkPropPredDataset
+        from tgb.linkproppred.tkg_negative_sampler import TKGNegativeEdgeSampler
+
+        dataset = LinkPropPredDataset(name=dataset_name)
+        return TKGNegativeEdgeSampler(dataset_name=dataset_name,
+                                      first_dst_id=dataset.min_dst_idx,
+                                      last_dst_id=dataset.max_dst_idx,
+                                      strategy="time-filtered")

@@ -7,6 +7,7 @@ from .programs import (
     build_dygformer_eval_core,
     build_dygformer_train_core,
     build_tgat_eval_core,
+    build_dygformer_node_cores,
     build_tgat_node_cores,
     build_tgat_train_core,
     build_tgn_hook_cores,
@@ -32,6 +33,7 @@ __all__ = [
     "build_dygformer_eval_core",
     "build_dygformer_train_core",
     "build_tgat_eval_core",
+    "build_dygformer_node_cores",
     "build_tgat_node_cores",
     "build_tgat_train_core",
     "build_tgn_hook_cores",

@@ -693,10 +693,68 @@ def build_tgat_node_cores(encoder: Any, decoder: Any, opt: Optional[torch.optim.
     return train_core, eval_core
 
 
+def build_dygformer_node_cores(encoder: Any, decoder: Any, opt: Optional[torch.optim.Optimizer],
+                               node_x: torch.Tensor,
+                               k: int = DEFAULT_NDCG_K) -> Tuple[Callable, Callable]:
+    """Return the DyGFormer node-property ``(train_core, eval_core)`` of
+    ``examples/nodeproppred/dygformer.py``.
+
+    Each label node is paired with itself: both transformer sides see its
+    recency neighbours, and the head reads the source side's embedding.
+    Rows count where ``node_y_valid & batch_nodes_mask`` (the label nodes
+    already seen in edge events).
+
+    * ``train_core((generator,), batch) -> ((generator,), loss)``: the
+      masked soft-label cross-entropy, its backward and the optimizer step,
+      on every batch (labels or not), as the JAX example's step. The
+      ``torch.Generator`` draws the dropout masks (``None``: no dropout).
+    * ``eval_core(carry, batch) -> (carry, ndcg)``: masked NDCG@k; no dropout.
+
+    Batches carry the node-label fields, the one-hop recency hook's products
+    seeded by ``node_y_nids`` (feature layout) and the seen-node hook's
+    ``batch_nodes_mask``. ``train_core.loss_and_grad(batch, generator) ->
+    loss`` is its first stage; ``opt.step()`` is the second.
+    """
+
+    def logits(batch, generator):
+        nids, t = batch.node_y_nids, batch.node_y_time
+        two = lambda x: torch.cat([x, x])
+        zs, _ = encoder(node_x, nids, nids, t, two(batch.nbr_nids[0]),
+                        two(batch.nbr_edge_time[0]), two(batch.nbr_edge_x[0]),
+                        deterministic=generator is None, generator=generator)
+        return decoder(zs)
+
+    def row_mask(batch):
+        return batch.node_y_valid & batch.batch_nodes_mask
+
+    def loss_and_grad(batch, generator):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        zero_every_grad(opt)
+        with torch.enable_grad():
+            loss = soft_label_ce(logits(batch, generator), batch.node_y, row_mask(batch))
+            loss.backward()
+        return loss.detach()
+
+    def train_core(carry, batch):
+        (generator,) = carry
+        loss = loss_and_grad(batch, generator)
+        opt.step()
+        return (generator,), loss
+
+    @torch.no_grad()
+    def eval_core(carry, batch):
+        return carry, ndcg_at_k(logits(batch, None), batch.node_y, k, row_valid=row_mask(batch))
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core, eval_core
+
+
 __all__ = [
     "bce_with_logits",
     "build_local_edges",
     "build_dygformer_eval_core",
+    "build_dygformer_node_cores",
     "build_dygformer_train_core",
     "build_tgat_eval_core",
     "build_tgat_node_cores",

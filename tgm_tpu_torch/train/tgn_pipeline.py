@@ -23,8 +23,11 @@ reference example's segment path for training (the pipeline's own dedup of
 [src | dst | neg] and their neighbours, the segment
 ``GraphAttentionEmbedding``, a flush commit; ``eval_step`` is rowwise only,
 as in JAX); ``packed_state=True`` on either (the memory state in the
-packed layout, its store in PyTorch scatters). The other options of the
-JAX constructor raise ``NotImplementedError`` naming their ROADMAP.md item.
+packed layout, its store in PyTorch scatters); ``packed_recency=True`` in
+the eid layout (the recency state packed into one (N+1, K, 3) buffer:
+queries through K1's pre-gathered entry, pushes as one row write; ignored
+in the feature layout, as in JAX). The other options of the JAX
+constructor raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ from ..hooks.neighbors import (
     recency_eid_init,
     recency_eid_update,
     recency_init,
+    recency_pk_init,
+    recency_pk_query,
+    recency_pk_update,
     recency_query,
     recency_update,
 )
@@ -54,7 +60,7 @@ from ..nn.encoder.tgn import (
     tgn_init_state,
     tgn_pack_state,
 )
-from ..ops.recency_select import recency_eid_select
+from ..ops.recency_select import gather_edge_feats, recency_eid_select
 from ..weights import load_tgn_params
 from .programs import (
     local_edges,
@@ -115,9 +121,6 @@ class TGNPipeline:
         attn_score_layout: str = "lanesv",
         device: DeviceLike = None,
     ) -> None:
-        if packed_recency:
-            raise _unported("packed_recency=True",
-                            "the packed recency layout is ROADMAP.md queue 1 item 5")
         if dedup_staging:
             raise _unported("dedup_staging=True", "ROADMAP.md queue 1 item 1c")
         if state_row_multiple != 1:
@@ -134,6 +137,7 @@ class TGNPipeline:
         self.device = resolve_device(device)
         self.rowwise = rowwise
         self.packed_state = packed_state
+        self.packed_recency = packed_recency
         self.num_nodes = num_nodes
         self.edge_dim = edge_dim
         self.memory_dim = memory_dim
@@ -172,7 +176,9 @@ class TGNPipeline:
         mem_state = tgn_init_state(self.num_nodes, self.memory_dim, self.edge_dim, self.device)
         if self.packed_state:
             mem_state = tgn_pack_state(mem_state)
-        if self.edge_x_full is not None:
+        if self.edge_x_full is not None and self.packed_recency:
+            rec_state = recency_pk_init(self.num_nodes, self.num_nbrs, self.device)
+        elif self.edge_x_full is not None:
             rec_state = recency_eid_init(self.num_nodes, self.num_nbrs, self.device)
         else:
             rec_state = recency_init(self.num_nodes, self.num_nbrs, self.edge_dim, self.device)
@@ -190,19 +196,25 @@ class TGNPipeline:
                table: Optional[torch.Tensor] = None):
         """(S, K) neighbour ids and times and their (S, K, D) features: in the
         eid layout one launch of K1 with the rows of ``table`` (default
-        ``edge_x_full``) fused; in the feature layout K4 over the buffers."""
+        ``edge_x_full``) fused; packed, K1's pre-gathered entry and a gather
+        of ``table``'s rows; in the feature layout K4 over the buffers."""
         seeds, seed_t = seeds.int(), seed_t.int()
         if self.edge_x_full is not None:
             table = self.edge_x_full if table is None else table
+            if self.packed_recency:
+                nbrs, nbr_t, nbr_e = recency_pk_query(rec_state, seeds, seed_t, self.num_nbrs)
+                return nbrs, nbr_t, gather_edge_feats(table, nbr_e)
             nbrs, nbr_t, _, nbr_x = recency_eid_select(rec_state, seeds, seed_t,
                                                        self.num_nbrs, table)
             return nbrs, nbr_t, nbr_x
         return recency_query(rec_state, seeds, seed_t, self.num_nbrs)
 
     def _push(self, rec_state, batch):
-        """The batch's undirected recency push (two launches), in place."""
+        """The batch's undirected recency push (two launches; packed, one
+        row write), in place."""
         if self.edge_x_full is not None:
-            return recency_eid_update(rec_state, batch.edge_src, batch.edge_dst,
+            update = recency_pk_update if self.packed_recency else recency_eid_update
+            return update(rec_state, batch.edge_src, batch.edge_dst,
                                       batch.edge_time, batch.edge_ids, batch.edge_valid,
                                       directed=False)
         return recency_update(rec_state, batch.edge_src, batch.edge_dst, batch.edge_time,

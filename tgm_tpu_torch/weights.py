@@ -6,12 +6,12 @@ example builds it, and copies it into a ``TGNMemory``, a
 ``GraphAttentionEmbeddingRowwise`` or ``GraphAttentionEmbedding`` (the
 two flax encoders share their parameter names) and a ``LinkPredictor``.
 ``load_dygformer_params`` takes ``{"enc", "dec"}`` as the JAX ``DyGFormer``
-and ``LinkPredictor`` ``init`` build it (either attention layout) and copies
-it into a ``DyGFormer`` and a ``LinkPredictor``. ``load_tgat_params`` takes
+and ``LinkPredictor`` (or ``NodePredictor``) ``init`` build it (either
+attention layout) and copies it into a ``DyGFormer`` and the head. ``load_tgat_params`` takes
 ``{"enc", "dec"}`` as the JAX ``TGAT`` and ``LinkPredictor`` ``init`` build
-it and copies it into a ``TGAT`` and a ``LinkPredictor``. The TGN and TGAT
-loaders also take a ``NodePredictor`` head for ``"dec"`` (its tree holds
-``_MLP_0`` where the link head's holds ``mlp``).
+it and copies it into a ``TGAT`` and a ``LinkPredictor``. The TGN, TGAT and
+DyGFormer loaders also take a ``NodePredictor`` head for ``"dec"`` (its tree
+holds ``_MLP_0`` where the link head's holds ``mlp``).
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
 variables and copies them into the port's. The mappings:
@@ -163,7 +163,8 @@ def load_transformer_encoder_params(sub: Mapping[str, Any], layer: nn.Module) ->
 @torch.no_grad()
 def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
                           decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a DyGFormer and a LinkPredictor, in place."""
+    """Copy the flax tree ``{"enc", "dec"}`` into a DyGFormer and a
+    LinkPredictor or NodePredictor, in place."""
     enc = params["enc"]["params"]
     _time2vec(encoder.time_encoder, enc["time_encoder"])
     _mlp(encoder.co_occurrence_encoder.enc, enc["co_occurrence_encoder"])
@@ -174,7 +175,7 @@ def load_dygformer_params(params: Mapping[str, Any], encoder: nn.Module,
         raise ValueError(f"encoder has {len(encoder.transformers)} layers, the tree {n_tree}")
     for i, layer in enumerate(encoder.transformers):
         load_transformer_encoder_params(enc[f"transformers_{i}"], layer)
-    _mlp(decoder.model, params["dec"]["params"]["mlp"])
+    _head(decoder, params["dec"])
 
 
 @torch.no_grad()
