@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-segment]
-        [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
+    python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
+        [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -25,21 +25,29 @@ and its hand-written CUDA kernels, in phases:
               pre-gathered rows (S = 600 and 4,400, B = K = 10: the packed
               layout's query), the push into the TGN and DyGFormer states
               (and at E2 = 8,192 events), the TGN store commit (E = 200 and
-              8,192 events), the single-buffer K2, K3, K4 (B = K = 20 at S =
-              600 and 4,400; B = K = 10 at S = 600, the pipeline's feature
-              layout; S = 16 with B = K = 10 and 7, the node paths' label
-              seeds), K5; for K5 also the device time of each of its five
+              8,192 events), the single-buffer K2, K3, K4 on the feature
+              layout's state in place (B = K = 20 at S = 600 and 4,400; B =
+              K = 10 at S = 600, the pipeline's feature layout; S = 16 with B
+              = K = 10 and 7, the node paths' label seeds; each also against
+              the parent tree's route, four row gathers and K4 on the
+              gathered rows, timed from one CUDA graph; exact on random rows
+              in no time order too) and on pre-gathered rows (S =
+              4,400), K5; for K5 also the device time of each of its five
               kernels per layer and their CTAs per SM. TGAT's shapes: K1 at
               the hop-2 seed counts of the TGAT hook path (12,000 and
               88,000, B = K = 20), K1 over the (2E, 173) side-augmented
               table (44,000 seeds, B = K = 10), the directed push of both
-              orientations with side payloads (E2 = 400).
+              orientations with side payloads (E2 = 400). ``--only-k4``
+              runs K4's cases alone, so a copy of this script placed in
+              another tree of the port with ``recency_feats_select``
+              measures that tree's K4 the same way.
 3. hook-step: one ``RecencyNeighborHook.apply`` on a serving batch per state
               layout (eid: K = 10, TGN; feature: K = 20, DyGFormer), through
-              the hook's public API only: µs per call from Python and device
-              µs from a CUDA graph. ``--only-hook-step`` runs this phase
-              alone, so a copy of this script placed in an older tree of the
-              port measures that tree the same way.
+              the hook's public API only: µs per call from Python, device
+              µs from a CUDA graph and the peak memory's rise over one call.
+              ``--only-hook-step`` runs this phase alone, so a copy of this
+              script placed in an older tree of the port measures that tree
+              the same way.
 4. serve:     a tgbl-wiki-shaped stream (9,227 nodes, 157,474 edges, 172-dim
               features) split 70/15/15, TGN (dims 100, 2 heads, K = 10,
               batch 200, seeded random weights), val then test through
@@ -53,8 +61,10 @@ and its hand-written CUDA kernels, in phases:
               per side, 2 layers, 2 heads, FFN 800, output 172, K = 20
               recency neighbours in the feature-buffer layout, batch 200, 20
               candidates, seeded random weights), val then test through
-              ``hook_epoch``; MRR, edges/s, distinct nodes active in val and
-              each kernel's launches.
+              ``hook_epoch``; MRR, edges/s, distinct nodes active in val,
+              peak device memory and each kernel's launches.
+              ``--only-dyg-serve`` runs it alone without launch counts (an
+              older tree measures the same way).
 7. dyg-agree: the first 2 val batches on the card and on the CPU with the
               same weights and candidates: recency state exact (the fp32
               feature buffer included), embeddings within 5e-3 * max |z|,
@@ -228,6 +238,9 @@ and its hand-written CUDA kernels, in phases:
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
               ``--only-hook-step`` does.
+    query-kernels: the device kernels of one feature-layout query at S =
+              16, B = K = 10, through the parent tree's route and in place
+              (torch.profiler): count and summed µs.
 30. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
@@ -546,8 +559,111 @@ def torch_transformer(layers, num_heads: int, dev):
     return enc.to(dev).eval()
 
 
+def k4_state(rng, S: int, B: int, dev):
+    """A feature-layout ring state over every node, built as ``k1_state``
+    builds K1's (ids, times and write positions as a chronological stream
+    leaves them, the dump row pristine) with 172-wide fp32 feature rows, and
+    S seeds, 3% invalid, with query times around each row's newest."""
+    (ids, times, _, wp), seeds, qt = k1_state(rng, S, B, dev)
+    feats = torch.as_tensor(
+        rng.normal(size=(WIKI_NODES + 1, B, WIKI_EDGE_DIM)).astype(np.float32), device=dev)
+    feats[-1] = 0.0
+    return (ids, times, feats, wp), seeds, qt
+
+
+def k4_random_state(rng, S: int, B: int, dev):
+    """A feature-layout state of WIKI_NODES + 1 rows in no time order (PAD
+    slots, time ties, write positions past B; fault 1's rows) with 172-wide
+    fp32 feature rows, the dump row pristine, and S seeds as ``k1_state``
+    draws them, with query times around each row's newest."""
+    N1 = WIKI_NODES + 1
+    up = lambda x: torch.as_tensor(x, device=dev)
+    ids = up(rng.integers(-1, WIKI_NODES, (N1, B)).astype(np.int32))
+    times = up(rng.integers(0, 50, (N1, B)).astype(np.int32))
+    feats = up(rng.normal(size=(N1, B, WIKI_EDGE_DIM)).astype(np.float32))
+    wp = up(rng.integers(0, 5 * B, N1).astype(np.int32))
+    ids[-1], times[-1], feats[-1], wp[-1] = -1, 0, 0.0, 0
+    seeds = rng.integers(0, WIKI_NODES, S)
+    bad = rng.random(S) < 0.03
+    seeds[bad] = rng.choice([-1, WIKI_NODES, WIKI_NODES + 7], int(bad.sum()))
+    rows = up(np.where(bad, WIKI_NODES, seeds))
+    qt = times.max(dim=1).values[rows] + up(rng.integers(-4, 3, S))
+    return (ids, times, feats, wp), up(seeds.astype(np.int32)), qt.int()
+
+
+def parent_feats_query(state, seeds, qt, k: int):
+    """The feature-layout query as the parent tree ran it: ``seed_rows``,
+    four row gathers, then K4's pre-gathered entry."""
+    from tgm_tpu_torch.ops.recency_select import recency_window_select, seed_rows
+
+    ids, times, feats, wp = state
+    rows = seed_rows(seeds, ids.shape[0] - 1)
+    return recency_window_select(ids[rows], times[rows], feats[rows], wp[rows], qt, k)
+
+
+def k4_selection(state, seeds, qt, k: int):
+    """From the plain rank rule: (the distinct state rows read; the distinct
+    (row, slot) feature rows selected)."""
+    from tgm_tpu_torch.ops.recency_select import _rank_columns, seed_rows
+
+    ids, times, _, wp = state
+    B = ids.shape[1]
+    rows = seed_rows(seeds, ids.shape[0] - 1)
+    sel = _rank_columns(ids[rows], times[rows], wp[rows], qt, k) < k
+    cells = (rows[:, None] * B + torch.arange(B, device=ids.device))[sel]
+    return int(torch.unique(rows).numel()), int(torch.unique(cells).numel())
+
+
 def k4_case(rng, S: int, B: int, dev, card: str):
-    """K4 at S seeds, B = K slots, D = 172: exact against its plain version, timed."""
+    """K4 on the feature-layout state in place (``recency_feats_select``) at
+    S seeds, B = K slots, D = 172, over WIKI_NODES + 1 rows: exact against
+    its plain version and the parent's route on a chronological state and
+    on one in no time order; timed on the chronological state beside its
+    plain version and the parent's route (gathers and the pre-gathered K4,
+    one CUDA graph)."""
+    from tgm_tpu_torch.ops.recency_select import recency_feats_select, recency_feats_select_plain
+
+    K, D = B, WIKI_EDGE_DIM
+    err = 0.0
+    for make in (k4_random_state, k4_state):  # the chronological state is timed
+        state, seeds, qt = make(rng, S, B, dev)
+        got = recency_feats_select(state, seeds, qt, K)
+        want = recency_feats_select_plain(state, seeds, qt, K)
+        before = parent_feats_query(state, seeds, qt, K)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K4 differs from its plain version at S={S} B={B} "
+                                 f"({make.__name__}): {err}")
+        if not all(torch.equal(g, b) for g, b in zip(got, before)):
+            raise AssertionError(f"K4 in place differs from the parent's route at S={S} B={B} "
+                                 f"({make.__name__})")
+    n_rows, n_cells = k4_selection(state, seeds, qt, K)
+    selected = int((got[0] != -1).sum())
+    # Bytes: seeds and query times; each distinct state row's ids, times and
+    # write position; each distinct selected feature row; the (S, K) ids and
+    # times and the (S, K, D) features written.
+    nbytes = 8 * S + 4 * n_rows * (2 * B + 1) + 4 * D * n_cells + 4 * S * K * (2 + D)
+    entry = _time_and_report(
+        f"K4 recency_feats_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K}, "
+        f"{n_cells} distinct feature rows, {n_rows} distinct state rows; exact on random rows "
+        f"too)",
+        lambda: recency_feats_select(state, seeds, qt, K),
+        lambda: recency_feats_select_plain(state, seeds, qt, K),
+        None, nbytes, 6 * S * B, err, card)
+    b_dev, b_call = cuda_time_us(lambda: parent_feats_query(state, seeds, qt, K), TIMING_ITERS)
+    log("kernels", f"  the parent's route at S={S} B={B} (seed_rows, four gathers, K4 on the "
+                   f"gathered rows): device {b_dev:.2f} us, per call from Python {b_call:.2f} us; "
+                   f"in place {entry['ms'] * 1e3:.2f} us, {b_dev / (entry['ms'] * 1e3):.2f}x "
+                   f"faster; {entry['bound_ms'] / entry['ms']:.3f} of the bound "
+                   f"[{card}]")
+    entry.update(before_ms=b_dev / 1e3)
+    return entry
+
+
+def k4_pregathered_case(rng, S: int, B: int, dev, card: str):
+    """K4's pre-gathered entry (the Pallas function's contract) at S seeds,
+    B = K slots, D = 172: exact against its plain version, timed."""
     from tgm_tpu_torch.ops.recency_select import (
         recency_window_select,
         recency_window_select_plain,
@@ -560,36 +676,70 @@ def k4_case(rng, S: int, B: int, dev, card: str):
     got = recency_window_select(*args, K)
     want = recency_window_select_plain(*args, K)
     torch.cuda.synchronize()
-    err = max(_max_abs_err(got[:2], want[:2]), float((got[2] - want[2]).abs().max()))
-    if err or not torch.equal(got[2], want[2]):
-        raise AssertionError(f"K4 differs from its plain version at S={S} B={B}: {err}")
+    err = _max_abs_err(got, want)
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K4 pre-gathered differs from its plain version at S={S}: {err}")
     selected = int((got[0] != -1).sum())
     # Bytes: ids, times, wp, qt read; the selected feature rows read; all outputs written.
     nbytes = 4 * (2 * S * B + 2 * S + 2 * S * K) + 4 * D * (selected + S * K)
     return _time_and_report(
-        f"K4 recency_window_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K})",
+        f"K4 recency_window_select (pre-gathered rows) S={S} B={B} K={K} D={D} "
+        f"(selected {selected}/{S * K})",
         lambda: recency_window_select(*args, K),
         lambda: recency_window_select_plain(*args, K),
         None, nbytes, 6 * S * B, err, card)
 
 
+K4_KEYS = ("ms", "plain_ms", "bound_ms", "max_abs_err", "before_ms")
+
+
 def k4_phase(rng, dev, card: str):
-    """K4 at the DyGFormer eval (4,400) and train (600) seed counts, B = K =
-    20, D = 172, the eval entry (the DyGFormer serving path) reported and the
-    train case with the prefix ``dygformer_train``; then at the TGN
-    pipeline's feature layout (S = 600, B = K = 10), prefix ``tgn_feature``;
-    then at the node-property path's label seeds (S = 16, the plan's padded
-    label count at 200 events a batch, B = K = 10), prefix ``nodeprop``,
-    and at the DyGFormer node example's (S = 16, B = K = 7), prefix
-    ``dygformer_nodeprop``."""
+    """K4 in place at the DyGFormer eval (4,400) and train (600) seed
+    counts, B = K = 20, D = 172, the eval entry (the DyGFormer serving
+    path) reported and the train case with the prefix ``dygformer_train``;
+    then at the TGN pipeline's feature layout (S = 600, B = K = 10), prefix
+    ``tgn_feature``; then at the node-property path's label seeds (S = 16,
+    the plan's padded label count at 200 events a batch, B = K = 10),
+    prefix ``nodeprop``, and at the DyGFormer node example's (S = 16, B = K
+    = 7), prefix ``dygformer_nodeprop``; each with its bound, its plain
+    version's time and the parent's route's (``before_ms``). Last the
+    pre-gathered entry at S = 4,400, prefix ``pregathered``."""
     train = k4_case(rng, 3 * BATCH, DYG_NBRS, dev, card)
     entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
-    entry.update(_measured("dygformer_train", train))
-    entry.update(_measured("tgn_feature", k4_case(rng, 600, NUM_NBRS, dev, card)))
-    entry.update(_measured("nodeprop", k4_case(rng, NP_LABEL_SEEDS, NUM_NBRS, dev, card)))
-    entry.update(_measured("dygformer_nodeprop", k4_case(rng, NP_LABEL_SEEDS, DYG_NP_NBRS, dev,
-                                                         card)))
+    cases = {"dygformer_train": train,
+             "tgn_feature": k4_case(rng, 600, NUM_NBRS, dev, card),
+             "nodeprop": k4_case(rng, NP_LABEL_SEEDS, NUM_NBRS, dev, card),
+             "dygformer_nodeprop": k4_case(rng, NP_LABEL_SEEDS, DYG_NP_NBRS, dev, card)}
+    for prefix, case in cases.items():
+        entry.update({f"{prefix}_{k}": case[k] for k in K4_KEYS})
+    entry.update(_measured("pregathered", k4_pregathered_case(
+        rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)))
     return entry
+
+
+def k4_query_kernels_phase(rng, dev, card: str):
+    """The device kernels of one feature-layout query at S = 16, B = K = 10
+    (the node paths' label seeds), through the parent's route and in place
+    (torch.profiler): their count and summed device µs."""
+    from tgm_tpu_torch.ops.recency_select import recency_feats_select
+
+    state, seeds, qt = k4_state(rng, NP_LABEL_SEEDS, NUM_NBRS, dev)
+    out = {}
+    for key, fn in (("before", lambda: parent_feats_query(state, seeds, qt, NUM_NBRS)),
+                    ("in_place", lambda: recency_feats_select(state, seeds, qt, NUM_NBRS))):
+        fn()
+        torch.cuda.synchronize()
+        kernels, busy_us, _ = device_kernels(fn)
+        n = sum(kernels.values())
+        names = "; ".join(f"{k[:60]} x{c}"
+                          for k, c in sorted(kernels.items(), key=lambda kv: -kv[1]))
+        log("query-kernels", f"one feature-layout query at S={NP_LABEL_SEEDS} B=K={NUM_NBRS}, "
+                             f"{key.replace('_', ' ')}: "
+                             + (f"{n} device launches summing {busy_us:.2f} us ({names})" if n
+                                else "not measured (the profiler saw no device activity)")
+                             + f" [{card}]")
+        out[f"query_kernels_s16_{key}"] = n
+    return out
 
 
 def k5_phase(rng, stack, dev, card: str):
@@ -929,8 +1079,9 @@ def kernel_phase(rng, dev, card: str):
 def hook_step_phase(seed: int, dev, card: str):
     """One ``RecencyNeighborHook.apply`` (query, then push) on a serving batch
     of 200 edges and 4,000 candidates, per state layout, after 20 batches
-    have filled the rows of 1,000 busy nodes: µs per call from Python and
-    device µs from ``STEP_ITERS`` calls replayed from one CUDA graph.
+    have filled the rows of 1,000 busy nodes: µs per call from Python,
+    device µs from ``STEP_ITERS`` calls replayed from one CUDA graph, and
+    the rise of the peak device memory over one call.
     Written against the hook's public API alone, so it measures any tree of
     the port."""
     from tgm_tpu_torch.core.batch import DGBatch
@@ -968,10 +1119,15 @@ def hook_step_phase(seed: int, dev, card: str):
         except RuntimeError as e:  # e.g. a host-to-card copy, which a graph cannot hold
             torch.cuda.synchronize()
             dev_us, device = None, f"device not measured (no CUDA graph: {str(e)[:120]})"
-        result[layout] = dict(device_us=dev_us, call_us=call_us)
+        base = _reset_peak()
+        step()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        result[layout] = dict(device_us=dev_us, call_us=call_us, peak_rise=rise)
         log("hook-step", f"RecencyNeighborHook.apply, {layout} layout (K = {k}, {BATCH} edges, "
                          f"{2 * BATCH + BATCH * NUM_CANDIDATES} seeds): per call from Python "
-                         f"{call_us:.1f} us, {device} [{card}]")
+                         f"{call_us:.1f} us, {device}; peak rise of one call "
+                         f"{rise / 2**20:.1f} MiB [{card}]")
     return result
 
 
@@ -1098,6 +1254,7 @@ def kernel_wrappers():
     from tgm_tpu_torch.ops.dyg_transformer import transformer_stack_fwd
     from tgm_tpu_torch.ops.recency_select import (
         recency_eid_select,
+        recency_feats_select,
         recency_window_select,
         recency_window_select_eid,
     )
@@ -1109,7 +1266,8 @@ def kernel_wrappers():
     )
 
     return (recency_eid_select, recency_window_select_eid, recency_push, scatter_cells,
-            tgn_store_scatter_1d, tgn_store_commit, recency_window_select, transformer_stack_fwd)
+            tgn_store_scatter_1d, tgn_store_commit, recency_feats_select, recency_window_select,
+            transformer_stack_fwd)
 
 
 def check_launches(path: str, launches, need, n_batches: int) -> None:
@@ -1227,7 +1385,11 @@ def make_dyg_pipeline(cands, models, device):
     return hm, rec, eval_core
 
 
-def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms):
+def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms=None):
+    """DyGFormer val then test through ``hook_epoch``. Without ``kernel_ms``
+    the launches are neither counted nor checked, so a copy of this script
+    placed in an older tree of the port measures that tree the same way
+    (``--only-dyg-serve``)."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import DeviceEdgeStream, hook_epoch
 
@@ -1235,8 +1397,10 @@ def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms):
     val_src, val_dst, _ = DGraph(val)._storage.get_edges(DGraph(val)._slice)
     active = len(np.unique(np.concatenate([val_src, val_dst])))
     n_batches, n_edges, seconds, mrr = 0, 0, 0.0, {}
-    for f in kernel_wrappers():
-        f.launches = 0
+    if kernel_ms is not None:
+        for f in kernel_wrappers():
+            f.launches = 0
+    base = _reset_peak()
     for split, d in (("val", val), ("test", test)):
         dg = DGraph(d)
         stream = DeviceEdgeStream(dg, BATCH, device=dev)
@@ -1254,12 +1418,18 @@ def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms):
         log("dyg-serve", f"{split}: {stream.num_edges} edges in {stream.num_batches} batches, "
                          f"{dt:.3f} s, {stream.num_edges / dt:.0f} edges/s, "
                          f"MRR {mrr[split]:.4f} [{card}]")
-    launches = {f.__name__: f.launches for f in kernel_wrappers()}
-    check_launches("DyGFormer serve", launches, {"recency_window_select": 1,
-                                                 "transformer_stack_fwd": 1,
-                                                 "recency_push": PUSH_LAUNCHES}, n_batches)
+    peak = _peak_line(base)
     if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
         raise AssertionError(f"MRR out of range: {mrr}")
+    if kernel_ms is None:
+        log("dyg-serve", f"val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
+                         f"serve_edges_per_s={n_edges / seconds:.0f} batches={n_batches}; "
+                         f"{peak} [{card}]")
+        return None
+    launches = {f.__name__: f.launches for f in kernel_wrappers()}
+    check_launches("DyGFormer serve", launches, {"recency_feats_select": 1,
+                                                 "transformer_stack_fwd": 1,
+                                                 "recency_push": PUSH_LAUNCHES}, n_batches)
     torch.cuda.synchronize()
     # Each kernel's device time per call (kernels phase, same shapes) times its
     # calls here, as a share of the serve wall time.
@@ -1272,7 +1442,7 @@ def dyg_serve_phase(val, test, cands, models, dev, card, kernel_ms):
     log("dyg-serve", f"val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} "
                      f"serve_edges_per_s={n_edges / seconds:.0f} batches={n_batches} "
                      f"distinct_nodes_active_in_val={active} launches={launches} per_batch="
-                     f"{ {k: v / n_batches for k, v in launches.items()} } [{card}]")
+                     f"{ {k: v / n_batches for k, v in launches.items()} }; {peak} [{card}]")
     return launches
 
 
@@ -1473,7 +1643,7 @@ def train_agree_phase(data, train, cands, seed: int, dev, card: str):
 # ---------------------------------------------------------------------- #
 # The DyGFormer train path
 # ---------------------------------------------------------------------- #
-DYG_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}
+DYG_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES}
 DYG_TRAIN_AGREE_BATCHES = 5
 DYG_FUSED_BATCHES = 50  # train batches timed with pairs="fused"
 
@@ -1994,7 +2164,7 @@ def pipe_agree_phase(data, train, val, cands, seed: int, dev, card: str):
             losses.append(float(loss))
         if not runs:
             check_launches("TGNPipeline train, feature layout", read_launches(),
-                           {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES,
+                           {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES,
                             "tgn_store_commit": 1}, 3)
         runs.append((carry, losses))
     (g_c, g_loss), (c_c, c_loss) = runs
@@ -2044,7 +2214,7 @@ def pipe_serve_phase(data, train, val, seed: int, dev, card: str):
     saved, dt = serve(pipe, carry)
     launches = read_launches()
     n = vstream.num_batches
-    check_launches("TGNPipeline serve", launches, {"recency_window_select": 2,
+    check_launches("TGNPipeline serve", launches, {"recency_feats_select": 2,
                                                    "recency_push": PUSH_LAUNCHES,
                                                    "tgn_store_commit": 1}, n)
     again, dt_restored = serve(fresh, restored)
@@ -2966,8 +3136,8 @@ def seg_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
 NP_CLASSES = 10
 NP_MEM, NP_EMBED, NP_TIME = 64, 64, 32
 NP_AGREE_TRAIN, NP_AGREE_EVAL = 10, 3
-NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
-TGAT_NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}  # one hop of K = 10
+NP_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+TGAT_NP_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES}  # one hop of K = 10
 BATCH_TENSORS = ("edge_src", "edge_dst", "edge_time", "edge_valid", "edge_ids", "edge_x",
                  "node_y_time", "node_y_nids", "node_y", "node_y_valid")
 
@@ -3299,7 +3469,7 @@ def tgat_np_phase(data, seed: int, dev, card: str):
 # with uniform sampling, the packed recency layout, the other hooks
 # ---------------------------------------------------------------------- #
 DYG_NP_NBRS, DYG_NP_TIME, DYG_NP_CHANNEL, DYG_NP_EMBED, DYG_NP_SEQ = 7, 32, 16, 64, 8
-DYG_NP_STEP = {"recency_window_select": 1, "recency_push": PUSH_LAUNCHES}
+DYG_NP_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES}
 TGAT_UNI_STEP: dict = {}  # the uniform sampler is PyTorch: no kernel of the port runs
 PK_HOOK_STEP = {"recency_window_select_eid": 1, "tgn_store_commit": 1}
 PK_PIPE_STEP = {"recency_window_select_eid": 1, "tgn_store_commit": 1}
@@ -3760,6 +3930,12 @@ def main() -> int:
                     help="build, run the hook-step phase alone and stop (no result lines)")
     ap.add_argument("--only-store-step", action="store_true",
                     help="build, run the store-step phase alone and stop (no result lines)")
+    ap.add_argument("--only-dyg-serve", action="store_true",
+                    help="build, run the dyg-serve phase alone without launch counts and stop "
+                    "(no result lines)")
+    ap.add_argument("--only-k4", action="store_true",
+                    help="build, run K4's cases of the kernels phase alone and stop (no result "
+                    "lines)")
     ap.add_argument("--only-segment", action="store_true",
                     help="build, run the seg-train, seg-agree and seg-pipe phases and stop "
                     "(no result lines)")
@@ -3792,9 +3968,14 @@ def main() -> int:
                  f"torch {torch.__version__} cuda {torch.version.cuda} python "
                  f"{sys.version.split()[0]}; {nvcc_release} [{card}]")
 
-    if args.only_hook_step or args.only_store_step:
+    if args.only_hook_step or args.only_store_step or args.only_dyg_serve or args.only_k4:
+        if args.only_k4:
+            k4_phase(np.random.default_rng(args.seed), dev, card)
         if args.only_hook_step:
             hook_step_phase(args.seed, dev, card)
+        if args.only_dyg_serve:
+            _, _, val, test, cands = build_stream(args.seed)
+            dyg_serve_phase(val, test, cands, make_dyg_models(args.seed), dev, card)
         if args.only_store_step:
             store_step_phase(args.seed, dev, card)
         return 0
@@ -3822,7 +4003,7 @@ def main() -> int:
         return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
-    report["recency_window_select"] = k4_phase(rng, dev, card)
+    report["recency_feats_select"] = k4_phase(rng, dev, card)
     dyg_models = make_dyg_models(args.seed)
     report["transformer_stack_fwd"] = k5_phase(rng, dyg_models[0].to(dev).stack_weights(), dev,
                                                card)
@@ -3838,7 +4019,7 @@ def main() -> int:
     agree_phase(data, val, cands, models, dev, card)
     dyg_launches = dyg_serve_phase(
         val, test, cands, dyg_models, dev, card,
-        {"recency_window_select": report["recency_window_select"]["ms"],
+        {"recency_feats_select": report["recency_feats_select"]["ms"],
          "transformer_stack_fwd": report["transformer_stack_fwd"]["ms"],
          "recency_push": report["recency_push"]["dygformer_ms"]})
     dyg_agree_phase(val, cands, dyg_models, dev, card)
@@ -3873,6 +4054,7 @@ def main() -> int:
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
     store_step_phase(args.seed, dev, card)
+    report["recency_feats_select"].update(k4_query_kernels_phase(rng, dev, card))
     dyg_train_profile_phase(train, cands, args.seed, dev, card)
 
     # name: (source, Pallas function replaced, launches in the serve runs: TGN for
@@ -3892,8 +4074,9 @@ def main() -> int:
                                  + dyg_launches["tgn_store_scatter_1d"]),
         "tgn_store_commit": (K23_SRC, "tgm_tpu/ops/pallas/scatter_cells.py:111",
                              launches["tgn_store_commit"]),
-        "recency_window_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:259",
-                                  dyg_launches["recency_window_select"]),
+        "recency_feats_select": (K14_SRC, "tgm_tpu/ops/pallas/recency_select.py:259",
+                                 dyg_launches["recency_feats_select"]
+                                 + dyg_launches["recency_window_select"]),
         "transformer_stack_fwd": (K5_SRC, "tgm_tpu/ops/pallas/dyg_transformer.py:167",
                                   dyg_launches["transformer_stack_fwd"]),
     }
@@ -3911,7 +4094,9 @@ def main() -> int:
     # hook-route train epoch and val + test eval and its pipeline's.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
-                    + launches["recency_window_select_eid"])
+                    + launches["recency_window_select_eid"],
+                    recency_feats_select=launches["recency_feats_select"]
+                    + launches["recency_window_select"])
 
     paths = {"launches_tgn_train": per_kernel(train_launches),
              "launches_tgn_pipeline_train": per_kernel(pipe_train_launches),

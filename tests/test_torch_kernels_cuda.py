@@ -21,6 +21,8 @@ from tgm_tpu_torch.nn import TGNMemoryState
 from tgm_tpu_torch.ops import (
     recency_eid_select,
     recency_eid_select_plain,
+    recency_feats_select,
+    recency_feats_select_plain,
     recency_push,
     recency_push_plain,
     recency_window_select,
@@ -272,6 +274,60 @@ def test_feature_select_kernel_matches_plain(card, S, B, k, D):
         assert torch.equal(g, w)
 
 
+def _feature_state(rng, N, B, D, chronological, dev):
+    """A feature-layout state of N + 1 rows, the dump row pristine: as a
+    chronological stream's pushes leave it (times non-decreasing in push
+    order with ties, PAD slots in rows pushed fewer than B times, empty
+    rows, write positions past B), or random rows in no time order."""
+    if chronological:
+        ids = np.full((N + 1, B), -1, np.int32)
+        times = np.zeros((N + 1, B), np.int32)
+        count = rng.integers(0, 3 * B, N + 1)
+        ev_t = 1000 + np.cumsum(rng.integers(0, 3, (N + 1, 3 * B)), axis=1)
+        for e in range(3 * B):
+            live = e < count
+            ids[live, e % B] = rng.integers(0, N, live.sum())
+            times[live, e % B] = ev_t[live, e]
+        wp = count.astype(np.int32)
+    else:
+        ids = rng.integers(-1, 9, (N + 1, B)).astype(np.int32)
+        times = rng.integers(0, 30, (N + 1, B)).astype(np.int32)
+        wp = rng.integers(0, 5 * B, N + 1).astype(np.int32)
+    feats = rng.normal(size=(N + 1, B, D)).astype(np.float32)
+    ids[-1], times[-1], feats[-1], wp[-1] = -1, 0, 0.0, 0
+    up = lambda x: torch.as_tensor(x, device=dev)
+    return up(ids), up(times), up(feats), up(wp)
+
+
+@pytest.mark.parametrize("chronological", [True, False])
+@pytest.mark.parametrize("S, B, k, D", [(4400, 20, 20, 172), (600, 20, 20, 172), (600, 10, 10, 172),
+                                        (16, 10, 10, 172), (16, 7, 7, 172), (600, 20, 8, 5),
+                                        (600, 20, 20, 0), (90, 64, 64, 172), (300, 40, 33, 8),
+                                        (4400, 64, 64, 200), (4400, 32, 32, 128)])
+def test_feats_select_kernel_matches_plain(card, S, B, k, D, chronological):
+    """K4 on the feature-layout state in place, with invalid seeds (-1, N,
+    N + 7), on chronological and random rows: float4 copies where D % 4 ==
+    0, D = 5 the scalar copy, D = 0 no copy; the seeds' columns split over
+    warps at S = 600 and below, one warp a seed at S = 4,400."""
+    rng = np.random.default_rng(S + B + k + D + chronological)
+    N = 5000
+    state = _feature_state(rng, N, B, D, chronological, card)
+    seeds = rng.integers(0, N, S).astype(np.int32)
+    seeds[:3] = [-1, N, N + 7]
+    seeds = torch.as_tensor(seeds, device=card)
+    rows = torch.where((seeds >= 0) & (seeds < N), seeds, N).long()
+    qt = (state[1].max(dim=1).values[rows]
+          + torch.as_tensor(rng.integers(-4, 3, S), device=card)).int()
+    before = recency_feats_select.launches
+    got = recency_feats_select(state, seeds, qt, k)
+    assert recency_feats_select.launches == before + 1
+    want = recency_feats_select_plain(state, seeds, qt, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert bool((got[0][:3] == -1).all()) and bool((got[0][3:] != -1).any())
+
+
 def _layers(rng, D, F, L, dev):
     n = lambda *s, sc=1.0: torch.as_tensor((rng.normal(size=s) * sc).astype(np.float32), device=dev)
     return [dict(ln1_scale=1 + n(D, sc=0.1), ln1_bias=n(D, sc=0.1), wqkv=n(D, 3 * D, sc=D ** -0.5),
@@ -403,8 +459,8 @@ def test_two_hop_hook_launches_one_select_a_hop(card, edge_x_full):
     for dev in (card, torch.device("cpu")):
         hook = RecencyNeighborHook(N, [5, 3], *keys, edge_dim=D, device=dev, **kw)
         state = hook.init_state()
-        launches = (recency_eid_select.launches, recency_window_select.launches,
-                    recency_push.launches)
+        launches = (recency_eid_select.launches, recency_feats_select.launches,
+                    recency_push.launches, recency_window_select.launches)
         for b in range(nb):
             r = np.random.default_rng(b)
             sl = slice(b * E, (b + 1) * E)
@@ -418,8 +474,9 @@ def test_two_hop_hook_launches_one_select_a_hop(card, edge_x_full):
         runs[dev.type] = ([x.cpu() for x in state], [x.cpu() for x in batch.nbr_edge_x])
         if dev.type == "cuda":
             got = (recency_eid_select.launches - launches[0],
-                   recency_window_select.launches - launches[1], recency_push.launches - launches[2])
-            assert got == ((2 * nb, 0, 2 * nb) if edge_x_full else (0, 2 * nb, 2 * nb)), got
+                   recency_feats_select.launches - launches[1], recency_push.launches - launches[2],
+                   recency_window_select.launches - launches[3])
+            assert got == ((2 * nb, 0, 2 * nb, 0) if edge_x_full else (0, 2 * nb, 2 * nb, 0)), got
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert torch.equal(g, c)
     for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
@@ -519,7 +576,8 @@ def test_device_event_stream_on_the_card_equals_the_cpu(card, kw):
                                                edge_dim=172, device=dev))
         hm.register_shared(DeduplicationHook(n, seed_nodes_keys=["nbr_nids"]))
         fn, states = hm.as_transform("all", dg)
-        k4, push = recency_window_select.launches, recency_push.launches
+        k4, push = recency_feats_select.launches, recency_push.launches
+        pre = recency_window_select.launches
         batches = []
         for i in range(stream.num_batches):
             states, b = fn(states, stream.batch_at(i))
@@ -527,7 +585,8 @@ def test_device_event_stream_on_the_card_equals_the_cpu(card, kw):
                             for k, v in b.__dict__.items()
                             if isinstance(v, (list, torch.Tensor))})
         if dev.type == "cuda":
-            assert recency_window_select.launches - k4 == stream.num_batches
+            assert recency_feats_select.launches - k4 == stream.num_batches
+            assert recency_window_select.launches == pre  # the pre-gathered entry: never
             assert recency_push.launches - push == 2 * stream.num_batches
         out[dev.type] = batches
     assert len(out["cuda"]) == len(out["cpu"]) > 10

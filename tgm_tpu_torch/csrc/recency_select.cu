@@ -29,8 +29,9 @@
 // SXM's published 3.35 TB/s (700 W power limit). Without features (the
 // Pallas entry) it moves about 1.1 MB and is launch-bound.
 //
-// Design: K4's (below), one warp per seed. Lane l looks at the slots of ages
-// l and l + 32 (B <= 64); a warp ballot gives the valid slots in age order,
+// Design: one warp per seed. Lane l looks at the slots of ages l and l + 32
+// (B <= 64; the row is loaded by slot beside the write position and shuffled
+// to the ages' lanes); a warp ballot gives the valid slots in age order,
 // a popcount each slot's rank. Selected lanes write id, time and edge id to
 // column K-1-rank and the edge id to a per-warp table in shared memory; the
 // warp then streams the K output rows, four float4 (or float) loads in
@@ -38,32 +39,50 @@
 // truncates toward zero, so the slot index uses a floor modulo, as the JAX
 // code does.
 //
-// K4: the same select with an fp32 feature payload.
+// K4: the same select with an fp32 feature payload, on the ring state in
+// place.
 //
 // Replaces the Pallas TPU kernel recency_window_select
-// (tgm_tpu/ops/pallas/recency_select.py, body _kernel). Contract: the same
-// (id, time) select as K1, filled with PAD / 0, plus each selected slot's
-// D-float feature row copied bit for bit into the same column, the columns
-// nobody writes zero-filled. The TPU kernel copies with a masked one-hot
-// reduce per output column, since a matmul would round through bf16.
+// (tgm_tpu/ops/pallas/recency_select.py:259, body _kernel at :35). Contract:
+// the same (id, time) select as K1, filled with PAD / 0, plus each selected
+// slot's D-float feature row copied bit for bit into the same column, the
+// columns nobody writes zero-filled. The TPU kernel takes rows the caller
+// gathered per seed and copies with a masked one-hot reduce per output
+// column, since a matmul would round through bf16. Like K1, this kernel reads
+// the feature layout's (N1, B) ids and times, (N1,) write positions and
+// (N1, B, D) feature buffer in place at row seed (the dump row N1 - 1 for an
+// invalid seed), or row s of pre-gathered (S, B) rows without seeds (the
+// Pallas entry); only the selected slots' feature rows are read.
 //
 // What bounds it on an H100: memory. At the DyGFormer eval shape (S = 4,400
 // seeds, B = K = 20, D = 172) it writes an (S, K, D) fp32 block of 60.5 MB
-// and reads the selected feature rows, up to another 60.5 MB: about 37 us at
+// and reads the selected feature rows, up to another 60.5 MB: about 36 us at
 // the H100 SXM's published 3.35 TB/s (700 W power limit) when every slot is
-// selected.
+// selected. At the train shape (S = 600) the same copy is 8.3 MB each way.
 //
-// Design: one warp per seed. Lane l looks at the slots of age l and l + 32
-// (B <= 64), so a warp ballot over ages gives a bit mask of the valid
-// slots in age order, and a slot's rank is the popcount of the valid bits
-// below its age. Each selected lane writes its id and time to column
-// K-1-rank and its slot index to a per-warp table in shared memory. The
-// warp then streams the selected feature rows and the zero fill over its
-// output block, float4 per lane when D % 4 == 0 and the rows are 16-byte
-// aligned, else one float per lane. Nothing is multiplied: it is a copy.
+// Design: the select is K1's (rank_slots: a ballot and a popcount per
+// warp, the row loaded beside the write position). The copy is what costs,
+// and it needs bytes in flight:
+// - Each warp writes the ring slot of each output column to a table in
+//   shared memory and copies column by column from it, float4 (D % 4 == 0
+//   and 16-byte aligned rows) or float per lane, with four loads in flight
+//   per lane; a lane steps its (column, element) pair by constants, so no
+//   element pays a / or %. The same copy serves rows in any time order
+//   (fault 1 of ROADMAP).
+// - The zero columns [0, K - n_sel) get plain vector stores meanwhile.
+// - Parallelism: one warp per (seed, part). The launcher splits each seed's K
+//   output columns into `parts` ranges until about 2,048 warps run (132 SMs
+//   x 16), so S = 600 runs 2,400 warps (4 parts of 5 columns) and S = 4,400
+//   one warp a seed; each part re-runs the cheap select over the 2B ints of
+//   its row.
+// - Bulk copies of a chronological ring's selected run (consecutive ring
+//   slots) through shared memory, cp.async.bulk on an mbarrier, were tried
+//   and dropped: exact, but ahead of this copy only at the largest seed
+//   counts, by a few percent, for a second copy path.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -71,13 +90,17 @@ namespace {
 constexpr int kPad = -1;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxSlots = 64;
-constexpr int kCopyUnroll = 4;  // K1's loads in flight per lane
+constexpr int kCopyUnroll = 4;  // loads in flight per lane in K1's and K4's column copies
+constexpr int kFeatWarps = 4;   // K4: warps a block
+constexpr int kTargetWarps = 2048;  // K4: split seeds' columns until about this many warps run
 
 __device__ __forceinline__ int floor_mod(int x, int b) { return ((x % b) + b) % b; }
 
 // The rank rule over one seed's B-slot ring row (starting at `row`), for a
 // whole warp: lane l holds the slots of ages l and l + 32 (h = 0 and 1); a
 // ballot gives the valid slots in age order, a popcount each one's rank.
+// Lane l loads slots l and l + 32 and takes each of its ages' slots from the
+// lane holding it (shuffles), so the row's loads do not wait for wp.
 struct WarpSlots {
   bool valid[2];
   int slot[2], id[2], time[2], rank[2];
@@ -87,18 +110,26 @@ struct WarpSlots {
 __device__ __forceinline__ WarpSlots rank_slots(const int* __restrict__ ids,
                                                 const int* __restrict__ times, long long row,
                                                 int wp, int qt, int B, int lane) {
+  int slot_id[2], slot_time[2];  // slots lane and lane + 32 of the row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    slot_id[h] = j < B ? ids[row + j] : kPad;
+    slot_time[h] = j < B ? times[row + j] : 0;
+  }
   WarpSlots w;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int age = lane + 32 * h;
-    w.valid[h] = false;
-    w.slot[h] = w.id[h] = w.time[h] = 0;
-    if (age < B) {
-      w.slot[h] = floor_mod(wp - 1 - age, B);
-      w.id[h] = ids[row + w.slot[h]];
-      w.time[h] = times[row + w.slot[h]];
-      w.valid[h] = w.time[h] < qt && w.id[h] != kPad;
-    }
+    w.slot[h] = age < B ? floor_mod(wp - 1 - age, B) : 0;
+    const int src = w.slot[h] & 31;
+    const int id_lo = __shfl_sync(0xffffffffu, slot_id[0], src);
+    const int id_hi = __shfl_sync(0xffffffffu, slot_id[1], src);
+    const int t_lo = __shfl_sync(0xffffffffu, slot_time[0], src);
+    const int t_hi = __shfl_sync(0xffffffffu, slot_time[1], src);
+    w.id[h] = w.slot[h] < 32 ? id_lo : id_hi;
+    w.time[h] = w.slot[h] < 32 ? t_lo : t_hi;
+    w.valid[h] = age < B && w.time[h] < qt && w.id[h] != kPad;
   }
   const unsigned lo = __ballot_sync(0xffffffffu, w.valid[0]);
   const unsigned hi = __ballot_sync(0xffffffffu, w.valid[1]);
@@ -188,81 +219,130 @@ __global__ void recency_select_eid_kernel(
   }
 }
 
-__global__ void recency_select_feats_kernel(
-    const int* __restrict__ ids, const int* __restrict__ times,
-    const float* __restrict__ feats, const int* __restrict__ write_pos,
-    const int* __restrict__ query_times, int* __restrict__ out_ids,
-    int* __restrict__ out_times, float* __restrict__ out_feats, int S, int B,
-    int K, int D) {
-  __shared__ int src_slot[kWarpsPerBlock][kMaxSlots];
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* __restrict__ out, int n, int lane) {
+  for (int i = lane; i < n; i += 32) out[i] = T{};
+}
+
+// Output rows [c_lo, c_hi) of one seed's (K, W) block from rows slot[c] of
+// its node's (B, W) block, W = D (T = float) or D / 4 (T = float4). A lane
+// steps its (row, element) pair by 32 elements with constants: one / and %
+// a lane, none an element.
+template <typename T>
+__device__ __forceinline__ void copy_slot_rows(const T* __restrict__ src, T* __restrict__ out,
+                                               const int* slot, int c_lo, int c_hi, int W,
+                                               int lane) {
+  const int total = (c_hi - c_lo) * W;
+  const int dc = 32 / W, dq = 32 % W;
+  int c = c_lo + lane / W, q = lane % W;
+  for (int i0 = lane; i0 < total; i0 += 32 * kCopyUnroll) {
+    T v[kCopyUnroll];
+    int at[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      at[u] = -1;
+      if (i0 + 32 * u < total) {
+        v[u] = src[slot[c] * W + q];
+        at[u] = c * W + q;
+      }
+      c += dc;
+      q += dq;
+      if (q >= W) {
+        q -= W;
+        ++c;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u)
+      if (at[u] >= 0) out[at[u]] = v[u];
+  }
+}
+
+// One warp per (seed, part): part p of `parts` owns output columns
+// [p K / parts, (p + 1) K / parts).
+__global__ void recency_feats_kernel(
+    const int* __restrict__ ids, const int* __restrict__ times, const float* __restrict__ feats,
+    const int* __restrict__ write_pos, const int* __restrict__ seeds,
+    const int* __restrict__ query_times, int* __restrict__ out_ids, int* __restrict__ out_times,
+    float* __restrict__ out_feats, int S, int N1, int B, int K, int D, int parts, bool vec) {
+  __shared__ int src_slot[kFeatWarps][kMaxSlots];  // ring slot of each output column
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int s = blockIdx.x * kWarpsPerBlock + warp;
-  if (s >= S) return;  // warp-uniform: the whole warp leaves together
-  const long row = static_cast<long>(s) * B;
-  const long out = static_cast<long>(s) * K;
-  const WarpSlots w = rank_slots(ids, times, row, write_pos[s], query_times[s], B, lane);
+  const long long task = static_cast<long long>(blockIdx.x) * kFeatWarps + warp;
+  if (task >= static_cast<long long>(S) * parts) return;  // warp-uniform
+  const int s = static_cast<int>(task / parts);
+  const int part = static_cast<int>(task % parts);
+  int node = s;
+  if (seeds != nullptr) {
+    const int seed = seeds[s];
+    node = (seed >= 0 && seed < N1 - 1) ? seed : N1 - 1;  // invalid seeds read the dump row
+  }
+  const long long row = static_cast<long long>(node) * B;
+  const long long out = static_cast<long long>(s) * K;
+  const int wp = write_pos[node];
+  const WarpSlots w = rank_slots(ids, times, row, wp, query_times[s], B, lane);
   const int n_sel = min(w.n_valid, K);
   const int n_fill = K - n_sel;  // columns [0, n_fill) stay empty
+  const int c0 = static_cast<int>(static_cast<long long>(part) * K / parts);
+  const int c1 = static_cast<int>(static_cast<long long>(part + 1) * K / parts);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (w.valid[h] && w.rank[h] < K) {
       const int c = K - 1 - w.rank[h];
-      out_ids[out + c] = w.id[h];
-      out_times[out + c] = w.time[h];
       src_slot[warp][c] = w.slot[h];
+      if (c >= c0 && c < c1) {
+        out_ids[out + c] = w.id[h];
+        out_times[out + c] = w.time[h];
+      }
     }
   }
-  for (int c = lane; c < n_fill; c += 32) {
+  const int f1 = min(max(n_fill, c0), c1);  // this warp zero-fills [c0, f1), copies [f1, c1)
+  for (int c = c0 + lane; c < f1; c += 32) {
     out_ids[out + c] = kPad;
     out_times[out + c] = 0;
   }
+  if (D == 0) return;
   __syncwarp();
-
-  const float* in_row = feats + row * D;
-  float* out_row = out_feats + out * D;
-  const bool vec = (D % 4 == 0) &&
-                   (reinterpret_cast<std::uintptr_t>(feats) % 16 == 0) &&
-                   (reinterpret_cast<std::uintptr_t>(out_feats) % 16 == 0);
+  const float* in_block = feats + row * D;  // the node's (B, D) rows
+  float* out_block = out_feats + out * D;   // the seed's (K, D) rows
   if (vec) {
-    const int D4 = D / 4;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4* o4 = reinterpret_cast<float4*>(out_row);
-    for (int i = lane; i < n_fill * D4; i += 32) o4[i] = zero;
-    for (int i = lane; i < n_sel * D4; i += 32) {
-      const int c = n_fill + i / D4;
-      const int q = i % D4;
-      const float4* src =
-          reinterpret_cast<const float4*>(in_row + static_cast<long>(src_slot[warp][c]) * D);
-      o4[static_cast<long>(c) * D4 + q] = src[q];
-    }
+    const int W = D / 4;
+    zero_rows(reinterpret_cast<float4*>(out_block) + static_cast<long long>(c0) * W,
+              (f1 - c0) * W, lane);
+    copy_slot_rows(reinterpret_cast<const float4*>(in_block), reinterpret_cast<float4*>(out_block),
+                   src_slot[warp], f1, c1, W, lane);
   } else {
-    for (int i = lane; i < n_fill * D; i += 32) out_row[i] = 0.f;
-    for (int i = lane; i < n_sel * D; i += 32) {
-      const int c = n_fill + i / D;
-      const int q = i % D;
-      out_row[static_cast<long>(c) * D + q] =
-          in_row[static_cast<long>(src_slot[warp][c]) * D + q];
-    }
+    zero_rows(out_block + static_cast<long long>(c0) * D, (f1 - c0) * D, lane);
+    copy_slot_rows(in_block, out_block, src_slot[warp], f1, c1, D, lane);
   }
 }
 
 }  // namespace
 
-extern "C" int recency_window_select(
-    const void* ids, const void* times, const void* feats,
-    const void* write_pos, const void* query_times, void* out_ids,
-    void* out_times, void* out_feats, int S, int B, int K, int D,
-    void* stream) {
-  if (B > kMaxSlots || K > B || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  recency_select_feats_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+// seeds null: the state is S pre-gathered rows, row s for seed s (the
+// Pallas entry).
+extern "C" int recency_feats_select(
+    const void* ids, const void* times, const void* feats, const void* write_pos,
+    const void* seeds, const void* query_times, void* out_ids, void* out_times, void* out_feats,
+    int S, int N1, int B, int K, int D, void* stream) {
+  if (B > kMaxSlots || K > B || K < 1 || S < 1 || D < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = (D % 4 == 0) && (reinterpret_cast<std::uintptr_t>(feats) % 16 == 0) &&
+                   (reinterpret_cast<std::uintptr_t>(out_feats) % 16 == 0);
+  // Split each seed's columns until about kTargetWarps warps run; no split
+  // without features.
+  const int parts = D == 0 ? 1 : std::max(1, std::min(K, (kTargetWarps + S - 1) / S));
+  const long long tasks = static_cast<long long>(S) * parts;
+  const long long blocks = (tasks + kFeatWarps - 1) / kFeatWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  recency_feats_kernel<<<static_cast<unsigned>(blocks), kFeatWarps * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ids), static_cast<const int*>(times),
       static_cast<const float*>(feats), static_cast<const int*>(write_pos),
-      static_cast<const int*>(query_times), static_cast<int*>(out_ids),
-      static_cast<int*>(out_times), static_cast<float*>(out_feats), S, B, K, D);
+      static_cast<const int*>(seeds), static_cast<const int*>(query_times),
+      static_cast<int*>(out_ids), static_cast<int*>(out_times), static_cast<float*>(out_feats),
+      S, N1, B, K, D, parts, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ is reduced modulo B only where it is used.
 * feature layout (the default): ``(nbr_ids, nbr_times, nbr_feats,
   write_pos)`` with (N+1, B) int32 ids and times and an (N+1, B, D) fp32
   buffer holding each event's edge features by value. A query selects each
-  seed's K most recent events with their features (kernel K4 on the card).
+  seed's K most recent events with their features, in one launch of kernel
+  K4 that reads the state in place (``recency_feats_select``).
 * eid layout (``edge_x_full`` given): ``(nbr_ids, nbr_times, nbr_eids,
   write_pos)``, all int32; a query selects ids, times and edge ids and
   copies the selected edges' rows of the static feature table, in one
@@ -50,7 +51,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.recency_select import (
     gather_edge_feats,
     recency_eid_select,
-    recency_window_select,
+    recency_feats_select,
     recency_window_select_eid,
     seed_rows,
 )
@@ -81,12 +82,7 @@ def recency_query(
     state: RecencyState, seeds: torch.Tensor, seed_times: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K most recent (nbr_id, time, features) per seed strictly before its time."""
-    nbr_ids, nbr_times, nbr_feats, write_pos = state
-    rows = seed_rows(seeds, nbr_ids.shape[0] - 1)
-    return recency_window_select(
-        nbr_ids[rows], nbr_times[rows], nbr_feats[rows], write_pos[rows],
-        seed_times.int(), k,
-    )
+    return recency_feats_select(state, seeds.int(), seed_times.int(), k)
 
 
 def recency_eid_init(num_nodes: int, buf_size: int, device: DeviceLike = None) -> RecencyState:
@@ -329,7 +325,7 @@ class RecencyNeighborHook(_NeighborHookBase):
     def _query(self, state: Any, seeds: torch.Tensor, times: torch.Tensor, k: int):
         """One hop: (S, K) ids and times and (S, K, D) features; one launch of
         K1 (eid layout, features fused; packed layout, pre-gathered rows) or
-        of K4 (feature layout)."""
+        of K4 (feature layout, the state read in place)."""
         if self._packed:
             nbrs, nts, nes = recency_pk_query(state, seeds, times, k)
             return nbrs, nts, gather_edge_feats(self._edge_x_full, nes)

@@ -14,6 +14,11 @@ Port of ``tgm_tpu/ops/pallas/recency_select.py``:
 * ``recency_window_select`` (K4) replaces ``recency_window_select``: the same
   select carrying an (S, B, D) fp32 feature payload, copied exactly, filled
   with PAD / 0 / 0.0.
+* ``recency_feats_select`` launches the same kernel K4 on the feature
+  layout's ring state itself: it reads each seed's ids, times, write
+  position and selected feature rows in place (invalid seeds read the dump
+  row). This is the hook's feature-layout query: one launch, no gathered
+  rows.
 
 On a CUDA tensor a wrapper launches its hand-written kernel in
 ``csrc/recency_select.cu``; on a CPU tensor it runs the plain version. Both
@@ -22,10 +27,10 @@ compute the Pallas kernels' rank rule: slot j has age ``(wp - 1 - j) mod B``
 rank is the number of valid slots more recent than it; it is selected iff
 its rank is below K and goes to column ``K - 1 - rank``. The plain versions
 compute every rank at once as an (S, B, B) compare-and-sum and scatter the
-selected slots; the kernels walk (K1) or ballot (K4) each seed's slots, so
-holding one against the other tests two algorithms. On rows whose times do
-not decrease from oldest to newest slot, which is all a chronological
-stream leaves, the rule equals the JAX package's jnp path.
+selected slots; the kernels ballot each seed's slots, so holding one against
+the other tests two algorithms. On rows whose times do not decrease from
+oldest to newest slot, which is all a chronological stream leaves, the rule
+equals the JAX package's jnp path.
 """
 
 from __future__ import annotations
@@ -238,6 +243,65 @@ def recency_eid_select(
 recency_eid_select.launches = 0
 
 
+def recency_feats_select_plain(state: Sequence[torch.Tensor], seeds: torch.Tensor,
+                               seed_times: torch.Tensor, k: int) -> Triple:
+    """Plain version of ``recency_feats_select``: gather each seed's rows,
+    then K4's plain select."""
+    nbr_ids, nbr_times, nbr_feats, write_pos = state
+    rows = seed_rows(seeds, nbr_ids.shape[0] - 1)
+    return recency_window_select_plain(nbr_ids[rows], nbr_times[rows], nbr_feats[rows],
+                                       write_pos[rows], seed_times, k)
+
+
+def _launch_k4(rows: Sequence[torch.Tensor], seeds: Optional[torch.Tensor],
+               query_times: torch.Tensor, k: int) -> Triple:
+    """Launch K4 over (N1, B) rows (ids, times, (N1, B, D) features,
+    write_pos): row ``seeds[s]`` for seed s (the dump row N1 - 1 if
+    invalid), or row s without seeds. Returns the (S, K) ids and times and
+    the (S, K, D) features."""
+    N1, B, D = rows[2].shape
+    S = query_times.shape[0]
+    dev = query_times.device
+    outs = (torch.empty((S, k), dtype=torch.int32, device=dev),
+            torch.empty((S, k), dtype=torch.int32, device=dev),
+            torch.empty((S, k, D), dtype=torch.float32, device=dev))
+    if S == 0:
+        return outs
+    ins = [None if t is None else t.contiguous() for t in (*rows, seeds, query_times)]
+    _native.launch("recency_select", "recency_feats_select", [*ins, *outs], [S, N1, B, k, D])
+    return outs
+
+
+def recency_feats_select(
+    state: Sequence[torch.Tensor],  # (N1, B) int32 ids, times; (N1, B, D) fp32; (N1,) wp
+    seeds: torch.Tensor,  # (S,) int32 node ids; invalid ones read the dump row N1 - 1
+    seed_times: torch.Tensor,  # (S,) int32
+    k: int,
+) -> Triple:
+    """K most recent (id, time, features) per seed before its time.
+
+    Reads the feature-layout ring state in place: no per-seed rows are
+    gathered. Returns (S, K) int32 ids and times, filled with PAD / 0, and
+    (S, K, D) fp32 features copied bit for bit (zero rows where empty; (S,
+    K, 0) for D = 0). One launch of kernel K4 on CUDA tensors, the plain
+    version on CPU tensors; ``recency_feats_select.launches`` counts kernel
+    launches.
+    """
+    nbr_ids, nbr_times, nbr_feats, write_pos = state
+    if nbr_feats.dim() != 3:
+        raise ValueError(f"nbr_feats must be (N1, B, D), got shape {tuple(nbr_feats.shape)}")
+    _check(nbr_ids, nbr_times, nbr_feats, write_pos, seed_times, k, torch.float32, seeds=seeds)
+    if nbr_ids.device.type == "cpu":
+        return recency_feats_select_plain(state, seeds, seed_times, k)
+    outs = _launch_k4(state, seeds, seed_times, k)
+    if seeds.shape[0]:
+        recency_feats_select.launches += 1
+    return outs
+
+
+recency_feats_select.launches = 0
+
+
 def recency_window_select(
     ids: torch.Tensor,  # (S, B) int32 buffer rows (pre-gathered per seed)
     times: torch.Tensor,  # (S, B) int32
@@ -248,27 +312,21 @@ def recency_window_select(
 ) -> Triple:
     """K most recent (id, time, features) per seed before its query time.
 
-    Returns (S, K) ids and times and (S, K, D) features, filled with PAD / 0 /
-    0.0; the features are copied bit for bit. Kernel K4 on CUDA tensors, the
-    plain version on CPU tensors; ``recency_window_select.launches`` counts
-    kernel launches.
+    The Pallas function's contract, on rows the caller gathered per seed:
+    (S, K) ids and times and (S, K, D) features, filled with PAD / 0 / 0.0;
+    the features are copied bit for bit. Kernel K4 (the kernel of
+    ``recency_feats_select``, row s for seed s) on CUDA tensors, the plain
+    version on CPU tensors; ``recency_window_select.launches`` counts kernel
+    launches.
     """
     if feats.dim() != 3:
         raise ValueError(f"feats must be (S, B, D), got shape {tuple(feats.shape)}")
     _check(ids, times, feats, write_pos, query_times, k, torch.float32)
     if ids.device.type == "cpu":
         return recency_window_select_plain(ids, times, feats, write_pos, query_times, k)
-    S, B = ids.shape
-    D = feats.shape[2]
-    dev = ids.device
-    outs = (torch.empty((S, k), dtype=torch.int32, device=dev),
-            torch.empty((S, k), dtype=torch.int32, device=dev),
-            torch.empty((S, k, D), dtype=torch.float32, device=dev))
-    if S == 0:
-        return outs
-    ins = [t.contiguous() for t in (ids, times, feats, write_pos, query_times)]
-    _native.launch("recency_select", "recency_window_select", [*ins, *outs], [S, B, k, D])
-    recency_window_select.launches += 1
+    outs = _launch_k4((ids, times, feats, write_pos), None, query_times, k)
+    if ids.shape[0]:
+        recency_window_select.launches += 1
     return outs
 
 

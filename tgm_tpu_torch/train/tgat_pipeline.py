@@ -20,7 +20,7 @@ side-augmented table (``build_aug_table``) in the same launch of kernel K1
 that selects them; the shallower hops select with K1 and gather their edge
 rows by ``payload >> 1``. With ``edge_x_full`` alone the rings carry edge
 ids (one K1 launch a hop, the feature rows fused); with neither, edge
-features by value (K4). Every layout pushes once a step (the push kernel).
+features by value (K4, the state read in place). Every layout pushes once a step (the push kernel).
 fp32 only: ``feat_bf16`` and ``attn_bf16`` raise when true and resolve to
 off when ``None`` (the JAX package's auto policy turns them on for TPU
 backends only).
@@ -40,13 +40,12 @@ from ..hooks.neighbors import (
     recency_eid_init,
     recency_eid_update,
     recency_init,
-    recency_query,
     recency_update,
 )
 from ..nn.decoder.decoders import LinkPredictor
 from ..nn.encoder.tgat import TGAT
 from ..nn.modules.attention import SCORE_LAYOUTS
-from ..ops.recency_select import gather_edge_feats, recency_eid_select
+from ..ops.recency_select import gather_edge_feats, recency_eid_select, recency_feats_select
 from ..weights import load_tgat_params
 from .programs import score_candidates, tie_equal_candidates, train_loss_and_grad
 
@@ -212,7 +211,7 @@ class TGATPipeline:
                 nbrs, nts, _, nxs = recency_eid_select(rec_state, seeds, seed_t, k,
                                                        self.edge_x_full)
             else:
-                nbrs, nts, nxs = recency_query(rec_state, seeds, seed_t, k)
+                nbrs, nts, nxs = recency_feats_select(rec_state, seeds, seed_t, k)
             hop_nbrs.append(nbrs)
             hop_nbr_t.append(nts)
             hop_nbr_x.append(nxs)

@@ -18,9 +18,9 @@ updates these objects in place and returns a carry holding the same ones.
 
 Ported, fp32, in both recency layouts (``edge_x_full`` given: eid layout,
 one launch of kernel K1 with the feature rows fused; ``None``: feature
-layout through kernel K4): the rowwise path, and ``rowwise=False``, the
-reference example's segment path for training (the pipeline's own dedup of
-[src | dst | neg] and their neighbours, the segment
+layout, one launch of kernel K4 on the state in place): the rowwise path,
+and ``rowwise=False``, the reference example's segment path for training
+(the pipeline's own dedup of [src | dst | neg] and their neighbours, the segment
 ``GraphAttentionEmbedding``, a flush commit; ``eval_step`` is rowwise only,
 as in JAX); ``packed_state=True`` on either (the memory state in the
 packed layout, its store in PyTorch scatters); ``packed_recency=True`` in
@@ -48,7 +48,6 @@ from ..hooks.neighbors import (
     recency_pk_init,
     recency_pk_query,
     recency_pk_update,
-    recency_query,
     recency_update,
 )
 from ..nn.decoder.decoders import LinkPredictor
@@ -60,7 +59,7 @@ from ..nn.encoder.tgn import (
     tgn_init_state,
     tgn_pack_state,
 )
-from ..ops.recency_select import gather_edge_feats, recency_eid_select
+from ..ops.recency_select import gather_edge_feats, recency_eid_select, recency_feats_select
 from ..weights import load_tgn_params
 from .programs import (
     local_edges,
@@ -197,7 +196,8 @@ class TGNPipeline:
         """(S, K) neighbour ids and times and their (S, K, D) features: in the
         eid layout one launch of K1 with the rows of ``table`` (default
         ``edge_x_full``) fused; packed, K1's pre-gathered entry and a gather
-        of ``table``'s rows; in the feature layout K4 over the buffers."""
+        of ``table``'s rows; in the feature layout one launch of K4 that reads
+        the buffers in place."""
         seeds, seed_t = seeds.int(), seed_t.int()
         if self.edge_x_full is not None:
             table = self.edge_x_full if table is None else table
@@ -207,7 +207,7 @@ class TGNPipeline:
             nbrs, nbr_t, _, nbr_x = recency_eid_select(rec_state, seeds, seed_t,
                                                        self.num_nbrs, table)
             return nbrs, nbr_t, nbr_x
-        return recency_query(rec_state, seeds, seed_t, self.num_nbrs)
+        return recency_feats_select(rec_state, seeds, seed_t, self.num_nbrs)
 
     def _push(self, rec_state, batch):
         """The batch's undirected recency push (two launches; packed, one
