@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
+        [--only-mixer]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -12,7 +13,8 @@ checkpointed serving flow; the segment and packed-state variants), TGAT
 through the fused ``TGATPipeline`` (train, eval), TGN, TGAT and DyGFormer
 node property prediction (train, NDCG@10 eval), TGAT with uniform
 neighbour sampling, TGN with the packed recency layout, every other hook,
-and its hand-written CUDA kernels, in phases:
+GraphMixer and TPNet link prediction and TPNet node prediction, and its
+hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -233,7 +235,37 @@ and its hand-written CUDA kernels, in phases:
               products and states exact, floats within 1e-6 * max), ms per
               batch. ``--only-hooks`` runs dyg-np, tgat-uni, pk and hooks
               alone.
-29. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+29. mixer:    the GraphMixer example at its full width (K = 20 in the feature
+              layout, two mixer blocks over (S, 20, 172), time 100, embed
+              100, a 2,000-event time-gap window, dropout 0.1, Adam at 1e-4)
+              on the link stream: one train epoch, val, the hook reset, train
+              and val replayed, test; ms per batch, edges/s, MRR, peak and
+              its rise, launches (K4 once and the push twice a batch, no
+              other kernel), the hook / forward+backward / optimizer split.
+30. mixer-agree: 5 GraphMixer train and 3 val batches card against CPU, one
+              set of weights, dropout off, the card's draws fed to the CPU:
+              recency state and hook products exact (floats within 1e-6 *
+              max), the first loss within 1e-5 and all within 5e-3; val on
+              the card's weights: scores within 1e-4 * max |score|, rank
+              decisions flipping only inside that band, MRR sums within 1e-4
+              where none flipped.
+31. tpnet:    the TPNet link example at its full width (K = 20, RP 3 x 64,
+              two mixer blocks of width 100, time 100, dropout 0.1): one
+              epoch from the initial RP state, its backup, val, test from
+              the backup (ROADMAP fault 18); the readings and checks of
+              mixer, and the hook / forward+backward / rp_update /
+              optimizer split.
+32. tpnet-agree: 5 train and 2 val batches card against CPU with mixer-agree's
+              bands, plus the RP state within 1e-5 * max |P| after train and
+              after val (the card's ``index_add_`` sums by atomics).
+33. tpnet-np: the TPNet node example at its full width (K = 7, one mixer
+              block, time 32, embed 64) on the node stream through the
+              loader: one train epoch, val, test; the readings, K4 once and
+              the push twice a batch; then 5 train and 3 val batches card
+              against CPU (recency exact, RP within 1e-5 * max |P|, losses
+              within 1e-5 / 5e-3, NDCG on the card's weights within 1e-4).
+              ``--only-mixer`` runs phases 29-33 alone.
+34. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -241,7 +273,7 @@ and its hand-written CUDA kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-30. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+35. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -3923,6 +3955,479 @@ def hook_layer_phases(data, train, val, test, cands, np_data, seed: int, dev, ca
             "launches_tgn_packed_pipeline_eval": pk[3]}
 
 
+# ---------------------------------------------------------------------- #
+# GraphMixer and TPNet: link prediction, and TPNet node property prediction
+# ---------------------------------------------------------------------- #
+MIXER_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES}  # one hop, K = 20
+MIXER_AGREE_TRAIN, MIXER_AGREE_EVAL = 5, 3
+LINK_SCORE_TOL = 1e-4  # card vs CPU val scores, relative to the batch's max |score|
+HOOK_PRODUCTS = ("seed_nids", "seed_times", "nbr_nids", "nbr_edge_time", "nbr_edge_x")
+
+
+def mixer_args(seed: int, device, **kw):
+    """The GraphMixer example's flags at their defaults."""
+    from tgm_tpu_torch.examples.linkproppred import graphmixer as gm
+
+    args = gm.parse_args(["--seed", str(seed), "--device", str(device)])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def _link_epoch_phase(phase: str, label: str, ctx, ex, step, card: str, replay: bool = True,
+                      hooks=None):
+    """One train epoch of a link example's ``ctx`` (module ``ex``: each
+    split through the hooks and ``ex.batch_fn``), val, and test (after the
+    hook reset and the replay of train and val when ``replay``), with
+    ``run_epochs``' ``hooks`` (``on_train_end``, ``on_test_start``): ms per
+    batch, edges/s, the MRRs, the peak and its rise, launches checked
+    against ``step`` a batch. Returns (train, val + test) launches."""
+    from tgm_tpu_torch.examples import _linkpred_common as lp
+
+    hooks = hooks or {}
+
+    def run_split(split, core):
+        fn = (lambda batch: torch.zeros(())) if core is None else ex.batch_fn(ctx, core)
+        return lp.run_split(ctx.setup, split, fn)
+
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = run_split("train", "train")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    if "on_train_end" in hooks:
+        hooks["on_train_end"]()
+    stream = ctx.streams["train"]
+    n = stream.num_batches
+    check_launches(f"{label} train", launches, step, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"{label} train losses not finite or of the wrong shape: {losses}")
+    log(phase, f"train: {stream.num_edges} edges in {n} batches, {dt:.3f} s: "
+               f"train_ms_per_batch={dt / n * 1e3:.3f} train_edges_per_s="
+               f"{stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} last "
+               f"{float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; {peak}; "
+               f"launches={launches} per_batch={ {k: v / n for k, v in launches.items()} } "
+               f"[{card}]")
+    mrr, seconds, n_batches, n_edges = {}, 0.0, 0, 0
+    eval_launches = {name: 0 for name in launches}
+    base = _reset_peak()
+    for split in ("val", "test"):
+        if split == "test" and replay:
+            ctx.hm.reset_state()
+            run_split("train", None)
+            run_split("val", None)
+        if split == "test" and "on_test_start" in hooks:
+            hooks["on_test_start"]()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, c = run_split(split, "eval")
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t0
+        for k, v in read_launches().items():
+            eval_launches[k] += v
+        sstream = ctx.streams[split]
+        mrr[split] = float(s.sum() / c.sum().clamp_min(1.0))
+        seconds += dt_eval
+        n_batches += sstream.num_batches
+        n_edges += sstream.num_edges
+        log(phase, f"{split}: {sstream.num_edges} edges in {sstream.num_batches} batches, "
+                   f"{dt_eval:.3f} s, eval_ms_per_batch={dt_eval / sstream.num_batches * 1e3:.3f} "
+                   f"{sstream.num_edges / dt_eval:.0f} edges/s, MRR {mrr[split]:.6f} [{card}]")
+    check_launches(f"{label} val + test", eval_launches, step, n_batches)
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+        raise AssertionError(f"{label} MRR out of range: {mrr}")
+    log(phase, f"eval: val_mrr={mrr['val']:.6f} test_mrr={mrr['test']:.6f} over {n_batches} "
+               f"batches, eval_ms_per_batch={seconds / n_batches * 1e3:.3f} eval_edges_per_s="
+               f"{n_edges / seconds:.0f}; {_peak_line(base)}; val + test launches="
+               f"{eval_launches} [{card}]")
+    return launches, eval_launches
+
+
+def _train_split(phase: str, ctx, stages, card: str) -> None:
+    """Where one train batch's time goes: the hook step, then each of
+    ``stages`` (name -> fn(batch)), each ending in a synchronize, medians
+    over ``SPLIT_BATCHES`` batches from a reset hook state."""
+    ctx.hm.reset_state()
+    fn, states = ctx.hm.as_transform("train", ctx.dgs["train"])
+    times = {k: [] for k in ("hook", *stages)}
+    for i in range(SPLIT_BATCHES):
+        b = ctx.streams["train"].batch_at(i)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        states, batch = fn(states, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for stage in stages.values():
+            stage(batch)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        for k, a, z in zip(times, t, t[1:]):
+            times[k].append((z - a) * 1e6)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(phase, f"one train batch split, medians over {SPLIT_BATCHES} batches, us from Python "
+               f"with a synchronize after each stage: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+        + f"; sum {sum(med.values()):.1f} [{card}]")
+
+
+def mixer_phase(data, cands, seed: int, dev, card: str):
+    """The GraphMixer example at its full width on the card (K = 20 in the
+    feature layout, two mixer blocks over (S, 20, 172), time 100, embed
+    100, a time-gap window of 2,000 events, dropout 0.1, Adam at 1e-4): one
+    train epoch, val, the hook reset, train and val replayed, test; then
+    the stage split."""
+    from tgm_tpu_torch.examples.linkproppred import graphmixer as gm
+
+    ctx = gm.build(mixer_args(seed, dev), data=copy.copy(data),
+                   cands=(cands["val"], cands["test"]))
+    out = _link_epoch_phase("mixer", "GraphMixer", ctx, gm, MIXER_STEP, card)
+    _train_split("mixer", ctx, {
+        "forward_backward": lambda batch: ctx.train_core.loss_and_grad(batch, ctx.generator),
+        "optimizer": lambda batch: ctx.opt.step()}, card)
+    return out
+
+
+def _record_draws(label: str, hooks, draws):
+    """On the card, record each draw of the train split's random-negative
+    hook and the val split's TGB hook into ``draws``; on the CPU, replay
+    them."""
+    rnd, tgb = hooks["train"], hooks["val"]
+    if label == "card":
+        draw, draw_t = rnd.draw_neg, tgb.draw_neg_time
+        rnd.draw_neg = lambda size: draws["neg"].append(draw(size)) or draws["neg"][-1]
+        tgb.draw_neg_time = lambda *a: draws["neg_time"].append(draw_t(*a)) or draws["neg_time"][-1]
+    else:
+        it, it_t = iter(draws["neg"]), iter(draws["neg_time"])
+        rnd.draw_neg = lambda size: next(it).cpu()
+        tgb.draw_neg_time = lambda *a: next(it_t).cpu()
+
+
+def _link_agree_check(phase: str, label: str, g, c, n_train: int, n_eval: int, card: str):
+    """The bands of a link agree phase: recency state and integer hook
+    products exact, float hook products within 1e-6 * max; the first loss
+    within 1e-5 and all within 5e-3; val on the card's weights: scores within
+    ``LINK_SCORE_TOL`` * max |score|, a rank decision may flip between the
+    devices only inside that band (ROADMAP fault 4), and the MRR sums within
+    1e-4 where none flipped."""
+    for i, (x, y) in enumerate(zip(g["rec"], c["rec"])):
+        _same(f"{label}: recency state tensor {i}", x, y)
+    for b, (gp, cp) in enumerate(zip(g["prods"], c["prods"])):
+        for (name, x), (_, y) in zip(gp, cp):
+            _same(f"{label}: batch {b}: {name}", x, y, rel=1e-6)
+    loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+    gaps = [_score_gap(gs, cs, LINK_SCORE_TOL) for gs, cs in zip(g["scores"], c["scores"])]
+    score_err = max(gap[0] for gap in gaps)
+    far_flips = sum(gap[1] for gap in gaps)
+    near_flips = [gap[2] for gap in gaps]
+    sum_err = max(abs(a - b) for a, b in zip(g["sums"], c["sums"]))
+    sums_agree = all(abs(a - b) <= 1e-4 or near > 0
+                     for a, b, near in zip(g["sums"], c["sums"], near_flips))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and score_err <= LINK_SCORE_TOL
+            and far_flips == 0 and sums_agree):
+        raise AssertionError(f"{label} card vs CPU: losses {g['losses']} against {c['losses']}, "
+                             f"MRR sums {g['sums']} against {c['sums']}, scores {score_err:.3g} "
+                             f"* max apart, {far_flips} rank decisions flipped outside the score "
+                             f"band and {near_flips} inside it")
+    log(phase, f"card vs CPU, {n_train} train + {n_eval} val batches, dropout off, the card's "
+               f"draws fed to the CPU: recency state and hook products exact (floats within "
+               f"1e-6 * max); first-loss diff {loss_err[0]:.3g}, max loss diff "
+               f"{max(loss_err):.3g}; val on the card's weights: scores {score_err:.3g} * max "
+               f"|score| apart (band {LINK_SCORE_TOL:g}), rank decisions flipped inside the band "
+               f"per batch {near_flips} (outside it 0), max per-batch MRR-sum diff "
+               f"{sum_err:.3g} (card {g['sums']}, CPU {c['sums']}); weights "
+               f"{_weight_gap(g['weights'], c['weights'])} apart after {n_train} Adam steps; "
+               f"card {g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
+
+
+def mixer_agree_phase(data, cands, seed: int, dev, card: str):
+    """GraphMixer's first train batches, then val batches, on the card and
+    on the CPU from one set of weights, no dropout, the card's negative and
+    ``neg_time`` draws fed to the CPU; val on the card's trained weights on
+    both (fault 10), held as ``_link_agree_check`` says."""
+    from tgm_tpu_torch.examples.linkproppred import graphmixer as gm
+
+    draws, runs = {"neg": [], "neg_time": []}, {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        ctx = gm.build(mixer_args(seed, device, dropout=0.0), data=copy.copy(data),
+                       cands=(cands["val"], cands["test"]))
+        modules = (ctx.encoder, ctx.decoder)
+        if label == "cpu":
+            _load_weights(modules, runs["card"]["w0"])
+        _record_draws(label, ctx.setup.neg_hooks, draws)
+        run = dict(w0=_weights(modules), losses=[], sums=[], scores=[], prods=[])
+        for split, n_batches in (("train", MIXER_AGREE_TRAIN), ("val", MIXER_AGREE_EVAL)):
+            fn, states = ctx.hm.as_transform(split, ctx.dgs[split])
+            if split == "val":
+                run["weights"] = _weights(modules)
+                if label == "cpu":
+                    _load_weights(modules, runs["card"]["weights"])
+            for i in range(n_batches):
+                states, batch = fn(states, ctx.streams[split].batch_at(i))
+                run["prods"].append([(f"{k}[0]", getattr(batch, k)[0]) for k in HOOK_PRODUCTS]
+                                    + [(k, getattr(batch, k)) for k in
+                                       ("neg", "time_gap_count", "time_gap_feat")])
+                if split == "train":
+                    run["losses"].append(float(ctx.train_core((None,), batch)[1]))
+                    continue
+                with _RecordedScores() as rec_scores:
+                    _, (s, _) = ctx.eval_core(None, batch)
+                run["sums"].append(float(s))
+                run["scores"].append(rec_scores.calls[-1])
+            ctx.hm.adopt_states(split, states)
+        run.update(rec=[t.cpu() for t in ctx.recency.state], seconds=time.perf_counter() - t0)
+        runs[label] = run
+    _link_agree_check("mixer-agree", "GraphMixer", runs["card"], runs["cpu"], MIXER_AGREE_TRAIN,
+                      MIXER_AGREE_EVAL, card)
+
+
+def mixer_phases(data, cands, seed: int, dev, card: str):
+    """mixer and mixer-agree; returns each path's launches under its
+    ``kernels``-line key."""
+    t0 = time.perf_counter()
+    train_launches, eval_launches = mixer_phase(data, cands, seed, dev, card)
+    mixer_agree_phase(data, cands, seed, dev, card)
+    log("mixer", f"the GraphMixer phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches_graphmixer_train": train_launches,
+            "launches_graphmixer_eval": eval_launches}
+
+
+TPNET_AGREE_TRAIN, TPNET_AGREE_EVAL = 5, 2
+TPNET_NP_AGREE_TRAIN, TPNET_NP_AGREE_EVAL = 5, 3
+RP_TOL = 1e-5  # card vs CPU RP state, relative to max |P|: index_add_ sums by atomics on the card
+
+
+def tpnet_args(seed: int, device, **kw):
+    """The TPNet link example's flags at their defaults."""
+    from tgm_tpu_torch.examples.linkproppred import tpnet as tp_link
+
+    args = tp_link.parse_args(["--seed", str(seed), "--device", str(device)])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def _rp_gap(label: str, got, want) -> float:
+    """``now_time`` exact, the projections within ``RP_TOL`` * max |P|;
+    returns the largest difference over max |P|."""
+    g, w = got.projections.cpu(), want.projections.cpu()
+    scale = max(float(w.abs().max()), 1e-30)
+    err = float((g - w).abs().max()) / scale
+    if float(got.now_time) != float(want.now_time) or not err <= RP_TOL:
+        raise AssertionError(f"{label}: RP state {err:.3g} * max |P| apart (band {RP_TOL:g}), "
+                             f"now_time {float(got.now_time)} against {float(want.now_time)}")
+    return err
+
+
+def tpnet_phase(data, cands, seed: int, dev, card: str):
+    """The TPNet link example at its full width on the card (K = 20 in the
+    feature layout, RP 3 x 64, two mixer blocks of width 100, time 100,
+    dropout 0.1, Adam at 1e-4): one epoch, the RP backup, val, test from the
+    backup; then the stage split."""
+    from tgm_tpu_torch.examples.linkproppred import tpnet as tp_link
+
+    ctx = tp_link.build(tpnet_args(seed, dev), data=copy.copy(data),
+                        cands=(cands["val"], cands["test"]))
+    out = _link_epoch_phase("tpnet", "TPNet", ctx, tp_link, MIXER_STEP, card, replay=False,
+                            hooks=tp_link.epoch_hooks(ctx))
+    ctx.rp_state = ctx.rp_state0
+
+    def rp_update(batch):
+        ctx.rp_state = ctx.rp.update(ctx.rp_state, batch.edge_src, batch.edge_dst,
+                                     batch.edge_time, batch.edge_valid)
+
+    _train_split("tpnet", ctx, {
+        "forward_backward": lambda batch: ctx.train_core.loss_and_grad(batch, ctx.generator,
+                                                                      ctx.rp_state),
+        "rp_update": rp_update,
+        "optimizer": lambda batch: ctx.opt.step()}, card)
+    return out
+
+
+def tpnet_agree_phase(data, cands, seed: int, dev, card: str):
+    """TPNet's first train batches, then val batches, on the card and on the
+    CPU from one set of weights and one RP layer 0, no dropout, the card's
+    draws fed to the CPU; val on the card's trained weights and RP state on
+    both. Held as ``_link_agree_check`` says, and the RP state within
+    ``RP_TOL`` * max |P| after the train batches and after val."""
+    from tgm_tpu_torch.examples.linkproppred import tpnet as tp_link
+    from tgm_tpu_torch.nn import RandomProjectionState
+
+    draws, runs = {"neg": [], "neg_time": []}, {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        ctx = tp_link.build(tpnet_args(seed, device, dropout=0.0), data=copy.copy(data),
+                            cands=(cands["val"], cands["test"]))
+        modules = (ctx.encoder, ctx.decoder)
+        if label == "cpu":
+            _load_weights(modules, runs["card"]["w0"])
+            ctx.rp_state = RandomProjectionState(*(x.cpu() for x in runs["card"]["rp0"]))
+        _record_draws(label, ctx.setup.neg_hooks, draws)
+        run = dict(w0=_weights(modules), rp0=[x.cpu() for x in ctx.rp_state], losses=[],
+                   sums=[], scores=[], prods=[])
+        for split, n_batches in (("train", TPNET_AGREE_TRAIN), ("val", TPNET_AGREE_EVAL)):
+            fn, states = ctx.hm.as_transform(split, ctx.dgs[split])
+            if split == "val":
+                run["weights"] = _weights(modules)
+                run["rp_train"] = RandomProjectionState(*(x.cpu() for x in ctx.rp_state))
+                if label == "cpu":
+                    _load_weights(modules, runs["card"]["weights"])
+                    ctx.rp_state = RandomProjectionState(*(x.clone() for x in
+                                                           runs["card"]["rp_train"]))
+            step = tp_link.batch_fn(ctx, "train" if split == "train" else "eval")
+            for i in range(n_batches):
+                states, batch = fn(states, ctx.streams[split].batch_at(i))
+                run["prods"].append([(f"{k}[0]", getattr(batch, k)[0]) for k in HOOK_PRODUCTS]
+                                    + [("neg", batch.neg)])
+                if split == "train":
+                    run["losses"].append(float(step(batch)))
+                    continue
+                with _RecordedScores() as rec_scores:
+                    s, _ = step(batch)
+                run["sums"].append(float(s))
+                run["scores"].append(rec_scores.calls[-1])
+            ctx.hm.adopt_states(split, states)
+        run.update(rec=[t.cpu() for t in ctx.recency.state], rp_end=ctx.rp_state,
+                   seconds=time.perf_counter() - t0)
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    rp_train = _rp_gap("TPNet after train", g["rp_train"], c["rp_train"])
+    rp_end = _rp_gap("TPNet after val", g["rp_end"], c["rp_end"])
+    log("tpnet-agree", f"RP state card vs CPU: {rp_train:.3g} * max |P| apart after "
+                       f"{TPNET_AGREE_TRAIN} train batches, {rp_end:.3g} after {TPNET_AGREE_EVAL} "
+                       f"val batches from the card's (band {RP_TOL:g}); now_time exact [{card}]")
+    _link_agree_check("tpnet-agree", "TPNet", g, c, TPNET_AGREE_TRAIN, TPNET_AGREE_EVAL, card)
+
+
+def tpnet_np_args(seed: int, device, **kw):
+    """The TPNet node example's flags at their defaults."""
+    from tgm_tpu_torch.examples.nodeproppred import tpnet as tp_node
+
+    args = tp_node.parse_args(["--seed", str(seed), "--device", str(device)])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def tpnet_np_phase(data, seed: int, dev, card: str):
+    """The TPNet node example at its full width on the card (K = 7 in the
+    feature layout, one mixer block, time 32, embed 64, RP 3 x 64, dropout
+    0.1) through the loader: one train epoch from the initial RP state,
+    val, then test on from val's states, as the example runs its last
+    epoch; then 5 train and 3 val batches card against CPU with dropout off
+    (recency state exact, the first loss within 1e-5 and all within 5e-3,
+    NDCG on the card's weights within 1e-4, the RP state within
+    ``RP_TOL`` * max |P|)."""
+    from tgm_tpu_torch.data import DGDataLoader
+    from tgm_tpu_torch.examples.nodeproppred import tpnet as tp_node
+    from tgm_tpu_torch.nn import RandomProjectionState
+
+    args = tpnet_np_args(seed, dev)
+    ctx = tp_node.build(args, data=copy.copy(data))
+    dg = ctx.dgs[0]
+    ctx.rp_state = ctx.rp_state0
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = tp_node.run_split(ctx, args, 0, "train")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak_line(base)
+    n = losses.shape[0]
+    check_launches("TPNet nodeprop train", launches, MIXER_STEP, n)
+    losses = losses.cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"TPNet nodeprop losses not finite: {losses}")
+    log("tpnet-np", f"train: {dg.num_events} events ({dg.num_node_labels} labels) in {n} loader "
+                    f"batches, {dt:.3f} s: train_ms_per_batch={dt / n * 1e3:.3f} events_per_s="
+                    f"{dg.num_events / dt:.0f} labels_per_s={dg.num_node_labels / dt:.0f}; loss "
+                    f"first {float(losses[0]):.6f} last {float(losses[-1]):.6f} mean "
+                    f"{float(losses.mean()):.6f}; {peak}; launches={launches} per_batch="
+                    f"{ {k: v / n for k, v in launches.items()} } [{card}]")
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    vals = tp_node.run_split(ctx, args, 1, "eval")
+    tests = tp_node.run_split(ctx, args, 2, "eval")
+    torch.cuda.synchronize()
+    dt_eval = time.perf_counter() - t0
+    eval_launches = read_launches()
+    n_eval = vals.shape[0] + tests.shape[0]
+    check_launches("TPNet nodeprop val + test", eval_launches, MIXER_STEP, n_eval)
+    val, test = float(vals.mean()), float(tests.mean())
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in (val, test)):
+        raise AssertionError(f"TPNet nodeprop NDCG out of range: {val}, {test}")
+    ev = ctx.dgs[1].num_events + ctx.dgs[2].num_events
+    log("tpnet-np", f"eval: val_ndcg={val:.6f} test_ndcg={test:.6f} over {n_eval} batches, "
+                    f"eval_ms_per_batch={dt_eval / n_eval * 1e3:.3f} eval_events_per_s="
+                    f"{ev / dt_eval:.0f}; {_peak_line(base)}; val + test launches="
+                    f"{eval_launches} [{card}]")
+
+    runs = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        c = tp_node.build(tpnet_np_args(seed, device, dropout=0.0), data=copy.copy(data))
+        modules = (c.encoder, c.decoder)
+        c.rp_state = c.rp_state0
+        if label == "cpu":
+            _load_weights(modules, runs["card"]["w0"])
+            c.rp_state = RandomProjectionState(*(x.cpu() for x in runs["card"]["rp0"]))
+        run = dict(w0=_weights(modules), rp0=[x.cpu() for x in c.rp_state], losses=[], ndcg=[])
+        with c.hm.activate("all"):
+            for split, n_batches in ((0, TPNET_NP_AGREE_TRAIN), (1, TPNET_NP_AGREE_EVAL)):
+                if split == 1:
+                    run["weights"] = _weights(modules)
+                    run["rp_train"] = RandomProjectionState(*(x.cpu() for x in c.rp_state))
+                    if label == "cpu":
+                        _load_weights(modules, runs["card"]["weights"])
+                        c.rp_state = RandomProjectionState(*(x.clone() for x in
+                                                             runs["card"]["rp_train"]))
+                loader = DGDataLoader(c.dgs[split], BATCH, hook_manager=c.hm, device=device)
+                for _, batch in zip(range(n_batches), loader):
+                    if split == 0:
+                        (_, c.rp_state), loss = c.train_core((None, c.rp_state), batch)
+                        run["losses"].append(float(loss))
+                    else:
+                        c.rp_state, ndcg = c.eval_core(c.rp_state, batch)
+                        run["ndcg"].append(float(ndcg))
+        run.update(rec=[t.cpu() for t in c.recency.state], rp_end=c.rp_state)
+        runs[label] = run
+    g, c = runs["card"], runs["cpu"]
+    for i, (x, y) in enumerate(zip(g["rec"], c["rec"])):
+        _same(f"TPNet nodeprop: recency state tensor {i}", x, y)
+    rp_train = _rp_gap("TPNet nodeprop after train", g["rp_train"], c["rp_train"])
+    rp_end = _rp_gap("TPNet nodeprop after val", g["rp_end"], c["rp_end"])
+    loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+    ndcg_err = max(abs(a - b) for a, b in zip(g["ndcg"], c["ndcg"]))
+    if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and ndcg_err <= 1e-4):
+        raise AssertionError(f"TPNet nodeprop card vs CPU: losses {g['losses']} against "
+                             f"{c['losses']}, NDCG {g['ndcg']} against {c['ndcg']}")
+    log("tpnet-np", f"card vs CPU, {TPNET_NP_AGREE_TRAIN} train + {TPNET_NP_AGREE_EVAL} val "
+                    f"batches, dropout off: recency state exact, RP state {rp_train:.3g} and "
+                    f"{rp_end:.3g} * max |P| apart after train and val (band {RP_TOL:g}), "
+                    f"first-loss diff {loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}, max "
+                    f"NDCG diff {ndcg_err:.3g} on the card's weights (card losses {g['losses']}, "
+                    f"NDCG {g['ndcg']}) [{card}]")
+    return launches, eval_launches
+
+
+def tpnet_phases(data, cands, np_data, seed: int, dev, card: str):
+    """tpnet, tpnet-agree and tpnet-np; returns each path's launches under
+    its ``kernels``-line key."""
+    t0 = time.perf_counter()
+    train_launches, eval_launches = tpnet_phase(data, cands, seed, dev, card)
+    tpnet_agree_phase(data, cands, seed, dev, card)
+    np_train, np_eval = tpnet_np_phase(np_data, seed, dev, card)
+    log("tpnet", f"the TPNet phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches_tpnet_train": train_launches, "launches_tpnet_eval": eval_launches,
+            "launches_tpnet_nodeprop_train": np_train, "launches_tpnet_nodeprop_eval": np_eval}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3947,6 +4452,8 @@ def main() -> int:
     ap.add_argument("--only-hooks", action="store_true",
                     help="build, run the dyg-np, tgat-uni, pk and hooks phases and stop "
                     "(no result lines)")
+    ap.add_argument("--only-mixer", action="store_true",
+                    help="build, run the GraphMixer and TPNet phases and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -4001,6 +4508,11 @@ def main() -> int:
         np_data = build_np_stream()
         hook_layer_phases(data, train, val, test, cands, np_data, args.seed, dev, card)
         return 0
+    if args.only_mixer:
+        data, _, _, _, cands = build_stream(args.seed)
+        mixer_phases(data, cands, args.seed, dev, card)
+        tpnet_phases(data, cands, build_np_stream(), args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -4050,6 +4562,8 @@ def main() -> int:
     np_agree_phase(np_data, args.seed, dev, card)
     tgat_np_train_launches, tgat_np_eval_launches = tgat_np_phase(np_data, args.seed, dev, card)
     hook_paths = hook_layer_phases(data, train, val, test, cands, np_data, args.seed, dev, card)
+    hook_paths.update(mixer_phases(data, cands, args.seed, dev, card))
+    hook_paths.update(tpnet_phases(data, cands, np_data, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.

@@ -32,7 +32,12 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.nn.modules.aggregation", "tgm_tpu_torch.train.hook_pipeline",
              "tgm_tpu_torch.timedelta", "tgm_tpu_torch.data.loader", "tgm_tpu_torch.train.stream",
              "tgm_tpu_torch.examples.nodeproppred.tgn",
-             "tgm_tpu_torch.examples.nodeproppred.tgat"):
+             "tgm_tpu_torch.examples.nodeproppred.tgat",
+             "tgm_tpu_torch.nn.modules.mlp_mixer", "tgm_tpu_torch.nn.base",
+             "tgm_tpu_torch.nn.encoder.tpnet", "tgm_tpu_torch.examples._linkpred_common",
+             "tgm_tpu_torch.examples.linkproppred.graphmixer",
+             "tgm_tpu_torch.examples.linkproppred.tpnet",
+             "tgm_tpu_torch.examples.nodeproppred.tpnet"):
     assert name in names, names
 print("imported", len(names))
 """

@@ -9,6 +9,10 @@ class BadHookProtocolError(TGMError):
     """A registered hook does not satisfy the DGHook protocol."""
 
 
+class BadEncoderProtocolError(TGMError):
+    """A module does not satisfy the EncoderModule protocol."""
+
+
 class BadAggregatorProtocolError(TGMError):
     """An aggregator does not satisfy the Aggregator protocol."""
 

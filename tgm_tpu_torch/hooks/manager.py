@@ -3,21 +3,28 @@
 Port of ``tgm_tpu/hooks/manager.py``: keyed and shared hooks, a Kahn
 topological sort over requires/produces (with the implicit
 negatives-before-neighbour-samplers edge), ``activate``, ``reset_state``,
-``as_transform`` (the resolved pipeline as a function over the hooks' states)
-and ``adopt_states``. Requirement validation against encoder modules and
-checkpoint state collection are queued in ROADMAP.md.
+``as_transform`` (the resolved pipeline as a function over the hooks' states),
+``adopt_states`` and ``validate_requirement`` (an encoder's ``requires``
+against what a key's hooks produce, with ``difflib`` suggestions).
+Checkpoint state collection is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import difflib
 from collections import defaultdict, deque
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 from ..core.batch import DGBatch
 from ..core.graph import DGraph
-from ..exceptions import BadHookProtocolError, UnresolvableHookDependenciesError
+from ..exceptions import (
+    BadEncoderProtocolError,
+    BadHookProtocolError,
+    UnresolvableHookDependenciesError,
+)
 from .base import DGHook
+from .registry import list_hooks
 
 # Attributes always present on a batch (never hook-produced).
 CORE_ATTRIBUTE: Set[str] = {
@@ -156,6 +163,54 @@ class HookManager:
                 f"Cannot resolve hook dependencies: {unresolved} stuck in a cycle"
             )
         return ordered
+
+    def validate_requirement(self, module: Any, key: Optional[str] = None) -> None:
+        """Raise unless the hooks of ``key`` (every key by default), shared
+        ones included, produce every attribute ``module.requires`` names."""
+        from ..nn.base import EncoderModule
+
+        if not isinstance(module, EncoderModule):
+            raise BadEncoderProtocolError(
+                f"Cannot validate {type(module).__name__}: must implement "
+                "__call__(self, batch, *args, **kwargs) and have a `requires` attribute"
+            )
+        if key is not None:
+            self._ensure_valid_key(key)
+        for k in [key] if key else list(self._key_to_hooks):
+            hooks = self._shared_hooks + [
+                h for h in self._key_to_hooks[k] if h not in self._shared_hooks
+            ]
+            produced = set(CORE_ATTRIBUTE)
+            for h in hooks:
+                produced |= h.produces
+            unresolved = set(module.requires) - produced
+            if not unresolved:
+                continue
+            suggestions = [f"  - {attr!r}: {self._suggest(attr, produced, k)}"
+                           for attr in sorted(unresolved)]
+            raise UnresolvableHookDependenciesError(
+                f"Cannot resolve the following requirements {unresolved} from any "
+                f"hook registered under key {k!r}.\nSuggestions:\n" + "\n".join(suggestions)
+            )
+
+    @staticmethod
+    def _suggest(attr: str, produced: Set[str], key: str) -> str:
+        close = difflib.get_close_matches(attr, produced, n=2, cutoff=0.6)
+        if close:
+            alts = " or ".join(repr(c) for c in close)
+            return (
+                f"Do you mean {alts}? If so, update the module requirement with the "
+                f"correct name."
+            )
+        # Scan the registered hook classes for the keyword in produces or docs.
+        for cls in list_hooks():
+            doc = (cls.__doc__ or "").lower()
+            if attr in getattr(cls, "_cls_produces", set()) or attr.lower() in doc:
+                return (
+                    f"Found keyword {attr!r} in {cls.__name__!r}. If this hook produces "
+                    f"what you are looking for, register {cls.__name__!r} with key {key!r}."
+                )
+        return "Can not find any existing hooks that satisfy this requirement."
 
     def as_transform(
         self, key: str, dg: DGraph

@@ -1,3 +1,4 @@
+from .base import EncoderModule
 from .decoder.decoders import LinkPredictor, NodePredictor
 from .encoder.dygformer import (
     DyGFormer,
@@ -8,6 +9,13 @@ from .encoder.dygformer import (
     dygformer_stack_layers,
 )
 from .encoder.tgat import TGAT, MergeLayer
+from .encoder.tpnet import (
+    RandomProjectionModule,
+    RandomProjectionState,
+    TPNet,
+    rp_init_state,
+    rp_update,
+)
 from .encoder.tgn import (
     GraphAttentionEmbedding,
     GraphAttentionEmbeddingRowwise,
@@ -33,33 +41,42 @@ from .modules.aggregation import (
 )
 from .modules.attention import TemporalAttention
 from .modules.gru import TorchGRUCell
+from .modules.mlp_mixer import FeedForwardNet, MLPMixer
 from .modules.time_encoding import Time2Vec
 
 __all__ = [
     "Aggregator",
     "ConcatMerge",
     "DyGFormer",
+    "EncoderModule",
+    "FeedForwardNet",
     "FusedSelfAttention",
     "GraphAttentionEmbedding",
     "GraphAttentionEmbeddingRowwise",
     "LearnableSumMerge",
     "LinkPredictor",
+    "MLPMixer",
     "MeanEmbdPooling",
     "MergeLayer",
     "MultiHeadDotProductAttention",
     "NeighborCooccurrenceEncoder",
     "NodePredictor",
+    "RandomProjectionModule",
+    "RandomProjectionState",
     "SumEmbdPooling",
     "TGAT",
     "TGNMeanMemoryState",
     "TGNMemory",
     "TGNMemoryState",
     "TGNPackedState",
+    "TPNet",
     "TemporalAttention",
     "Time2Vec",
     "TorchGRUCell",
     "TransformerEncoder",
     "dygformer_stack_layers",
+    "rp_init_state",
+    "rp_update",
     "tgn_commit_staged",
     "tgn_init_state",
     "tgn_mean_init_state",

@@ -12,6 +12,8 @@ from .programs import (
     build_tgat_train_core,
     build_tgn_hook_cores,
     build_tgn_node_cores,
+    build_tpnet_link_cores,
+    build_tpnet_node_cores,
     tgn_eval_commit,
     tgn_train_commit,
 )
@@ -38,6 +40,8 @@ __all__ = [
     "build_tgat_train_core",
     "build_tgn_hook_cores",
     "build_tgn_node_cores",
+    "build_tpnet_link_cores",
+    "build_tpnet_node_cores",
     "hook_epoch",
     "jit_scan_epoch",
     "restore_checkpoint",

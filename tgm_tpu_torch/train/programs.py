@@ -27,6 +27,17 @@ DyGFormer example's ``train_core`` and ``eval_core``).
 * TGAT eval: TGAT embeddings of [src | dst | unique candidates], each
   candidate's row found through the seed lookup, ``LinkPredictor`` scores,
   TGB MRR.
+* TPNet train (``examples/linkproppred/tpnet.py``): the (src, dst) and
+  (src, neg) recency rows through TPNet with dropout, both calls drawing
+  the same masks, ``LinkPredictor``, masked BCE, backward, then
+  ``rp_update`` with the batch's edges, then the optimizer step.
+* TPNet eval: the (src, dst) pairs, then every (src, candidate) pair (the
+  candidate's recency rows found through the seed lookup), ``LinkPredictor``
+  scores, TGB MRR, then ``rp_update``.
+* TPNet node property prediction (``examples/nodeproppred/tpnet.py``):
+  each label node paired with itself, ``NodePredictor`` logits,
+  soft-label cross-entropy and the optimizer step, or NDCG@k; then
+  ``rp_update`` with the batch's edges.
 * TGN node property prediction (``examples/nodeproppred/tgn.py``): memory
   staged (train mode, in train and eval alike) over the batch's
   deduplicated nodes, the segment ``GraphAttentionEmbedding`` over the
@@ -56,6 +67,7 @@ from ..constants import DEFAULT_NDCG_K, PADDED_NODE_ID
 from ..eval.metrics import mrr_sum_count, ndcg_at_k
 from ..hooks.dedup import candidate_rows, local_rows, map_to_local, seed_lookup
 from ..nn.encoder.tgn import TGNMemory, tgn_commit_staged
+from ..nn.encoder.tpnet import rp_update
 
 
 def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -204,6 +216,26 @@ def tie_equal_candidates(pos: torch.Tensor, negs: torch.Tensor, z_dst: torch.Ten
     8)."""
     same = (z_cand == z_dst[:, None, :]).all(dim=-1)
     return torch.where(same, pos[:, None], negs)
+
+
+def score_seed_rows(decoder: Any, batch, z: torch.Tensor,
+                    num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TGB ``(mrr_sum, mrr_count)`` of a batch from one embedding row per hook
+    seed, [src | dst | unique candidates]: each candidate's row is found
+    through the seed lookup, positives and candidates are scored in one
+    decoder call, and a candidate whose embedding equals the positive's ties
+    with it."""
+    B = batch.edge_src.shape[0]
+    lut = seed_lookup(batch.seed_nids[0], num_nodes)
+    rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
+    z_dst, z_cand = z[B : 2 * B], z[rows_c.long()]
+    pos, negs = score_candidates(decoder, z[:B], z_dst, z_cand)
+    negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
+    return mrr_sum_count(
+        pos, negs,
+        neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
+        edge_valid=batch.edge_valid,
+    )
 
 
 def train_loss_and_grad(opt: torch.optim.Optimizer, embed: Callable[[], torch.Tensor],
@@ -530,17 +562,7 @@ def build_tgat_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
         return _tgat_embed(encoder, node_x, batch, None)
 
     def score(batch, z):
-        B = batch.edge_src.shape[0]
-        lut = seed_lookup(batch.seed_nids[0], num_nodes)
-        rows_c, found = candidate_rows(lut, batch.neg_batch_list, z.shape[0])
-        z_dst, z_cand = z[B : 2 * B], z[rows_c.long()]
-        pos, negs = score_candidates(decoder, z[:B], z_dst, z_cand)
-        negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
-        return mrr_sum_count(
-            pos, negs,
-            neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found,
-            edge_valid=batch.edge_valid,
-        )
+        return score_seed_rows(decoder, batch, z, num_nodes)
 
     @torch.no_grad()
     def eval_core(carry, batch):
@@ -549,6 +571,148 @@ def build_tgat_eval_core(encoder: Any, decoder: Any, node_x: torch.Tensor,
     eval_core.embed = torch.no_grad()(embed)
     eval_core.score = torch.no_grad()(score)
     return eval_core
+
+
+def _pair_rows(batch, a: int, b: int):
+    """The recency rows of seed sections ``a`` and ``b`` of [src | dst | neg]."""
+    B = batch.edge_src.shape[0]
+    sel = lambda x: torch.cat([x[a * B : (a + 1) * B], x[b * B : (b + 1) * B]])
+    return sel(batch.nbr_nids[0]), sel(batch.nbr_edge_time[0]), sel(batch.nbr_edge_x[0])
+
+
+def _rp_step(encoder: Any, rp_state, batch):
+    """``rp_update`` with the batch's edges (the examples' step)."""
+    return rp_update(rp_state, batch.edge_src, batch.edge_dst, batch.edge_time,
+                     batch.edge_valid, encoder.random_projections.time_decay_weight)
+
+
+def build_tpnet_link_cores(encoder: Any, decoder: Any, opt: Optional[torch.optim.Optimizer],
+                           node_x: torch.Tensor, num_nodes: int) -> Tuple[Callable, Callable]:
+    """Return the TPNet ``(train_core, eval_core)`` of
+    ``examples/linkproppred/tpnet.py``; ``encoder`` is a ``TPNet`` with
+    random projections.
+
+    * ``train_core((generator, rp_state), batch) -> ((generator, rp_state),
+      loss)``: the (src, dst) and (src, neg) encoder calls with dropout from
+      ``generator`` (``None``: no dropout), both drawing the same masks (the
+      generator's state is restored before the second, as the JAX example
+      passes one key to both), the two decoder calls, masked BCE, backward;
+      then ``rp_update`` with the batch's edges and the optimizer step.
+    * ``eval_core(rp_state, batch) -> (rp_state, (mrr_sum, mrr_count))``: the
+      (src, dst) call, then one call over the B * Q (src, candidate) pairs,
+      each candidate's recency rows found through the seed lookup; TGB MRR,
+      then ``rp_update``. No dropout.
+
+    Batches carry the negative hooks' products and the one-hop recency
+    hook's, seeds laid out [src | dst | neg]. ``train_core.loss_and_grad(
+    batch, generator, rp_state) -> loss`` is the train core's first stage.
+    """
+
+    def loss_and_grad(batch, generator, rp_state):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        kw = dict(deterministic=generator is None, generator=generator)
+        src, t = batch.edge_src, batch.edge_time
+        zero_every_grad(opt)
+        with torch.enable_grad():
+            state = None if generator is None else generator.get_state()
+            zs, zd = encoder(node_x, src, batch.edge_dst, t, *_pair_rows(batch, 0, 1), rp_state,
+                             **kw)
+            if state is not None:
+                generator.set_state(state)
+            zs2, zn = encoder(node_x, src, batch.neg, t, *_pair_rows(batch, 0, 2), rp_state, **kw)
+            pos, neg = decoder(zs, zd), decoder(zs2, zn)
+            loss = bce_with_logits(pos, torch.ones_like(pos), batch.edge_valid) + bce_with_logits(
+                neg, torch.zeros_like(neg), batch.edge_valid
+            )
+            loss.backward()
+        return loss.detach()
+
+    def train_core(carry, batch):
+        generator, rp_state = carry
+        loss = loss_and_grad(batch, generator, rp_state)
+        rp_state = _rp_step(encoder, rp_state, batch)
+        opt.step()
+        return (generator, rp_state), loss
+
+    @torch.no_grad()
+    def eval_core(rp_state, batch):
+        B = batch.edge_src.shape[0]
+        Q = batch.neg_batch_list.shape[1]
+        src, t = batch.edge_src, batch.edge_time
+        zs, zd = encoder(node_x, src, batch.edge_dst, t, *_pair_rows(batch, 0, 1), rp_state)
+        pos = decoder(zs, zd)
+        negs = batch.neg_batch_list.reshape(-1)
+        nbr, nt, nx = batch.nbr_nids[0], batch.nbr_edge_time[0], batch.nbr_edge_x[0]
+        lut = seed_lookup(batch.seed_nids[0], num_nodes)
+        rows_c, found = candidate_rows(lut, negs, nbr.shape[0])
+        rows = torch.cat([torch.arange(B, device=nbr.device).repeat_interleave(Q),
+                          rows_c.long()])
+        zs2, zn = encoder(node_x, src.repeat_interleave(Q), negs, t.repeat_interleave(Q),
+                          nbr[rows], nt[rows], nx[rows], rp_state)
+        neg = decoder(zs2, zn).reshape(B, Q)
+        out = mrr_sum_count(
+            pos, neg,
+            neg_valid=(batch.neg_batch_list != PADDED_NODE_ID) & found.reshape(B, Q),
+            edge_valid=batch.edge_valid,
+        )
+        return _rp_step(encoder, rp_state, batch), out
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core, eval_core
+
+
+def build_tpnet_node_cores(encoder: Any, decoder: Any, opt: Optional[torch.optim.Optimizer],
+                           node_x: torch.Tensor,
+                           k: int = DEFAULT_NDCG_K) -> Tuple[Callable, Callable]:
+    """Return the TPNet node-property ``(train_core, eval_core)`` of
+    ``examples/nodeproppred/tpnet.py``.
+
+    Each label node is paired with itself: both sides see its recency
+    neighbours, and the head reads the source side's embedding.
+
+    * ``train_core((generator, rp_state), batch) -> ((generator, rp_state),
+      loss)``: the soft-label cross-entropy over ``node_y_valid`` with
+      dropout from ``generator`` (``None``: no dropout), backward; then
+      ``rp_update`` with the batch's edges and the optimizer step.
+    * ``eval_core(rp_state, batch) -> (rp_state, ndcg)``: NDCG@k of the
+      valid label rows, then ``rp_update``. No dropout.
+
+    The caller skips a batch that carries no label fields, ``rp_update``
+    included, as the JAX example does; the loader pads a batch without
+    labels instead, so such a batch still steps (ROADMAP fault 19).
+    ``train_core.loss_and_grad(batch, generator, rp_state) -> loss`` is the
+    train core's first stage.
+    """
+
+    def logits(batch, generator, rp_state):
+        nids, t = batch.node_y_nids, batch.node_y_time
+        two = lambda x: torch.cat([x, x])
+        zs, _ = encoder(node_x, nids, nids, t, two(batch.nbr_nids[0]),
+                        two(batch.nbr_edge_time[0]), two(batch.nbr_edge_x[0]), rp_state,
+                        deterministic=generator is None, generator=generator)
+        return decoder(zs)
+
+    def loss_and_grad(batch, generator, rp_state):
+        if opt is None:
+            raise ValueError("train_core needs an optimizer: build the cores with opt")
+        return _label_loss_and_grad(opt, lambda: logits(batch, generator, rp_state), batch)
+
+    def train_core(carry, batch):
+        generator, rp_state = carry
+        loss = loss_and_grad(batch, generator, rp_state)
+        rp_state = _rp_step(encoder, rp_state, batch)
+        opt.step()
+        return (generator, rp_state), loss
+
+    @torch.no_grad()
+    def eval_core(rp_state, batch):
+        ndcg = ndcg_at_k(logits(batch, None, rp_state), batch.node_y, k,
+                         row_valid=batch.node_y_valid)
+        return _rp_step(encoder, rp_state, batch), ndcg
+
+    train_core.loss_and_grad = loss_and_grad
+    return train_core, eval_core
 
 
 def soft_label_ce(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -761,8 +925,11 @@ __all__ = [
     "build_tgat_train_core",
     "build_tgn_hook_cores",
     "build_tgn_node_cores",
+    "build_tpnet_link_cores",
+    "build_tpnet_node_cores",
     "has_node_labels",
     "score_candidates",
+    "score_seed_rows",
     "soft_label_ce",
     "tgn_embed",
     "tgn_eval_commit",

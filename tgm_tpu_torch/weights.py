@@ -12,7 +12,14 @@ attention layout) and copies it into a ``DyGFormer`` and the head. ``load_tgat_p
 it and copies it into a ``TGAT`` and a ``LinkPredictor``. The TGN, TGAT and
 DyGFormer loaders also take a ``NodePredictor`` head for ``"dec"`` (its tree
 holds ``_MLP_0`` where the link head's holds ``mlp``).
-``load_tgn_memory_params`` takes the ``"mem"`` subtree alone.
+``load_graphmixer_params`` takes ``{"enc", "dec"}`` as the JAX GraphMixer
+example's ``GraphMixerEncoder`` and ``LinkPredictor`` ``init`` build it.
+``load_tpnet_params`` takes ``{"enc", "dec"}`` as the JAX ``TPNet`` (with or
+without its ``RandomProjectionModule``) and ``LinkPredictor`` or
+``NodePredictor`` ``init`` build it; ``rp_state_from_numpy`` turns a JAX
+``RandomProjectionState`` (as arrays) into the port's.
+``load_tgn_memory_params`` takes the ``"mem"`` subtree alone,
+``load_mlp_mixer_params`` a flax ``MLPMixer``'s variables.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
 variables and copies them into the port's. The mappings:
 
@@ -31,6 +38,15 @@ variables and copies them into the port's. The mappings:
 * ``FusedSelfAttention_0`` (``fused_attn=True``) ``qkv`` (D, 3D) and
   ``out`` (D, D) -> ``Linear.weight`` = kernel^T;
 * ``LearnableSumMerge``'s ``Dense_0`` / ``Dense_1`` -> its ``src`` / ``dst``;
+* an ``MLPMixer``'s ``LayerNorm_0`` / ``FeedForwardNet_0`` / ``LayerNorm_1``
+  / ``FeedForwardNet_1`` -> ``token_norm`` / ``token_ffn`` / ``channel_norm``
+  / ``channel_ffn``, a ``FeedForwardNet``'s ``Dense_0`` / ``Dense_1`` -> its
+  ``fc1`` / ``fc2``;
+* GraphMixer's ``Time2Vec_0`` / ``Dense_0`` / ``MLPMixer_i`` / ``Dense_1`` ->
+  ``time_encoder`` / ``link_proj`` / ``mixers[i]`` / ``output_layer``;
+* TPNet's ``time_encoder`` / ``proj_hidden`` / ``proj_out`` /
+  ``mlp_mixers_i`` -> the modules of those names (``mlp_mixers[i]``), and
+  ``random_projections``' ``Dense_0`` / ``Dense_1`` -> its ``fc1`` / ``fc2``;
 * TGAT's ``attn_i`` ``W_Q`` / ``W_KV`` (no bias) / ``W_O`` / ``layer_norm``
   and ``merge_layers_i`` ``Dense_0`` / ``Dense_1`` -> the ``TemporalAttention``
   Linear layers and LayerNorm and the ``MergeLayer``'s ``fc1`` / ``fc2``.
@@ -204,3 +220,68 @@ def load_learnable_sum_merge(variables: Mapping[str, Any], merge: nn.Module) -> 
     p = variables["params"]
     _dense(merge.src, p["Dense_0"])
     _dense(merge.dst, p["Dense_1"])
+
+
+def _mlp_mixer(mixer: nn.Module, p: Mapping[str, Any]) -> None:
+    """An ``MLPMixer``'s parameters (the flax subtree under ``params``)."""
+    _layer_norm(mixer.token_norm, p["LayerNorm_0"])
+    _layer_norm(mixer.channel_norm, p["LayerNorm_1"])
+    for ffn, name in ((mixer.token_ffn, "FeedForwardNet_0"),
+                      (mixer.channel_ffn, "FeedForwardNet_1")):
+        _dense(ffn.fc1, p[name]["Dense_0"])
+        _dense(ffn.fc2, p[name]["Dense_1"])
+
+
+@torch.no_grad()
+def load_mlp_mixer_params(variables: Mapping[str, Any], mixer: nn.Module) -> None:
+    """Copy a flax ``MLPMixer``'s ``{"params": {...}}`` into the port's, in place."""
+    _mlp_mixer(mixer, variables["params"])
+
+
+def _mixers(mixers: nn.ModuleList, enc: Mapping[str, Any], prefix: str) -> None:
+    n_tree = sum(1 for k in enc if k.startswith(prefix))
+    if n_tree != len(mixers):
+        raise ValueError(f"encoder has {len(mixers)} mixer blocks, the tree {n_tree}")
+    for i, mixer in enumerate(mixers):
+        _mlp_mixer(mixer, enc[f"{prefix}{i}"])
+
+
+@torch.no_grad()
+def load_graphmixer_params(params: Mapping[str, Any], encoder: nn.Module,
+                           decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a ``GraphMixerEncoder`` and a
+    LinkPredictor, in place."""
+    enc = params["enc"]["params"]
+    _time2vec(encoder.time_encoder, enc["Time2Vec_0"])
+    _dense(encoder.link_proj, enc["Dense_0"])
+    _dense(encoder.output_layer, enc["Dense_1"])
+    _mixers(encoder.mixers, enc, "MLPMixer_")
+    _head(decoder, params["dec"])
+
+
+@torch.no_grad()
+def load_tpnet_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a TPNet and a LinkPredictor
+    or NodePredictor, in place."""
+    enc = params["enc"]["params"]
+    _time2vec(encoder.time_encoder, enc["time_encoder"])
+    _dense(encoder.proj_hidden, enc["proj_hidden"])
+    _dense(encoder.proj_out, enc["proj_out"])
+    _mixers(encoder.mlp_mixers, enc, "mlp_mixers_")
+    rp = encoder.random_projections
+    if (rp is None) != ("random_projections" not in enc):
+        raise ValueError("the encoder and the tree disagree on random projections")
+    if rp is not None:
+        _dense(rp.fc1, enc["random_projections"]["Dense_0"])
+        _dense(rp.fc2, enc["random_projections"]["Dense_1"])
+    _head(decoder, params["dec"])
+
+
+def rp_state_from_numpy(projections: Any, now_time: Any, device: Any = "cpu"):
+    """A JAX ``RandomProjectionState``'s two arrays as the port's state on
+    ``device``: its layer 0 is a jax.random draw the port cannot repeat."""
+    from .nn.encoder.tpnet import RandomProjectionState
+
+    return RandomProjectionState(
+        torch.tensor(np.asarray(projections, dtype=np.float32), device=device),
+        torch.tensor(np.asarray(now_time, dtype=np.float32), device=device))
