@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
-        [--only-mixer]
+        [--only-mixer] [--only-ctan-tncn]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -13,8 +13,8 @@ checkpointed serving flow; the segment and packed-state variants), TGAT
 through the fused ``TGATPipeline`` (train, eval), TGN, TGAT and DyGFormer
 node property prediction (train, NDCG@10 eval), TGAT with uniform
 neighbour sampling, TGN with the packed recency layout, every other hook,
-GraphMixer and TPNet link prediction and TPNet node prediction, and its
-hand-written CUDA kernels, in phases:
+GraphMixer and TPNet link prediction and TPNet node prediction, CTAN and
+TNCN link prediction, and its hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -29,7 +29,8 @@ hand-written CUDA kernels, in phases:
               (and at E2 = 8,192 events), the TGN store commit (E = 200 and
               8,192 events), the single-buffer K2, K3, K4 on the feature
               layout's state in place (B = K = 20 at S = 600 and 4,400; B =
-              K = 10 at S = 600, the pipeline's feature layout; S = 16 with B
+              K = 10 at S = 600, the pipeline's feature layout, and at S =
+              4,400, the CTAN and TNCN eval seeds; S = 16 with B
               = K = 10 and 7, the node paths' label seeds; each also against
               the parent tree's route, four row gathers and K4 on the
               gathered rows, timed from one CUDA graph; exact on random rows
@@ -265,7 +266,26 @@ hand-written CUDA kernels, in phases:
               against CPU (recency exact, RP within 1e-5 * max |P|, losses
               within 1e-5 / 5e-3, NDCG on the card's weights within 1e-4).
               ``--only-mixer`` runs phases 29-33 alone.
-34. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+34. ctan:     the CTAN example at its full width (memory and embed 100,
+              time 100, static features 8, K = 10 in the feature layout,
+              the dedup hook, Adam at 1e-4): one train epoch, val, test; the
+              readings of mixer, K4 once and the push twice a batch and no
+              other kernel; the forward+backward / memory write / optimizer
+              split.
+35. ctan-agree: 5 train and 3 val batches card against CPU with mixer-agree's
+              bands, the dedup products exact, and the memory after train
+              and after val: ``last_update`` exact, embeddings within 1e-4 *
+              max.
+36. tncn:     the TNCN example at its full width (TGN memory 100, the segment
+              encoder, NCN at k = 2, K = 10, dropout 0.1): one train epoch,
+              ``flush_all``, val, test; the readings of mixer, K4 once, the
+              push twice and the store commit once a batch; the
+              forward+backward / commit / optimizer split.
+37. tncn-agree: as ctan-agree at k = 2 (the memory's integer fields exact,
+              its floats within 1e-4, as seg-agree), then 3 train and 1 val
+              batch each for k = 4 and k = 8 with time decay.
+              ``--only-ctan-tncn`` runs phases 34-37 alone.
+38. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -273,7 +293,7 @@ hand-written CUDA kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-35. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+39. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -730,7 +750,8 @@ def k4_phase(rng, dev, card: str):
     counts, B = K = 20, D = 172, the eval entry (the DyGFormer serving
     path) reported and the train case with the prefix ``dygformer_train``;
     then at the TGN pipeline's feature layout (S = 600, B = K = 10), prefix
-    ``tgn_feature``; then at the node-property path's label seeds (S = 16,
+    ``tgn_feature``; at the CTAN and TNCN eval seeds (S = 4,400, B = K =
+    10), prefix ``ctan_tncn_eval``; then at the node-property path's label seeds (S = 16,
     the plan's padded label count at 200 events a batch, B = K = 10),
     prefix ``nodeprop``, and at the DyGFormer node example's (S = 16, B = K
     = 7), prefix ``dygformer_nodeprop``; each with its bound, its plain
@@ -740,6 +761,8 @@ def k4_phase(rng, dev, card: str):
     entry = k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, DYG_NBRS, dev, card)
     cases = {"dygformer_train": train,
              "tgn_feature": k4_case(rng, 600, NUM_NBRS, dev, card),
+             "ctan_tncn_eval": k4_case(rng, 2 * BATCH + BATCH * NUM_CANDIDATES, NUM_NBRS, dev,
+                                       card),
              "nodeprop": k4_case(rng, NP_LABEL_SEEDS, NUM_NBRS, dev, card),
              "dygformer_nodeprop": k4_case(rng, NP_LABEL_SEEDS, DYG_NP_NBRS, dev, card)}
     for prefix, case in cases.items():
@@ -2863,21 +2886,26 @@ class _RecordedScores:
     """While active, record the (pos, negs, neg_valid, edge_valid) that each
     eval core hands ``mrr_sum_count``, moved to the CPU, in ``self.calls``."""
 
-    def __init__(self):
+    def __init__(self, *modules):
+        """``modules``: those whose ``mrr_sum_count`` the cores call
+        (``train.programs`` by default)."""
         from tgm_tpu_torch.train import programs
 
-        self.programs, self.plain, self.calls = programs, programs.mrr_sum_count, []
+        self.modules = modules or (programs,)
+        self.plain, self.calls = programs.mrr_sum_count, []
 
     def _record(self, pos, negs, neg_valid=None, edge_valid=None):
         self.calls.append(tuple(x.cpu() for x in (pos, negs, neg_valid, edge_valid)))
         return self.plain(pos, negs, neg_valid=neg_valid, edge_valid=edge_valid)
 
     def __enter__(self):
-        self.programs.mrr_sum_count = self._record
+        for m in self.modules:
+            m.mrr_sum_count = self._record
         return self
 
     def __exit__(self, *exc):
-        self.programs.mrr_sum_count = self.plain
+        for m in self.modules:
+            m.mrr_sum_count = self.plain
 
 
 def _score_gap(g, c, rel_tol: float):
@@ -3026,13 +3054,15 @@ def seg_agree_phase(data, train, val, cands, seed: int, dev, card: str):
                      f"[{card}]")
 
 
-def _state_gap(path: str, got, want) -> float:
-    """Integer fields exact; returns the largest float difference."""
+def _state_gap(path: str, got, want, rel: bool = False) -> float:
+    """Integer fields exact; returns the largest float difference, over the
+    field's max |got| where ``rel``."""
     worst = 0.0
     for name, x, y in zip(type(want)._fields, got, want):
         x, y = x.cpu(), y.cpu()
         if x.is_floating_point():
-            worst = max(worst, float((x - y).abs().max()))
+            d = float((x - y).abs().max()) if x.numel() else 0.0
+            worst = max(worst, d / max(float(x.abs().max()), 1e-30) if rel else d)
         elif not torch.equal(x, y):
             raise AssertionError(f"{path}: {name} differs")
     return worst
@@ -4428,6 +4458,170 @@ def tpnet_phases(data, cands, np_data, seed: int, dev, card: str):
             "launches_tpnet_nodeprop_train": np_train, "launches_tpnet_nodeprop_eval": np_eval}
 
 
+# ---------------------------------------------------------------------- #
+# CTAN and TNCN: link prediction with a memory
+# ---------------------------------------------------------------------- #
+CTAN_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES}  # one hop, K = 10
+TNCN_STEP = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+CT_AGREE_TRAIN, CT_AGREE_EVAL = 5, 3
+# One batch card against CPU per TNCN variant, after train batches whose
+# recency rows fill the adjacency.
+TNCN_VARIANTS = (["--ncn-k", "4"], ["--ncn-k", "8", "--cn-time-decay"])
+TNCN_VARIANT_TRAIN, TNCN_VARIANT_EVAL = 3, 1
+
+
+def _example_args(ex, seed: int, device, argv=(), **kw):
+    """An example's flags at their defaults (``argv`` added), ``kw`` set after."""
+    args = ex.parse_args(["--seed", str(seed), "--device", str(device), *argv])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def ctan_phase(data, cands, seed: int, dev, card: str):
+    """The CTAN example at its full width (memory and embeddings 100, time
+    100, static node features 8, K = 10 in the feature layout, the dedup
+    hook, one antisymmetric step, Adam at 1e-4): one train epoch, val, test
+    (no hook reset between, as ``run_epochs`` runs one epoch); the readings
+    of mixer, K4 once and the push twice a batch and no other kernel; then
+    the forward+backward / memory write / optimizer split."""
+    from tgm_tpu_torch.examples.linkproppred import ctan
+    from tgm_tpu_torch.nn import ctan_memory_update
+
+    ctx = ctan.build(_example_args(ctan, seed, dev), data=copy.copy(data),
+                     cands=(cands["val"], cands["test"]))
+    out = _link_epoch_phase("ctan", "CTAN", ctx, ctan, CTAN_STEP, card, replay=False)
+    kept = {}
+    _train_split("ctan", ctx, {
+        "forward_backward": lambda b: kept.update(z=ctx.train_core.loss_and_grad(ctx.mem, b)[1]),
+        "memory_write": lambda b: ctan_memory_update(ctx.mem, b.edge_src, b.edge_dst,
+                                                     b.edge_time, *kept["z"], b.edge_valid),
+        "optimizer": lambda b: ctx.opt.step()}, card)
+    return out
+
+
+def tncn_phase(data, cands, seed: int, dev, card: str):
+    """The TNCN example at its full width (TGN memory 100, the segment
+    encoder, NCN at k = 2, K = 10 in the feature layout, the dedup hook,
+    dropout 0.1, Adam at 1e-4): one train epoch, ``flush_all``, val, test;
+    the readings of mixer, K4 once, the push twice and the store commit
+    once a batch and no other kernel; then the forward+backward / commit /
+    optimizer split."""
+    from tgm_tpu_torch.examples.linkproppred import tncn
+
+    ctx = tncn.build(_example_args(tncn, seed, dev), data=copy.copy(data),
+                     cands=(cands["val"], cands["test"]))
+    out = _link_epoch_phase("tncn", "TNCN", ctx, tncn, TNCN_STEP, card, replay=False,
+                            hooks=tncn.hooks(ctx))
+    _train_split("tncn", ctx, {
+        "forward_backward": lambda b: ctx.train_core.loss_and_grad(ctx.mem, b, ctx.generator),
+        "commit": lambda b: ctx.train_core.commit(ctx.mem, b),
+        "optimizer": lambda b: ctx.opt.step()}, card)
+    return out
+
+
+def _memory_agree(phase: str, label: str, ex, argv, data, cands, seed: int, dev, card: str,
+                  n_train: int, n_eval: int, rel_mem: bool):
+    """``n_train`` train then ``n_eval`` val batches of a link example with a
+    memory (``ctx.mem``) on the card and on the CPU from one set of weights,
+    no dropout, the card's draws fed to the CPU; val on the card's trained
+    weights and memory on both (fault 10). Held as ``_link_agree_check``
+    says, the dedup products exact, and the memory (integer fields exact,
+    floats within 1e-4, of the card's max |x| where ``rel_mem``) after
+    train and after val; logs the card's peak memory and its rise over the
+    run. Returns the memory gaps."""
+    from tgm_tpu_torch.examples.linkproppred import tncn
+    from tgm_tpu_torch.train import programs
+
+    draws, runs = {"neg": [], "neg_time": []}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        base = _reset_peak()
+        ctx = ex.build(_example_args(ex, seed, device, argv, dropout=0.0), data=copy.copy(data),
+                       cands=(cands["val"], cands["test"]))
+        modules = [m for m in (getattr(ctx, "memory", None), ctx.encoder, ctx.decoder)
+                   if m is not None]
+        if where == "cpu":
+            _load_weights(modules, runs["card"]["w0"])
+        _record_draws(where, ctx.setup.neg_hooks, draws)
+        run = dict(w0=_weights(modules), losses=[], sums=[], scores=[], prods=[])
+        train_fn, eval_fn = ex.batch_fn(ctx, "train"), ex.batch_fn(ctx, "eval")
+        for split, n_batches in (("train", n_train), ("val", n_eval)):
+            fn, states = ctx.hm.as_transform(split, ctx.dgs[split])
+            if split == "val":
+                ex.hooks(ctx).get("on_train_end", lambda: None)()
+                run["weights"] = _weights(modules)
+                run["mem"] = [x.cpu().clone() for x in ctx.mem]
+                if where == "cpu":
+                    _load_weights(modules, runs["card"]["weights"])
+                    ctx.mem = type(ctx.mem)(*(x.clone() for x in runs["card"]["mem"]))
+            for i in range(n_batches):
+                states, batch = fn(states, ctx.streams[split].batch_at(i))
+                run["prods"].append([(f"{k}[0]", getattr(batch, k)[0]) for k in HOOK_PRODUCTS]
+                                    + [(k, getattr(batch, k)) for k in
+                                       ("neg", "unique_nids", "num_unique", "global_to_local")])
+                if split == "train":
+                    run["losses"].append(float(train_fn(batch)))
+                    continue
+                with _RecordedScores(programs, tncn) as rec_scores:
+                    s, _ = eval_fn(batch)
+                run["sums"].append(float(s))
+                run["scores"].append(rec_scores.calls[-1])
+            ctx.hm.adopt_states(split, states)
+        run.update(rec=[t.cpu() for t in ctx.recency.state], end_mem=[x.cpu() for x in ctx.mem],
+                   seconds=time.perf_counter() - t0, peak=_peak_line(base))
+        runs[where] = run
+    g, c = runs["card"], runs["cpu"]
+    _link_agree_check(phase, label, g, c, n_train, n_eval, card)
+    mem_type = type(ctx.mem)
+    gaps = [_state_gap(f"{label} memory after {when}", mem_type(*g[key]), mem_type(*c[key]),
+                       rel_mem)
+            for when, key in (("train", "mem"), ("val", "end_mem"))]
+    unit = "* max |x|" if rel_mem else "absolute"
+    if max(gaps) > 1e-4:
+        raise AssertionError(f"{label} card vs CPU memory {gaps} ({unit}) past 1e-4")
+    log(phase, f"{label}: memory integer fields exact, floats {gaps[0]:.3g} apart after "
+               f"{n_train} train batches and {gaps[1]:.3g} after {n_eval} val batches ({unit}, "
+               f"band 1e-4); the card's {g['peak']} (the build included) [{card}]")
+    return gaps
+
+
+def ctan_agree_phase(data, cands, seed: int, dev, card: str):
+    """CTAN card against CPU: 5 train and 3 val batches (``_memory_agree``,
+    the memory within 1e-4 * max and ``last_update`` exact)."""
+    from tgm_tpu_torch.examples.linkproppred import ctan
+
+    _memory_agree("ctan-agree", "CTAN", ctan, (), data, cands, seed, dev, card,
+                  CT_AGREE_TRAIN, CT_AGREE_EVAL, rel_mem=True)
+
+
+def tncn_agree_phase(data, cands, seed: int, dev, card: str):
+    """TNCN card against CPU: 5 train and 3 val batches at k = 2
+    (``_memory_agree``, the memory's integer fields exact and its floats
+    within 1e-4, as seg-agree holds them); then for k = 4 and for k = 8
+    with time decay, 3 train batches and one val batch."""
+    from tgm_tpu_torch.examples.linkproppred import tncn
+
+    _memory_agree("tncn-agree", "TNCN k=2", tncn, (), data, cands, seed, dev, card,
+                  CT_AGREE_TRAIN, CT_AGREE_EVAL, rel_mem=False)
+    for argv in TNCN_VARIANTS:
+        _memory_agree("tncn-agree", f"TNCN {' '.join(argv)}", tncn, argv, data, cands, seed,
+                      dev, card, TNCN_VARIANT_TRAIN, TNCN_VARIANT_EVAL, rel_mem=False)
+
+
+def ctan_tncn_phases(data, cands, seed: int, dev, card: str):
+    """ctan, ctan-agree, tncn and tncn-agree; returns each path's launches
+    under its ``kernels``-line key."""
+    t0 = time.perf_counter()
+    ctan_train, ctan_eval = ctan_phase(data, cands, seed, dev, card)
+    ctan_agree_phase(data, cands, seed, dev, card)
+    tncn_train, tncn_eval = tncn_phase(data, cands, seed, dev, card)
+    tncn_agree_phase(data, cands, seed, dev, card)
+    log("tncn", f"the CTAN and TNCN phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches_ctan_train": ctan_train, "launches_ctan_eval": ctan_eval,
+            "launches_tncn_train": tncn_train, "launches_tncn_eval": tncn_eval}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4454,6 +4648,8 @@ def main() -> int:
                     "(no result lines)")
     ap.add_argument("--only-mixer", action="store_true",
                     help="build, run the GraphMixer and TPNet phases and stop (no result lines)")
+    ap.add_argument("--only-ctan-tncn", action="store_true",
+                    help="build, run the CTAN and TNCN phases and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -4513,6 +4709,10 @@ def main() -> int:
         mixer_phases(data, cands, args.seed, dev, card)
         tpnet_phases(data, cands, build_np_stream(), args.seed, dev, card)
         return 0
+    if args.only_ctan_tncn:
+        data, _, _, _, cands = build_stream(args.seed)
+        ctan_tncn_phases(data, cands, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -4564,6 +4764,7 @@ def main() -> int:
     hook_paths = hook_layer_phases(data, train, val, test, cands, np_data, args.seed, dev, card)
     hook_paths.update(mixer_phases(data, cands, args.seed, dev, card))
     hook_paths.update(tpnet_phases(data, cands, np_data, args.seed, dev, card))
+    hook_paths.update(ctan_tncn_phases(data, cands, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
@@ -4604,8 +4805,10 @@ def main() -> int:
     # TGN node example's train epoch and its val + test eval, the TGAT
     # node example's train epoch and its val eval, the DyGFormer node
     # example's train epoch and its val + test eval, TGAT's uniform-sampling
-    # train epoch and its val + test eval, and the packed recency layout's
-    # hook-route train epoch and val + test eval and its pipeline's.
+    # train epoch and its val + test eval, the packed recency layout's
+    # hook-route train epoch and val + test eval and its pipeline's, and the
+    # GraphMixer, TPNet, CTAN and TNCN examples' train epochs and val + test
+    # evals.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"],

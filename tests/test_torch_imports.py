@@ -37,7 +37,10 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.nn.encoder.tpnet", "tgm_tpu_torch.examples._linkpred_common",
              "tgm_tpu_torch.examples.linkproppred.graphmixer",
              "tgm_tpu_torch.examples.linkproppred.tpnet",
-             "tgm_tpu_torch.examples.nodeproppred.tpnet"):
+             "tgm_tpu_torch.examples.nodeproppred.tpnet",
+             "tgm_tpu_torch.nn.encoder.ctan", "tgm_tpu_torch.nn.decoder.ncnpred",
+             "tgm_tpu_torch.examples.linkproppred.ctan",
+             "tgm_tpu_torch.examples.linkproppred.tncn"):
     assert name in names, names
 print("imported", len(names))
 """

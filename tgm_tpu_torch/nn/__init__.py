@@ -1,5 +1,7 @@
 from .base import EncoderModule
 from .decoder.decoders import LinkPredictor, NodePredictor
+from .decoder.ncnpred import NCNPredictor
+from .encoder.ctan import CTAN, CTANMemoryState, ctan_memory_init, ctan_memory_update
 from .encoder.dygformer import (
     DyGFormer,
     FusedSelfAttention,
@@ -46,6 +48,8 @@ from .modules.time_encoding import Time2Vec
 
 __all__ = [
     "Aggregator",
+    "CTAN",
+    "CTANMemoryState",
     "ConcatMerge",
     "DyGFormer",
     "EncoderModule",
@@ -59,6 +63,7 @@ __all__ = [
     "MeanEmbdPooling",
     "MergeLayer",
     "MultiHeadDotProductAttention",
+    "NCNPredictor",
     "NeighborCooccurrenceEncoder",
     "NodePredictor",
     "RandomProjectionModule",
@@ -74,6 +79,8 @@ __all__ = [
     "Time2Vec",
     "TorchGRUCell",
     "TransformerEncoder",
+    "ctan_memory_init",
+    "ctan_memory_update",
     "dygformer_stack_layers",
     "rp_init_state",
     "rp_update",

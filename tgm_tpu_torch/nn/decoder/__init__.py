@@ -1,1 +1,3 @@
+from .ncnpred import NCNPredictor
 
+__all__ = ["NCNPredictor"]

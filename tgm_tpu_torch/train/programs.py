@@ -238,6 +238,23 @@ def score_seed_rows(decoder: Any, batch, z: torch.Tensor,
     )
 
 
+def score_dedup_rows(decoder: Any, batch, z: torch.Tensor):
+    """TGB ``(mrr_sum, mrr_count)`` of a batch from one embedding row per
+    unique node of the dedup hook (``z`` (U, D)), scored as
+    ``score_candidates`` and ``tie_equal_candidates`` score them; returns it
+    with the (B, D) src and dst rows. An id the dedup table lacks reads row
+    U - 1, as a JAX gather wraps -1."""
+    B, Q = batch.neg_batch_list.shape
+    rows = lambda ids: z[local_rows(batch.global_to_local, ids, z.shape[0])]
+    z_src, z_dst = rows(batch.edge_src), rows(batch.edge_dst)
+    z_cand = rows(batch.neg_batch_list.reshape(-1)).reshape(B, Q, -1)
+    pos, negs = score_candidates(decoder, z_src, z_dst, z_cand)
+    negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
+    sums = mrr_sum_count(pos, negs, neg_valid=batch.neg_batch_list != PADDED_NODE_ID,
+                         edge_valid=batch.edge_valid)
+    return sums, (z_src, z_dst)
+
+
 def train_loss_and_grad(opt: torch.optim.Optimizer, embed: Callable[[], torch.Tensor],
                         decoder: Any, edge_valid: torch.Tensor) -> torch.Tensor:
     """Masked BCE of one train batch and its backward; returns the detached loss.
@@ -323,15 +340,7 @@ def build_tgn_hook_cores(
 
         @torch.no_grad()
         def eval_core(mem_state, batch):
-            B, Q = batch.neg_batch_list.shape
-            z = embed(mem_state, batch, False)
-            rows = lambda ids: z[local_rows(batch.global_to_local, ids, z.shape[0])]
-            z_dst, z_cand = rows(batch.edge_dst), rows(batch.neg_batch_list.reshape(-1))
-            z_cand = z_cand.reshape(B, Q, -1)
-            pos, negs = score_candidates(decoder, rows(batch.edge_src), z_dst, z_cand)
-            negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
-            s, c = mrr_sum_count(pos, negs, neg_valid=batch.neg_batch_list != PADDED_NODE_ID,
-                                 edge_valid=batch.edge_valid)
+            (s, c), _ = score_dedup_rows(decoder, batch, embed(mem_state, batch, False))
             return tgn_eval_commit(memory, mem_state, batch, num_nodes), (s, c)
     else:
         def hook_products(batch):

@@ -18,6 +18,10 @@ example's ``GraphMixerEncoder`` and ``LinkPredictor`` ``init`` build it.
 without its ``RandomProjectionModule``) and ``LinkPredictor`` or
 ``NodePredictor`` ``init`` build it; ``rp_state_from_numpy`` turns a JAX
 ``RandomProjectionState`` (as arrays) into the port's.
+``load_ctan_params`` takes ``{"enc", "dec"}`` as the JAX CTAN example's
+``CTAN`` and ``LinkPredictor`` ``init`` build it; ``load_tncn_params``
+takes ``{"mem", "enc", "dec"}`` as the JAX TNCN example builds it (the
+TGN memory and segment encoder, and an ``NCNPredictor``).
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone,
 ``load_mlp_mixer_params`` a flax ``MLPMixer``'s variables.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
@@ -47,6 +51,12 @@ variables and copies them into the port's. The mappings:
 * TPNet's ``time_encoder`` / ``proj_hidden`` / ``proj_out`` /
   ``mlp_mixers_i`` -> the modules of those names (``mlp_mixers[i]``), and
   ``random_projections``' ``Dense_0`` / ``Dense_1`` -> its ``fc1`` / ``fc2``;
+* CTAN's ``time_enc`` / ``enc_x`` / ``W`` / ``b`` -> the same names, its
+  ``phi``'s ``Dense_0`` (edge, no bias) / ``Dense_1`` / ``Dense_2`` /
+  ``Dense_3`` -> ``phi.lin_edge`` / ``lin_query`` / ``lin_key`` /
+  ``lin_value`` (flax's call order), ``W`` untransposed;
+* the ``NCNPredictor``'s ``xsmlp`` ``layers_0`` / ``layers_2`` -> ``xsmlp[0]``
+  / ``xsmlp[2]``;
 * TGAT's ``attn_i`` ``W_Q`` / ``W_KV`` (no bias) / ``W_O`` / ``layer_norm``
   and ``merge_layers_i`` ``Dense_0`` / ``Dense_1`` -> the ``TemporalAttention``
   Linear layers and LayerNorm and the ``MergeLayer``'s ``fc1`` / ``fc2``.
@@ -91,11 +101,14 @@ def load_tgn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.Mo
     """Copy the flax tree ``{"mem", "enc", "dec"}`` into the three modules, in
     place; ``decoder`` is a ``LinkPredictor`` or a ``NodePredictor``."""
     load_tgn_memory_params(params["mem"], memory)
-    enc = params["enc"]["params"]
+    _tgn_encoder(encoder, params["enc"]["params"])
+    _head(decoder, params["dec"])
+
+
+def _tgn_encoder(encoder: nn.Module, enc: Mapping[str, Any]) -> None:
     _time2vec(encoder.time_enc, enc["time_enc"])
     for name in ("lin_query", "lin_key", "lin_value", "lin_edge", "lin_skip"):
         _dense(getattr(encoder, name), enc[name])
-    _head(decoder, params["dec"])
 
 
 @torch.no_grad()
@@ -285,3 +298,30 @@ def rp_state_from_numpy(projections: Any, now_time: Any, device: Any = "cpu"):
     return RandomProjectionState(
         torch.tensor(np.asarray(projections, dtype=np.float32), device=device),
         torch.tensor(np.asarray(now_time, dtype=np.float32), device=device))
+
+
+@torch.no_grad()
+def load_ctan_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` of the JAX CTAN example into a
+    ``CTAN`` and a ``LinkPredictor``, in place."""
+    enc = params["enc"]["params"]
+    _time2vec(encoder.time_enc, enc["time_enc"])
+    _dense(encoder.enc_x, enc["enc_x"])
+    for i, name in enumerate(("lin_edge", "lin_query", "lin_key", "lin_value")):
+        _dense(getattr(encoder.phi, name), enc["phi"][f"Dense_{i}"])
+    _copy(encoder.W, enc["W"])
+    _copy(encoder.b, enc["b"])
+    _head(decoder, params["dec"])
+
+
+@torch.no_grad()
+def load_tncn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.Module,
+                     decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"mem", "enc", "dec"}`` of the JAX TNCN example
+    into a ``TGNMemory``, a ``GraphAttentionEmbedding`` and an
+    ``NCNPredictor``, in place."""
+    load_tgn_memory_params(params["mem"], memory)
+    _tgn_encoder(encoder, params["enc"]["params"])
+    mlp = params["dec"]["params"]["xsmlp"]
+    _dense(decoder.xsmlp[0], mlp["layers_0"])
+    _dense(decoder.xsmlp[2], mlp["layers_2"])
