@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
-        [--only-mixer] [--only-ctan-tncn]
+        [--only-mixer] [--only-ctan-tncn] [--only-snapshot]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -14,7 +14,8 @@ through the fused ``TGATPipeline`` (train, eval), TGN, TGAT and DyGFormer
 node property prediction (train, NDCG@10 eval), TGAT with uniform
 neighbour sampling, TGN with the packed recency layout, every other hook,
 GraphMixer and TPNet link prediction and TPNet node prediction, CTAN and
-TNCN link prediction, and its hand-written CUDA kernels, in phases:
+TNCN link prediction, GCN, TGCN, GC-LSTM and ROLAND snapshot link
+prediction, and its hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -285,7 +286,31 @@ TNCN link prediction, and its hand-written CUDA kernels, in phases:
               its floats within 1e-4, as seg-agree), then 3 train and 1 val
               batch each for k = 4 and k = 8 with time decay.
               ``--only-ctan-tncn`` runs phases 34-37 alone.
-38. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+38. snap:     the four snapshot link examples (GCN, TGCN, GC-LSTM at K = 1,
+              ROLAND ``learnable``) at their full width (static node features
+              16 from ``--seed``, embed 64, batch 200, Adam at 1e-3, 20
+              candidates) over daily snapshots (``--snapshot-ticks 86400``):
+              one train epoch, val and test through the merged schedule; ms
+              a batch, ms a snapshot step and ms an event batch (each timed
+              alone, after the epochs), edges/s, the peak rise, and every hand
+              kernel's launches, which must be 0. Both snapshot phases run on
+              the smoke stream's shape and edge features with uniform node
+              activity (about 5,000 distinct pairs a day): the zipf(1.4)
+              stream's days keep a few after the per-day dedup (ROADMAP fault
+              4).
+39. snap-agree: card against CPU for each encoder (GC-LSTM at K = 1 and 2,
+              so that ``laplacian_propagate`` runs on the card), the card's
+              weights and negatives fed to the CPU: the discretized graph, the
+              schedules and the snapshot windows exact; 75 train then 75 val
+              batches, which cross day boundaries in both splits, with their
+              snapshot steps (at least 3 in train and 2 in val, where the
+              state carries on from training): ``z`` after each within 1e-5 *
+              max |z| (the card's ``index_add`` sums by atomics), the first
+              loss within 1e-5 and all within 5e-3, val on the card's weights:
+              scores within 1e-4 * max |score|, ranks flipping only inside
+              that band.
+              ``--only-snapshot`` runs phases 38-39 alone.
+40. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -293,7 +318,7 @@ TNCN link prediction, and its hand-written CUDA kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-39. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+41. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -4622,6 +4647,253 @@ def ctan_tncn_phases(data, cands, seed: int, dev, card: str):
             "launches_tncn_train": tncn_train, "launches_tncn_eval": tncn_eval}
 
 
+# ---------------------------------------------------------------------- #
+# The snapshot link examples
+# ---------------------------------------------------------------------- #
+SNAP_TICKS = 86_400  # daily snapshots, as bench_zoo.py picks for this stream
+SNAP_EXAMPLES = (("GCN", "gcn", ()), ("TGCN", "tgcn", ()), ("GC-LSTM K=1", "gclstm", ("--K", "1")),
+                 ("ROLAND", "roland", ("--update", "learnable")))
+SNAP_AGREE = SNAP_EXAMPLES + (("GC-LSTM K=2", "gclstm", ("--K", "2")),)
+# Train and val event batches that snap-agree compares: about 3 days of
+# each split, so the snapshot steps between them run over daily graphs.
+SNAP_AGREE_TRAIN, SNAP_AGREE_EVAL = 75, 75
+SNAP_SPLIT_BATCHES = 50  # event batches timed alone
+
+
+def _snap_build(module: str, argv, data, cands, seed: int, device):
+    """A snapshot example's ``ctx`` and its program (``build_snapshot_linkpred``)
+    on ``device`` at the example's defaults, daily snapshots."""
+    import importlib
+
+    from tgm_tpu_torch.examples import _snapshot_common as common
+
+    ex = importlib.import_module(f"tgm_tpu_torch.examples.linkproppred.{module}")
+    args = _example_args(ex, seed, device, ("--snapshot-ticks", str(SNAP_TICKS), *argv))
+    ctx = ex.build(args, data=copy.copy(data), cands=(cands["val"], cands["test"]))
+    s = ctx.setup
+    prog = common.build_snapshot_linkpred(
+        args, s.train_data, s.num_nodes, ctx.snap_apply, ctx.init_rec, ctx.decoder, ctx.opt,
+        s.val_data, s.test_data, s.val_cands, s.test_cands, ctx.neg_hook, s.device)
+    return args, ctx, prog
+
+
+def build_uniform_stream(data, seed: int):
+    """The smoke stream's shape (9,227 nodes, 157,474 edges over 2,678,373
+    s) and ``data``'s edge features with uniform node activity, and 20
+    candidates per val and test edge: a day keeps about 5,000 distinct
+    pairs, where the zipf(1.4) stream keeps a few (ROADMAP fault 4)."""
+    from tgm_tpu_torch import DGData
+
+    rng = np.random.default_rng(seed + 1)
+    src = rng.integers(0, WIKI_NODES, WIKI_EDGES)
+    dst = rng.integers(0, WIKI_NODES, WIKI_EDGES)
+    dst = np.where(dst == src, (dst + 1) % WIKI_NODES, dst)
+    t = np.sort(rng.integers(0, 2_678_373, size=WIKI_EDGES))
+    data = DGData.from_raw(t, np.stack([src, dst], 1).astype(np.int32), edge_x=data.edge_x,
+                           time_delta="s")
+    _, val, test = data.split()
+    return data, {name: rng.integers(0, WIKI_NODES, (d.num_edge_events, NUM_CANDIDATES))
+                  for name, d in (("val", val), ("test", test))}
+
+
+def snap_phase(data, cands, seed: int, dev, card: str):
+    """The four snapshot link examples at full width on the card: one train
+    epoch, val and test through the merged schedule (each split timed as a
+    whole), then the snapshot steps and ``SNAP_SPLIT_BATCHES`` event batches
+    timed alone; no hand kernel may launch. Returns each path's launches."""
+    out = {}
+    for label, module, argv in SNAP_EXAMPLES:
+        t0 = time.perf_counter()
+        args, ctx, prog = _snap_build(module, argv, data, cands, seed, dev)
+        train = prog.epochs["train"]
+        n_snap, n_ev = int((train.kinds == 0).sum()), int((train.kinds == 1).sum())
+        log("snap", f"{label}: built in {time.perf_counter() - t0:.2f} s; train "
+                    f"{train.edge_stream.num_edges} edges in {n_ev} batches; "
+                    f"{train.snap_stream.num_batches} daily snapshots ({n_snap} applied) of "
+                    f"{train.snap_data.num_edge_events} edges in all after the per-day dedup "
+                    f"({train.snap_data.num_edge_events / train.snap_stream.num_batches:.0f} a "
+                    f"day), padded to {train.snap_stream._We} a snapshot [{card}]")
+        base = _reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        carry, losses, counts = train.epoch(prog.fresh_carry())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        losses = losses.cpu()[torch.from_numpy(train.kinds == 1)]
+        if losses.shape != (n_ev,) or not torch.isfinite(losses).all():
+            raise AssertionError(f"{label} snapshot train losses not finite: {losses}")
+        mrr, ev = {}, {}
+        for split in ("val", "test"):
+            ep = prog.epochs[split]
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            carry, sums, cnt = ep.epoch(carry)
+            torch.cuda.synchronize()
+            ev[split] = (time.perf_counter() - t1, int((ep.kinds == 1).sum()),
+                         ep.edge_stream.num_edges)
+            mrr[split] = float(sums.sum() / cnt.sum().clamp_min(1.0))
+            for k, v in read_launches().items():
+                launches[k] += v
+        peak = _peak_line(base)
+        check_launches(f"{label} snapshot train + val + test", launches, {}, 1)
+        if not all(np.isfinite(v) and 0.0 < v <= 1.0 for v in mrr.values()):
+            raise AssertionError(f"{label} snapshot MRR out of range: {mrr}")
+        z = carry[1]
+        if z.shape != (ctx.setup.num_nodes, args.embed_dim) or not torch.isfinite(z).all():
+            raise AssertionError(f"{label}: embeddings not finite or of the wrong shape")
+
+        # Stage times alone: every train snapshot step, then event batches.
+        carry = prog.fresh_carry()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(train.snap_stream.num_batches):
+            carry = prog.snapshot_core(carry, train.snap_stream.batch_at(i))
+        torch.cuda.synchronize()
+        snap_ms = (time.perf_counter() - t1) / train.snap_stream.num_batches * 1e3
+        t1 = time.perf_counter()
+        for i in range(SNAP_SPLIT_BATCHES):
+            carry, _ = prog.train_core(carry, train.edge_stream.batch_at(i), i)
+        torch.cuda.synchronize()
+        event_ms = (time.perf_counter() - t1) / SNAP_SPLIT_BATCHES * 1e3
+        n_eval = sum(v[1] for v in ev.values())
+        eval_s = sum(v[0] for v in ev.values())
+        log("snap", f"{label}: train {dt:.3f} s, train_ms_per_batch={dt / n_ev * 1e3:.3f} "
+                    f"(its {n_snap} snapshot steps included) train_edges_per_s="
+                    f"{train.edge_stream.num_edges / dt:.0f}; loss first {float(losses[0]):.6f} "
+                    f"last {float(losses[-1]):.6f} mean {float(losses.mean()):.6f}; val + test "
+                    f"{n_eval} batches {eval_s:.3f} s, eval_ms_per_batch="
+                    f"{eval_s / n_eval * 1e3:.3f} eval_edges_per_s="
+                    f"{sum(v[2] for v in ev.values()) / eval_s:.0f}, val_mrr={mrr['val']:.6f} "
+                    f"test_mrr={mrr['test']:.6f}; alone: snapshot_ms_per_step={snap_ms:.3f} "
+                    f"(over {train.snap_stream.num_batches}), event_ms_per_batch={event_ms:.3f} "
+                    f"(train, over {SNAP_SPLIT_BATCHES}); {peak}; launches={launches} [{card}]")
+        out[f"launches_snap_{module}"] = launches
+    return out
+
+
+def _snap_walk(ep, prog, carry, n_events: int, run):
+    """Steps of split schedule ``ep`` up to its ``n_events``-th event batch:
+    each snapshot step's ``z`` (on the CPU), and the event steps' outputs."""
+    zs, outs = [], []
+    for kind, idx in zip(ep.kinds.tolist(), ep.idxs.tolist()):
+        if kind == 0:
+            carry = prog.snapshot_core(carry, ep.snap_stream.batch_at(idx))
+            zs.append(carry[1].cpu())
+        elif len(outs) == n_events:
+            break
+        else:
+            carry, o = run(carry, ep.edge_stream.batch_at(idx), idx)
+            outs.append(o)
+    return carry, zs, outs
+
+
+def _snap_batches(ep, n: int):
+    """The first ``n`` snapshot windows' tensors, on the CPU."""
+    return [[getattr(ep.snap_stream.batch_at(i), k).cpu()
+             for k in ("edge_src", "edge_dst", "edge_time", "edge_valid")]
+            for i in range(min(n, ep.snap_stream.num_batches))]
+
+
+def snap_agree_phase(data, cands, seed: int, dev, card: str):
+    """Each snapshot encoder on the card and on the CPU (``SNAP_AGREE``), one
+    set of initial weights, the card's negatives fed to the CPU:
+    ``SNAP_AGREE_TRAIN`` train then ``SNAP_AGREE_EVAL`` val event batches
+    with their snapshot steps, val on the card's trained decoder. The
+    batches cross day boundaries, so both splits' snapshot steps are
+    compared: fails unless train ran at least 3 and val at least 2."""
+    from tgm_tpu_torch.examples import _snapshot_common as common
+
+    for label, module, argv in SNAP_AGREE:
+        runs = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            _, ctx, prog = _snap_build(module, argv, data, cands, seed, device)
+            modules = [ctx.encoder, ctx.decoder]
+            hook = ctx.neg_hook
+            if where == "card":
+                draws, draw = [], hook.draw_neg
+                hook.draw_neg = lambda size: draws.append(draw(size)) or draws[-1]
+            else:
+                _load_weights(modules, runs["card"]["w0"])
+                it = iter(runs["card"]["draws"])
+                hook.draw_neg = lambda size: next(it).cpu()
+            run = dict(w0=_weights(modules))
+            train, val = prog.epochs["train"], prog.epochs["val"]
+            carry, run["z_train"], outs = _snap_walk(train, prog, prog.fresh_carry(),
+                                                     SNAP_AGREE_TRAIN, prog.train_core)
+            run["losses"] = [float(o[0]) for o in outs]
+            run["weights"] = _weights(modules)
+            if where == "cpu":
+                _load_weights(modules, runs["card"]["weights"])
+            with _RecordedScores(common) as rec:
+                carry, run["z_val"], outs = _snap_walk(val, prog, carry, SNAP_AGREE_EVAL,
+                                                       val.core)
+            run["scores"], run["sums"] = rec.calls, [float(o[0]) for o in outs]
+            run["graph"] = [(split, ep.kinds, ep.idxs, ep.snap_data) for split, ep in
+                            prog.epochs.items()]
+            run["windows"] = _snap_batches(train, len(run["z_train"])) + _snap_batches(
+                val, len(run["z_val"]) + 1)
+            run["seconds"] = time.perf_counter() - t0
+            if where == "card":
+                run["draws"] = draws
+            runs[where] = run
+        g, c = runs["card"], runs["cpu"]
+        for (split, kg, ig, sg), (_, kc, ic, sc) in zip(g["graph"], c["graph"]):
+            if not (np.array_equal(kg, kc) and np.array_equal(ig, ic)
+                    and np.array_equal(sg.time, sc.time)
+                    and np.array_equal(sg.edge_index, sc.edge_index)):
+                raise AssertionError(f"{label}: the {split} snapshots or schedule differ")
+        for i, (wg, wc) in enumerate(zip(g["windows"], c["windows"])):
+            for x, y in zip(wg, wc):
+                _same(f"{label}: snapshot window {i}", x, y)
+        z_pairs = list(zip(g["z_train"] + g["z_val"], c["z_train"] + c["z_val"]))
+        if len(z_pairs) != len(c["z_train"] + c["z_val"]):
+            raise AssertionError(f"{label}: the card and the CPU ran other snapshot steps")
+        if len(g["z_train"]) < 3 or len(g["z_val"]) < 2:
+            raise AssertionError(f"{label}: {len(g['z_train'])} train and {len(g['z_val'])} val "
+                                 f"snapshot steps compared, fewer than 3 and 2")
+        z_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in z_pairs)
+        loss_err = [abs(a - b) for a, b in zip(g["losses"], c["losses"])]
+        gaps = [_score_gap(gs, cs, LINK_SCORE_TOL) for gs, cs in zip(g["scores"], c["scores"])]
+        score_err = max(gap[0] for gap in gaps)
+        far_flips, near_flips = sum(gap[1] for gap in gaps), [gap[2] for gap in gaps]
+        if not (z_err <= 1e-5 and loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3
+                and score_err <= LINK_SCORE_TOL and far_flips == 0):
+            raise AssertionError(f"{label} card vs CPU: z {z_err:.3g} * max |z| apart, losses "
+                                 f"{g['losses']} against {c['losses']}, scores "
+                                 f"{score_err:.3g} * max apart, {far_flips} rank decisions "
+                                 f"flipped outside the band")
+        n_edges = [int(w[3].sum()) for w in g["windows"]]
+        n_tr = len(g["z_train"])
+        log("snap-agree", f"{label}: card vs CPU over {n_tr} train and {len(g['z_val'])} val "
+                          f"snapshot steps (edges a window: train {n_edges[:n_tr]}, val "
+                          f"{n_edges[n_tr:]}, its first not applied), {len(g['losses'])} "
+                          f"train + {len(g['sums'])} val "
+                          f"batches: discretized graphs, schedules and windows exact; z within "
+                          f"{z_err:.3g} * max |z| (band 1e-5); first-loss diff "
+                          f"{loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}; val on the "
+                          f"card's weights: scores {score_err:.3g} * max |score| apart (band "
+                          f"{LINK_SCORE_TOL:g}), rank flips inside the band {sum(near_flips)} "
+                          f"over the batches, MRR sum card {sum(g['sums']):.6f} CPU "
+                          f"{sum(c['sums']):.6f}; weights "
+                          f"{_weight_gap(g['weights'], c['weights'])} apart; card "
+                          f"{g['seconds']:.1f} s, CPU {c['seconds']:.1f} s [{card}]")
+
+
+def snapshot_phases(data, cands, seed: int, dev, card: str):
+    """snap and snap-agree; returns each path's launches under its
+    ``kernels``-line key."""
+    t0 = time.perf_counter()
+    data, cands = build_uniform_stream(data, seed)
+    out = snap_phase(data, cands, seed, dev, card)
+    snap_agree_phase(data, cands, seed, dev, card)
+    log("snap-agree", f"the snapshot phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4650,6 +4922,8 @@ def main() -> int:
                     help="build, run the GraphMixer and TPNet phases and stop (no result lines)")
     ap.add_argument("--only-ctan-tncn", action="store_true",
                     help="build, run the CTAN and TNCN phases and stop (no result lines)")
+    ap.add_argument("--only-snapshot", action="store_true",
+                    help="build, run the snap and snap-agree phases and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -4713,6 +4987,10 @@ def main() -> int:
         data, _, _, _, cands = build_stream(args.seed)
         ctan_tncn_phases(data, cands, args.seed, dev, card)
         return 0
+    if args.only_snapshot:
+        data, _, _, _, cands = build_stream(args.seed)
+        snapshot_phases(data, cands, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -4765,6 +5043,7 @@ def main() -> int:
     hook_paths.update(mixer_phases(data, cands, args.seed, dev, card))
     hook_paths.update(tpnet_phases(data, cands, np_data, args.seed, dev, card))
     hook_paths.update(ctan_tncn_phases(data, cands, args.seed, dev, card))
+    hook_paths.update(snapshot_phases(data, cands, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
@@ -4806,9 +5085,9 @@ def main() -> int:
     # node example's train epoch and its val eval, the DyGFormer node
     # example's train epoch and its val + test eval, TGAT's uniform-sampling
     # train epoch and its val + test eval, the packed recency layout's
-    # hook-route train epoch and val + test eval and its pipeline's, and the
+    # hook-route train epoch and val + test eval and its pipeline's, the
     # GraphMixer, TPNet, CTAN and TNCN examples' train epochs and val + test
-    # evals.
+    # evals, and the snapshot examples' train epoch with val and test.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"],

@@ -40,7 +40,15 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.nodeproppred.tpnet",
              "tgm_tpu_torch.nn.encoder.ctan", "tgm_tpu_torch.nn.decoder.ncnpred",
              "tgm_tpu_torch.examples.linkproppred.ctan",
-             "tgm_tpu_torch.examples.linkproppred.tncn"):
+             "tgm_tpu_torch.examples.linkproppred.tncn",
+             "tgm_tpu_torch.nn.modules.graph_conv", "tgm_tpu_torch.nn.encoder.gcn",
+             "tgm_tpu_torch.nn.encoder.tgcn", "tgm_tpu_torch.nn.encoder.gclstm",
+             "tgm_tpu_torch.nn.encoder.roland", "tgm_tpu_torch.train.snapshot",
+             "tgm_tpu_torch.examples._snapshot_common",
+             "tgm_tpu_torch.examples.linkproppred.gcn",
+             "tgm_tpu_torch.examples.linkproppred.tgcn",
+             "tgm_tpu_torch.examples.linkproppred.gclstm",
+             "tgm_tpu_torch.examples.linkproppred.roland"):
     assert name in names, names
 print("imported", len(names))
 """

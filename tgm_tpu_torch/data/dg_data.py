@@ -3,22 +3,28 @@
 Port of ``tgm_tpu/data/dg_data.py`` reduced to edge events and node-label
 events: ``DGData.from_raw`` with its validation, the sorted unified timeline
 (a stable sort keeps edges before labels at equal times), ``split()``,
-``num_nodes``, ``edge_x``, ``static_node_x`` and ``edge_global_offset``.
-Dynamic node features, edge and node types, discretization and the
-CSV/pandas/TGB constructors are queued in ROADMAP.md. Everything here is
+``discretize()``, ``clone()``, ``num_nodes``, ``edge_x``, ``static_node_x``
+and ``edge_global_offset``. Dynamic node features, edge and node types and
+the CSV/pandas/TGB constructors are queued in ROADMAP.md. Everything here is
 numpy on the host; device upload happens once, in ``train.stream``.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 
 from ..constants import PADDED_NODE_ID
-from ..exceptions import EmptyGraphError, InvalidNodeIDError
+from ..exceptions import (
+    EmptyGraphError,
+    EventOrderedConversionError,
+    InvalidDiscretizationError,
+    InvalidNodeIDError,
+)
 from ..timedelta import TimeDeltaDG
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -240,6 +246,75 @@ class DGData:
         if isinstance(self._split_strategy, TGBSplit) and strategy is not self._split_strategy:
             raise ValueError("Cannot override split strategy for TGB datasets")
         return strategy.apply(self)
+
+    def discretize(self, time_delta: Union[TimeDeltaDG, str, None],
+                   reduce_op: str = "first") -> "DGData":
+        """Coarsen the timeline into buckets of ``time_delta``.
+
+        Of the events of one kind that share a bucket and an entity (the
+        (src, dst) pair of an edge, the node of a label), only the first in
+        the timeline survives, with its features. One stable lexsort a kind,
+        on the int64 key ``src * (max_id + 1) + dst`` for edges. The result
+        has ``time_delta`` and the bucket indices as its times; the same
+        ``time_delta`` (or None) gives a clone.
+        """
+        if isinstance(time_delta, str):
+            time_delta = TimeDeltaDG(time_delta)
+        if time_delta is None or self.time_delta == time_delta:
+            return self.clone()
+        if self.time_delta.is_event_ordered or time_delta.is_event_ordered:
+            raise EventOrderedConversionError(
+                "Cannot discretize a graph with event-ordered time granularity"
+            )
+        if self.time_delta.is_coarser_than(time_delta):
+            raise InvalidDiscretizationError(
+                f"Cannot discretize to {time_delta}, which is strictly finer than {self.time_delta}"
+            )
+        if reduce_op != "first":
+            raise ValueError(f"Unknown reduce_op: {reduce_op!r}, expected 'first'")
+
+        factor = self.time_delta.convert(time_delta)
+        buckets = np.floor(self.time.astype(np.float64) * factor).astype(np.int64)
+
+        def keep_first(event_idx: np.ndarray, ids: np.ndarray) -> np.ndarray:
+            """Sorted rows (of ``ids``) that are the first of their (bucket, key)."""
+            b = buckets[event_idx]
+            if ids.ndim == 2:
+                base = np.int64(ids.max()) + 1
+                key = ids[:, 0].astype(np.int64) * base + ids[:, 1].astype(np.int64)
+            else:
+                key = ids.astype(np.int64)
+            order = np.lexsort((key, b))
+            bb, kk = b[order], key[order]
+            first = np.ones(len(order), dtype=bool)
+            first[1:] = (bb[1:] != bb[:-1]) | (kk[1:] != kk[:-1])
+            keep = order[first]
+            keep.sort()
+            return keep
+
+        ek = keep_first(self.edge_mask, self.edge_index)
+        labels = {}
+        if self.node_y_mask is not None:
+            nk = keep_first(self.node_y_mask, self.node_y_nids)
+            labels = dict(node_y_time=buckets[self.node_y_mask][nk],
+                          node_y_nids=self.node_y_nids[nk],
+                          node_y=None if self.node_y is None else self.node_y[nk])
+        return DGData.from_raw(
+            time_delta=time_delta,
+            edge_time=buckets[self.edge_mask][ek],
+            edge_index=self.edge_index[ek],
+            edge_x=None if self.edge_x is None else self.edge_x[ek],
+            static_node_x=None if self.static_node_x is None else self.static_node_x.copy(),
+            **labels,
+        )
+
+    def clone(self) -> "DGData":
+        """A deep copy: every array copied, every other field deep-copied."""
+        cloned = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            cloned[f.name] = v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v)
+        return replace(self, **cloned)
 
     @classmethod
     def from_raw(

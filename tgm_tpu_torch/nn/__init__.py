@@ -10,7 +10,11 @@ from .encoder.dygformer import (
     TransformerEncoder,
     dygformer_stack_layers,
 )
+from .encoder.gclstm import GCLSTM
+from .encoder.gcn import GCN
+from .encoder.roland import ROLAND
 from .encoder.tgat import TGAT, MergeLayer
+from .encoder.tgcn import TGCN
 from .encoder.tpnet import (
     RandomProjectionModule,
     RandomProjectionState,
@@ -42,6 +46,7 @@ from .modules.aggregation import (
     SumEmbdPooling,
 )
 from .modules.attention import TemporalAttention
+from .modules.graph_conv import ChebConv, GCNConv
 from .modules.gru import TorchGRUCell
 from .modules.mlp_mixer import FeedForwardNet, MLPMixer
 from .modules.time_encoding import Time2Vec
@@ -50,11 +55,15 @@ __all__ = [
     "Aggregator",
     "CTAN",
     "CTANMemoryState",
+    "ChebConv",
     "ConcatMerge",
     "DyGFormer",
     "EncoderModule",
     "FeedForwardNet",
     "FusedSelfAttention",
+    "GCLSTM",
+    "GCN",
+    "GCNConv",
     "GraphAttentionEmbedding",
     "GraphAttentionEmbeddingRowwise",
     "LearnableSumMerge",
@@ -66,10 +75,12 @@ __all__ = [
     "NCNPredictor",
     "NeighborCooccurrenceEncoder",
     "NodePredictor",
+    "ROLAND",
     "RandomProjectionModule",
     "RandomProjectionState",
     "SumEmbdPooling",
     "TGAT",
+    "TGCN",
     "TGNMeanMemoryState",
     "TGNMemory",
     "TGNMemoryState",

@@ -17,6 +17,7 @@ from .programs import (
     tgn_eval_commit,
     tgn_train_commit,
 )
+from .snapshot import merged_snapshot_schedule, plan_edge_max_times, scanned_snapshot_epoch
 from .stream import DeviceEdgeStream, DeviceEventStream
 from .tgat_pipeline import TGATCarry, TGATPipeline, build_aug_table
 from .tgn_pipeline import TGNCarry, TGNPipeline
@@ -44,10 +45,13 @@ __all__ = [
     "build_tpnet_node_cores",
     "hook_epoch",
     "jit_scan_epoch",
+    "merged_snapshot_schedule",
+    "plan_edge_max_times",
     "restore_checkpoint",
     "save_checkpoint",
     "scan_epoch",
     "scanned_hook_epoch",
+    "scanned_snapshot_epoch",
     "tgn_eval_commit",
     "tgn_train_commit",
 ]

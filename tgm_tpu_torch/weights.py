@@ -22,6 +22,11 @@ without its ``RandomProjectionModule``) and ``LinkPredictor`` or
 ``CTAN`` and ``LinkPredictor`` ``init`` build it; ``load_tncn_params``
 takes ``{"mem", "enc", "dec"}`` as the JAX TNCN example builds it (the
 TGN memory and segment encoder, and an ``NCNPredictor``).
+``load_gcn_params``, ``load_tgcn_params``, ``load_gclstm_params`` and
+``load_roland_params`` take ``{"enc", "dec"}`` as the JAX snapshot
+examples build it (``GCN``, ``TGCN``, ``GCLSTM``, ``ROLAND`` and a
+``LinkPredictor``); ``load_flax_gru_cell`` takes a flax ``GRUCell``'s
+parameters alone.
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone,
 ``load_mlp_mixer_params`` a flax ``MLPMixer``'s variables.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
@@ -57,6 +62,14 @@ variables and copies them into the port's. The mappings:
   ``lin_value`` (flax's call order), ``W`` untransposed;
 * the ``NCNPredictor``'s ``xsmlp`` ``layers_0`` / ``layers_2`` -> ``xsmlp[0]``
   / ``xsmlp[2]``;
+* a ``GCNConv``'s ``Dense_0`` / ``bias`` -> its ``lin`` / ``bias``, a
+  ``ChebConv``'s ``lin_k`` / ``bias`` -> ``lins[k]`` / ``bias``; GCN's
+  ``GCNConv_i`` -> ``convs[i]``; GC-LSTM's ``W_*`` (x @ W, untransposed) and
+  ``b_*`` (1, out) as they are;
+* a flax ``GRUCell``'s ``ir``, ``iz``, ``in`` (with bias) and ``hr``, ``hz``
+  (no bias), ``hn`` (with bias) -> ``weight_ih`` = [ir; iz; in]^T stacked
+  in torch's (r, z, n) order, ``weight_hh`` = [hr; hz; hn]^T, ``bias_ih`` =
+  [b_ir, b_iz, b_in], ``bias_hh`` = [0, 0, b_hn];
 * TGAT's ``attn_i`` ``W_Q`` / ``W_KV`` (no bias) / ``W_O`` / ``layer_norm``
   and ``merge_layers_i`` ``Dense_0`` / ``Dense_1`` -> the ``TemporalAttention``
   Linear layers and LayerNorm and the ``MergeLayer``'s ``fc1`` / ``fc2``.
@@ -325,3 +338,95 @@ def load_tncn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.M
     mlp = params["dec"]["params"]["xsmlp"]
     _dense(decoder.xsmlp[0], mlp["layers_0"])
     _dense(decoder.xsmlp[2], mlp["layers_2"])
+
+
+def _gcn_conv(conv: nn.Module, p: Mapping[str, Any]) -> None:
+    _dense(conv.lin, p["Dense_0"])
+    _copy(conv.bias, p["bias"])
+
+
+def _cheb_conv(conv: nn.Module, p: Mapping[str, Any]) -> None:
+    n_tree = sum(1 for k in p if k.startswith("lin_"))
+    if n_tree != len(conv.lins):
+        raise ValueError(f"the ChebConv has K = {len(conv.lins)}, the tree {n_tree}")
+    for k, lin in enumerate(conv.lins):
+        _dense(lin, p[f"lin_{k}"])
+    _copy(conv.bias, p["bias"])
+
+
+@torch.no_grad()
+def load_flax_gru_cell(p: Mapping[str, Any], cell: nn.GRUCell) -> None:
+    """Copy a flax ``GRUCell``'s parameters (``ir``, ``iz``, ``in``, ``hr``,
+    ``hz``, ``hn``) into a ``torch.nn.GRUCell`` (or ``TorchGRUCell``), in
+    place. Flax's hidden reset and update Denses have no bias, so
+    ``bias_hh`` is [0, 0, b_hn]."""
+    kernel = lambda names: np.concatenate([np.asarray(p[n]["kernel"], np.float32)
+                                           for n in names], axis=1)
+    H = cell.hidden_size
+    _copy(cell.weight_ih, kernel(("ir", "iz", "in")), transpose=True)
+    _copy(cell.weight_hh, kernel(("hr", "hz", "hn")), transpose=True)
+    _copy(cell.bias_ih, np.concatenate([np.asarray(p[n]["bias"], np.float32)
+                                        for n in ("ir", "iz", "in")]))
+    _copy(cell.bias_hh, np.concatenate([np.zeros(2 * H, np.float32),
+                                        np.asarray(p["hn"]["bias"], np.float32)]))
+
+
+@torch.no_grad()
+def load_gcn_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a ``GCN`` and a
+    ``LinkPredictor``, in place."""
+    enc = params["enc"]["params"]
+    n_tree = sum(1 for k in enc if k.startswith("GCNConv_"))
+    if n_tree != len(encoder.convs):
+        raise ValueError(f"encoder has {len(encoder.convs)} layers, the tree {n_tree}")
+    for i, conv in enumerate(encoder.convs):
+        _gcn_conv(conv, enc[f"GCNConv_{i}"])
+    _head(decoder, params["dec"])
+
+
+@torch.no_grad()
+def load_tgcn_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a ``TGCN`` and a
+    ``LinkPredictor``, in place."""
+    enc = params["enc"]["params"]
+    for g in ("u", "r", "c"):
+        _gcn_conv(getattr(encoder, f"conv_{g}"), enc[f"conv_{g}"])
+        _dense(getattr(encoder, f"linear_{g}"), enc[f"linear_{g}"])
+    _head(decoder, params["dec"])
+
+
+@torch.no_grad()
+def load_gclstm_params(params: Mapping[str, Any], encoder: nn.Module,
+                       decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a ``GCLSTM`` and a
+    ``LinkPredictor``, in place."""
+    enc = params["enc"]["params"]
+    for g in ("i", "f", "c", "o"):
+        _copy(getattr(encoder, f"W_{g}"), enc[f"W_{g}"])
+        _copy(getattr(encoder, f"b_{g}"), enc[f"b_{g}"])
+        _cheb_conv(getattr(encoder, f"conv_{g}"), enc[f"conv_{g}"])
+    _head(decoder, params["dec"])
+
+
+@torch.no_grad()
+def load_roland_params(params: Mapping[str, Any], encoder: nn.Module,
+                       decoder: nn.Module) -> None:
+    """Copy the flax tree ``{"enc", "dec"}`` into a ``ROLAND`` (any update
+    mechanism) and a ``LinkPredictor``, in place."""
+    enc = params["enc"]["params"]
+    own = {"learnable": {"tau"}, "gru": {"gru1", "gru2"}, "mlp": {"mlp1", "mlp2"}}
+    extra = set(enc) - {"conv1", "conv2"}
+    if extra != own.get(encoder.update, set()):
+        raise ValueError(f"the tree holds {sorted(extra)}, a ROLAND with update "
+                         f"{encoder.update!r} {sorted(own.get(encoder.update, set()))}")
+    _gcn_conv(encoder.conv1, enc["conv1"])
+    _gcn_conv(encoder.conv2, enc["conv2"])
+    if encoder.update == "learnable":
+        _copy(encoder.tau, enc["tau"])
+    elif encoder.update == "gru":
+        load_flax_gru_cell(enc["gru1"], encoder.gru1)
+        load_flax_gru_cell(enc["gru2"], encoder.gru2)
+    elif encoder.update == "mlp":
+        _dense(encoder.mlp1, enc["mlp1"])
+        _dense(encoder.mlp2, enc["mlp2"])
+    _head(decoder, params["dec"])
