@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
-        [--only-mixer] [--only-ctan-tncn] [--only-snapshot]
+        [--only-mixer] [--only-ctan-tncn] [--only-snapshot] [--only-snapshot-tasks]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -15,7 +15,9 @@ node property prediction (train, NDCG@10 eval), TGAT with uniform
 neighbour sampling, TGN with the packed recency layout, every other hook,
 GraphMixer and TPNet link prediction and TPNet node prediction, CTAN and
 TNCN link prediction, GCN, TGCN, GC-LSTM and ROLAND snapshot link
-prediction, and its hand-written CUDA kernels, in phases:
+prediction, GCN, TGCN and GC-LSTM snapshot node prediction and GCN and
+TGCN snapshot graph regression, and its hand-written CUDA kernels, in
+phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -310,7 +312,32 @@ prediction, and its hand-written CUDA kernels, in phases:
               scores within 1e-4 * max |score|, ranks flipping only inside
               that band.
               ``--only-snapshot`` runs phases 38-39 alone.
-40. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+40. snap-task: the snapshot node and graph examples at their full width on
+              the node-label stream of phases 25-27: GCN, TGCN and GC-LSTM
+              (K = 1) node prediction (static node features 16, embed 64,
+              batch 200 events, 100-s snapshots, Adam at 1e-3 over the head)
+              for one train epoch, val and test (NDCG@10); then snapshot
+              steps, train and eval label batches timed alone; the node
+              persistent forecast; GCN and TGCN graph regression (static
+              node features 8, embed 32, 200-s snapshots of the stream
+              without labels, encoder and head trained) for one epoch (the
+              examples run 10), then train and test steps timed alone; the
+              graph persistent forecast. Every hand kernel's launches must be
+              0. Then ``DeviceEventStream`` over the val split with 16-wide
+              node-feature events on every 10th edge's destination, event-
+              and time-ordered, exact against the loader's batches.
+41. snap-task-agree: card against CPU in lockstep from the card's initial
+              weights: each node example (GC-LSTM at K = 1 and 2) over 10
+              train and 3 val label batches with their snapshot steps
+              (schedules equal, ``z`` after each within 1e-5 * max |z|, the
+              first loss within 1e-5 and all within 5e-3, val logits on the
+              card's head within 1e-4 * max |logit|); each graph example
+              over 100 train steps (the first loss within 1e-5, all within
+              5e-3, the encoder after the first Adam step within 1e-5 * max
+              |w|, the weights' gap after the 100 reported), then 100 test
+              predictions from the card's weights and state within 1e-4 *
+              max |pred|. ``--only-snapshot-tasks`` runs phases 40-41 alone.
+42. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -318,7 +345,7 @@ prediction, and its hand-written CUDA kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-41. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+43. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -4894,6 +4921,386 @@ def snapshot_phases(data, cands, seed: int, dev, card: str):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# The snapshot node and graph property examples
+# ---------------------------------------------------------------------- #
+NODE_TICKS = 100  # the node examples' snapshot width
+SNAP_TASK_NODE = (("GCN", "gcn", ()), ("TGCN", "tgcn", ()), ("GC-LSTM K=1", "gclstm", ()))
+SNAP_TASK_NODE_AGREE = SNAP_TASK_NODE + (("GC-LSTM K=2", "gclstm", ("--K", "2")),)
+SNAP_TASK_GRAPH = (("GCN", "gcn"), ("TGCN", "tgcn"))
+SNAP_TASK_ALONE = 200  # snapshot steps, label batches and graph steps timed alone
+# Label batches snap-task-agree compares (about 8 snapshot steps each on
+# this stream), and graph train steps and test predictions.
+SNAP_TASK_AGREE_TRAIN, SNAP_TASK_AGREE_EVAL = 10, 3
+SNAP_TASK_GRAPH_AGREE = 100  # not the epoch: its CPU half would outlast the phase
+NODE_X_EVERY, NODE_X_DIM = 10, 16  # node-feature events of the stream check
+
+
+def _node_task_build(module: str, argv, data, seed: int, device):
+    """A snapshot node example's ``args`` and ``ctx`` at its defaults."""
+    import importlib
+
+    ex = importlib.import_module(f"tgm_tpu_torch.examples.nodeproppred.{module}")
+    args = _example_args(ex, seed, device, argv)
+    return args, ex.build(args, data=copy.copy(data))
+
+
+def _graph_task_build(module: str, data, seed: int, device):
+    """A graph example's module, ``args`` (one epoch) and ``ctx`` at its defaults."""
+    import importlib
+
+    ex = importlib.import_module(f"tgm_tpu_torch.examples.graphproppred.{module}")
+    args = _example_args(ex, seed, device, epochs=1)
+    return ex, args, ex.build(args, data=copy.copy(data))
+
+
+def _timed(fn, n: int) -> float:
+    """ms per call of ``fn(i)`` over ``i < n``, synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / max(n, 1) * 1e3
+
+
+def node_task_phase(np_data, seed: int, dev, card: str):
+    """The three snapshot node examples at full width over 100-s snapshots:
+    one train epoch, val and test; then snapshot steps, train and eval
+    label batches timed alone; the node persistent forecast. No hand
+    kernel may launch. Returns each path's launches."""
+    from tgm_tpu_torch.examples.nodeproppred import persistant_forecast as node_pf
+
+    out = {}
+    for label, module, argv in SNAP_TASK_NODE:
+        t0 = time.perf_counter()
+        args, ctx = _node_task_build(module, argv, np_data, seed, dev)
+        progs = ctx.progs
+        steps = {s: (int((p.kinds == 0).sum()), int((p.kinds == 1).sum()))
+                 for s, p in progs.items()}
+        build_s = time.perf_counter() - t0
+        base = _reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, losses, _ = progs["train"].epoch(ctx.fresh_carry())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = losses.cpu()[torch.from_numpy(progs["train"].kinds == 1)]
+        if losses.shape != (steps["train"][1],) or not torch.isfinite(losses).all():
+            raise AssertionError(f"{label} node train losses not finite: {losses}")
+        ndcg, ev = {}, {}
+        for split in ("val", "test"):
+            t1 = time.perf_counter()
+            carry, vals, _ = progs[split].epoch(ctx.fresh_carry())
+            torch.cuda.synchronize()
+            ev[split] = time.perf_counter() - t1
+            ndcg[split] = float(vals.cpu()[torch.from_numpy(progs[split].kinds == 1)].mean())
+        launches = read_launches()
+        peak = _peak_line(base)
+        check_launches(f"{label} snapshot node train + val + test", launches, {}, 1)
+        if not all(0.0 < v <= 1.0 for v in ndcg.values()):
+            raise AssertionError(f"{label} node NDCG out of range: {ndcg}")
+        z = carry[1]
+        if z.shape != (ctx.num_nodes, args.embed_dim) or not torch.isfinite(z).all():
+            raise AssertionError(f"{label}: embeddings not finite or of the wrong shape")
+
+        # Alone: snapshot steps, then train and eval label batches on the last z.
+        train = progs["train"]
+        state = [ctx.fresh_carry()]
+
+        def snap(i):
+            state[0] = ctx.snapshot_core(state[0], train.snap_at(i))
+
+        snap_ms = _timed(snap, min(SNAP_TASK_ALONE, len(train.snap_rows)))
+        lab = train.idxs[train.kinds == 1][:SNAP_TASK_ALONE].tolist()
+        train_ms = _timed(lambda j: ctx.train_core(state[0], train.ev_at(lab[j]), lab[j]),
+                          len(lab))
+        eval_ms = _timed(lambda j: ctx.eval_core(state[0], train.ev_at(lab[j]), lab[j]),
+                         len(lab))
+        n_ev = sum(steps[s][1] for s in ("val", "test"))
+        log("snap-task", f"node {label}: built in {build_s:.2f} s; snapshot steps / label "
+                         f"batches: train {steps['train']}, val {steps['val']}, test "
+                         f"{steps['test']}; train {dt:.3f} s, train_ms_per_batch="
+                         f"{dt / steps['train'][1] * 1e3:.3f} (its snapshot steps included); "
+                         f"loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f} mean "
+                         f"{float(losses.mean()):.6f}; val + test {sum(ev.values()):.3f} s, "
+                         f"eval_ms_per_batch={sum(ev.values()) / n_ev * 1e3:.3f}; "
+                         f"val_ndcg={ndcg['val']:.6f} test_ndcg={ndcg['test']:.6f}; alone: "
+                         f"snapshot_ms_per_step={snap_ms:.3f}, train_ms_per_label_batch="
+                         f"{train_ms:.3f}, eval_ms_per_label_batch={eval_ms:.3f} (over "
+                         f"{len(lab)}); {peak}; launches={launches} [{card}]")
+        out[f"launches_snap_task_node_{module}"] = launches
+        del ctx, carry, state
+
+    reset_launches()
+    t0 = time.perf_counter()
+    pf = node_pf.run(_example_args(node_pf, seed, dev), data=copy.copy(np_data))
+    launches = read_launches()
+    check_launches("node persistent forecast", launches, {}, 1)
+    log("snap-task", f"node persistent forecast: NDCG {pf} in {time.perf_counter() - t0:.2f} s; "
+                     f"launches={launches} [{card}]")
+    out["launches_snap_task_node_forecast"] = launches
+    return out
+
+
+def graph_task_phase(gdata, seed: int, dev, card: str):
+    """The two graph examples at full width over 200-s snapshots, one epoch
+    (the examples run 10): train (forward, backward, Adam, the encoder
+    included) and test; then train and eval steps timed alone; the graph
+    persistent forecast. No hand kernel may launch. Returns each path's
+    launches."""
+    from tgm_tpu_torch.examples.graphproppred import persistant_forecast as graph_pf
+
+    out = {}
+    for label, module in SNAP_TASK_GRAPH:
+        t0 = time.perf_counter()
+        ex, args, ctx = _graph_task_build(module, gdata, seed, dev)
+        build_s = time.perf_counter() - t0
+        n_tr, n_te = ctx.n_train, len(ctx.snapshots) - ctx.n_train
+        base = _reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ex.run(ctx, args)
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        peak = _peak_line(base)
+        check_launches(f"{label} graph train + test", launches, {}, 1)
+        losses = np.asarray(res["losses"][0])
+        if losses.shape != (n_tr,) or not np.isfinite(losses).all() \
+                or not np.isfinite(res["test_mse"][0]):
+            raise AssertionError(f"{label} graph losses or MSE not finite")
+
+        snaps, y = ctx.snapshots, ctx.targets_d
+        n_alone = min(SNAP_TASK_ALONE, n_tr, n_te)
+        if module == "gcn":
+            train_ms = _timed(lambda i: ctx.train_step(snaps[i], y[i]), n_alone)
+            eval_ms = _timed(lambda i: ctx.predict(snaps[n_tr + i]), n_alone)
+        else:
+            H = [ctx.init_H()]
+
+            def step(i):
+                H[0], _ = ctx.train_step(H[0], snaps[i], y[i])
+
+            def pred(i):
+                _, H[0] = ctx.predict(H[0], snaps[n_tr + i])
+
+            train_ms = _timed(step, n_alone)
+            eval_ms = _timed(pred, n_alone)
+        log("snap-task", f"graph {label}: built in {build_s:.2f} s ({len(snaps) + 1} snapshots, "
+                         f"{n_tr} train, {n_te} test); epoch {dt:.3f} s "
+                         f"({dt / (n_tr + n_te) * 1e3:.3f} ms a snapshot); train_mse="
+                         f"{res['train_mse'][0]:.6f} test_mse={res['test_mse'][0]:.6f}; alone: "
+                         f"train_ms_per_step={train_ms:.3f} (forward, backward, Adam), "
+                         f"eval_ms_per_step={eval_ms:.3f} (over {n_alone}); {peak}; "
+                         f"launches={launches} [{card}]")
+        out[f"launches_snap_task_graph_{module}"] = launches
+        del ctx
+
+    reset_launches()
+    t0 = time.perf_counter()
+    pf = graph_pf.run(_example_args(graph_pf, seed, dev), data=copy.copy(gdata))
+    launches = read_launches()
+    check_launches("graph persistent forecast", launches, {}, 1)
+    log("snap-task", f"graph persistent forecast: {pf} in {time.perf_counter() - t0:.2f} s; "
+                     f"launches={launches} [{card}]")
+    out["launches_snap_task_graph_forecast"] = launches
+    return out
+
+
+def node_x_stream_phase(np_data, seed: int, dev, card: str):
+    """``DeviceEventStream`` over the val split of the stream with node-feature
+    events (``NODE_X_DIM`` wide, on every ``NODE_X_EVERY``-th edge's
+    destination) added, event- and time-ordered: every batch exact against
+    the loader's, on the card."""
+    from tgm_tpu_torch import DGData, DGDataLoader, DGraph
+    from tgm_tpu_torch.core.batch import DGBatch
+    from tgm_tpu_torch.train import DeviceEventStream
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 2)
+    idx = np.arange(0, np_data.num_edge_events, NODE_X_EVERY)
+    data = DGData.from_raw(
+        np_data.edge_time, np_data.edge_index, edge_x=np_data.edge_x,
+        node_x_time=np_data.edge_time[idx], node_x_nids=np_data.edge_index[idx, 1],
+        node_x=rng.normal(size=(len(idx), NODE_X_DIM)).astype(np.float32),
+        node_y_time=np_data.node_y_time, node_y_nids=np_data.node_y_nids, node_y=np_data.node_y,
+        time_delta="s")
+    val = data.split()[1]
+    fields = ("edge_src", "edge_dst", "edge_time", "edge_valid", "edge_ids") + DGBatch.FIELDS
+    n = 0
+    for kw in (dict(batch_size=BATCH), dict(batch_size=NODE_TICKS, batch_unit="s")):
+        loader = DGDataLoader(DGraph(val), device=dev, **kw)
+        stream = DeviceEventStream(loader)
+        for i, b in zip(loader.nonempty(), loader):
+            s = stream.batch_at(int(i))
+            for f in fields:
+                if b.has(f) != s.has(f):
+                    raise AssertionError(f"node_x stream batch {i}: {f} on one side only")
+                if b.has(f) and not torch.equal(getattr(b, f), getattr(s, f)):
+                    raise AssertionError(f"node_x stream batch {i}: {f} differs")
+            n += 1
+    if not n or not b.has("node_x"):
+        raise AssertionError("the node_x stream check compared nothing")
+    log("snap-task", f"DeviceEventStream with node_x events ({len(idx)} events, "
+                     f"{NODE_X_DIM} wide): {n} val batches (event- and time-ordered) exact "
+                     f"against the loader's on the card in {time.perf_counter() - t0:.2f} s "
+                     f"[{card}]")
+
+
+def node_task_agree_phase(np_data, seed: int, dev, card: str):
+    """Each snapshot node example on the card and on the CPU in lockstep, the
+    card's initial weights on both (GC-LSTM at K = 1 and 2): the schedules
+    equal; ``SNAP_TASK_AGREE_TRAIN`` train label batches with their snapshot
+    steps (``z`` after each within 1e-5 * max |z|, the first loss within 1e-5
+    and all within 5e-3), then ``SNAP_TASK_AGREE_EVAL`` val label batches
+    on the card's trained head (logits within 1e-4 * max |logit|)."""
+    cpu = torch.device("cpu")
+    for label, module, argv in SNAP_TASK_NODE_AGREE:
+        t0 = time.perf_counter()
+        _, g = _node_task_build(module, argv, np_data, seed, dev)
+        _, c = _node_task_build(module, argv, np_data, seed, cpu)
+        _load_weights([c.encoder, c.head], _weights([g.encoder, g.head]))
+        for split in ("train", "val", "test"):
+            pg, pc = g.progs[split], c.progs[split]
+            if not (np.array_equal(pg.kinds, pc.kinds) and np.array_equal(pg.idxs, pc.idxs)):
+                raise AssertionError(f"{label}: the {split} schedules differ")
+        z_err, losses, logit_err, n_snap = 0.0, [], 0.0, {}
+        for split, n_lab in (("train", SNAP_TASK_AGREE_TRAIN), ("val", SNAP_TASK_AGREE_EVAL)):
+            if split == "val":  # on the card's trained head
+                _load_weights([c.head], _weights([g.head]))
+            pg, pc = g.progs[split], c.progs[split]
+            cg, cc, done, n_snap[split] = g.fresh_carry(), c.fresh_carry(), 0, 0
+            for kind, idx in zip(pg.kinds.tolist(), pg.idxs.tolist()):
+                if kind == 0:
+                    cg = g.snapshot_core(cg, pg.snap_at(idx))
+                    cc = c.snapshot_core(cc, pc.snap_at(idx))
+                    zc = cc[1]
+                    z_err = max(z_err, float((cg[1].cpu() - zc).abs().max())
+                                / max(float(zc.abs().max()), 1e-30))
+                    n_snap[split] += 1
+                    continue
+                if done == n_lab:
+                    break
+                bg, bc = pg.ev_at(idx), pc.ev_at(idx)
+                if split == "train":
+                    _, (lg, _) = g.train_core(cg, bg, idx)
+                    _, (lc, _) = c.train_core(cc, bc, idx)
+                    losses.append((float(lg), float(lc)))
+                else:
+                    with torch.no_grad():
+                        xg = g.head(cg[1][bg.node_y_nids.long().clamp(0, g.num_nodes - 1)])
+                        xc = c.head(cc[1][bc.node_y_nids.long().clamp(0, c.num_nodes - 1)])
+                    logit_err = max(logit_err, float((xg.cpu() - xc).abs().max())
+                                    / max(float(xc.abs().max()), 1e-30))
+                done += 1
+        loss_err = [abs(a - b) for a, b in losses]
+        if not (z_err <= 1e-5 and loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3
+                and logit_err <= 1e-4):
+            raise AssertionError(f"{label} node card vs CPU: z {z_err:.3g} * max |z|, losses "
+                                 f"{losses}, logits {logit_err:.3g} * max |logit|")
+        if n_snap["train"] < 3 or n_snap["val"] < 2:
+            raise AssertionError(f"{label}: only {n_snap} snapshot steps compared")
+        log("snap-task-agree", f"node {label}: schedules equal; {n_snap['train']} train and "
+                               f"{n_snap['val']} val snapshot steps, {len(losses)} train + "
+                               f"{SNAP_TASK_AGREE_EVAL} val label batches: z within {z_err:.3g} "
+                               f"* max |z| (band 1e-5), first-loss diff {loss_err[0]:.3g}, max "
+                               f"loss diff {max(loss_err):.3g}; val logits on the card's head "
+                               f"within {logit_err:.3g} * max |logit| (band 1e-4); "
+                               f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def graph_task_agree_phase(gdata, seed: int, dev, card: str):
+    """Each graph example on the card (twice) and on the CPU, the card's
+    initial weights on all three: ``SNAP_TASK_GRAPH_AGREE`` train steps (the
+    CPU's first loss within 1e-5, all within 5e-3; its encoder after the
+    first Adam step within 1e-5 * max |w|; the weights' gap after the last
+    step reported), then as many test predictions, the CPU's from the
+    card's weights and state (within 1e-4 * max |pred|). The second card
+    run keeps its own weights and state: how far the card's atomic sums move
+    the losses, the weights and the MSE of those predictions is reported,
+    without a band."""
+    cpu = torch.device("cpu")
+    mods = lambda ctx: [ctx.encoder, ctx.head]
+    for label, module in SNAP_TASK_GRAPH:
+        t0 = time.perf_counter()
+        runs = [_graph_task_build(module, gdata, seed, d)[2] for d in (dev, dev, cpu)]
+        g, g2, c = runs
+        for ctx in (g2, c):
+            _load_weights(mods(ctx), _weights(mods(g)))
+        if not np.array_equal(g.targets, c.targets):
+            raise AssertionError(f"{label}: the targets differ")
+        n = min(SNAP_TASK_GRAPH_AGREE, g.n_train)
+        recurrent = module == "tgcn"
+        H = [ctx.init_H() if recurrent else None for ctx in runs]
+
+        def step(k, i):
+            ctx = runs[k]
+            if not recurrent:
+                return ctx.train_step(ctx.snapshots[i], ctx.targets_d[i])
+            H[k], loss = ctx.train_step(H[k], ctx.snapshots[i], ctx.targets_d[i])
+            return loss
+
+        def pred(k, i):
+            ctx = runs[k]
+            if not recurrent:
+                return ctx.predict(ctx.snapshots[i])
+            p, H[k] = ctx.predict(H[k], ctx.snapshots[i])
+            return p
+
+        losses, w1_err = [], None
+        for i in range(n):
+            losses.append([float(step(k, i)) for k in range(3)])
+            if i == 0:
+                wg, wc = _weights([g.encoder]), _weights([c.encoder])
+                w1_err = max(float((wg[k] - wc[k]).abs().max())
+                             / max(float(wc[k].abs().max()), 1e-30) for k in wc)
+        gap = _weight_gap(_weights(mods(g)), _weights(mods(c)))
+        gap2 = _weight_gap(_weights(mods(g)), _weights(mods(g2)))
+        _load_weights(mods(c), _weights(mods(g)))
+        if recurrent:
+            H[2] = H[0].cpu()
+        rows = range(g.n_train, min(g.n_train + n, len(g.snapshots)))
+        preds = [torch.stack([pred(k, i) for i in rows]).cpu() for k in range(3)]
+        pred_err = float((preds[0] - preds[2]).abs().max()) / max(float(preds[2].abs().max()),
+                                                                  1e-30)
+        y = torch.as_tensor(g.targets[rows.start:rows.stop])
+        mse_a, mse_b = (float(((p.double() - y) ** 2).mean()) for p in preds[:2])
+        loss_err = [abs(a - cc) for a, _, cc in losses]
+        loss_err2 = max(abs(a - b) for a, b, _ in losses)
+        if not (loss_err[0] <= 1e-5 and max(loss_err) <= 5e-3 and w1_err <= 1e-5
+                and pred_err <= 1e-4):
+            raise AssertionError(f"{label} graph card vs CPU: losses {losses[:5]}..., first-step "
+                                 f"encoder {w1_err:.3g} * max |w|, predictions {pred_err:.3g} "
+                                 f"* max |pred|")
+        log("snap-task-agree", f"graph {label}: {n} train steps: first-loss diff "
+                               f"{loss_err[0]:.3g}, max loss diff {max(loss_err):.3g}; encoder "
+                               f"after the first Adam step within {w1_err:.3g} * max |w| (band "
+                               f"1e-5); weights after {n} steps {gap} apart (no band); "
+                               f"{len(rows)} test predictions on the card's weights within "
+                               f"{pred_err:.3g} * max |pred| (band 1e-4); card against card: "
+                               f"max loss diff {loss_err2:.3g}, weights {gap2} apart, MSE of "
+                               f"the {len(rows)} predictions {mse_a!r} and {mse_b!r} (no band); "
+                               f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def snapshot_task_phases(np_data, seed: int, dev, card: str):
+    """snap-task and snap-task-agree; returns each path's launches under its
+    ``kernels``-line key."""
+    from tgm_tpu_torch import DGData
+
+    t0 = time.perf_counter()
+    gdata = DGData.from_raw(np_data.edge_time, np_data.edge_index, edge_x=np_data.edge_x,
+                            time_delta="s")  # the graph examples' stream: no labels
+    out = node_task_phase(np_data, seed, dev, card)
+    out.update(graph_task_phase(gdata, seed, dev, card))
+    node_x_stream_phase(np_data, seed, dev, card)
+    node_task_agree_phase(np_data, seed, dev, card)
+    graph_task_agree_phase(gdata, seed, dev, card)
+    log("snap-task-agree", f"the snapshot task phases took {time.perf_counter() - t0:.1f} s "
+                           f"[{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4924,6 +5331,9 @@ def main() -> int:
                     help="build, run the CTAN and TNCN phases and stop (no result lines)")
     ap.add_argument("--only-snapshot", action="store_true",
                     help="build, run the snap and snap-agree phases and stop (no result lines)")
+    ap.add_argument("--only-snapshot-tasks", action="store_true",
+                    help="build, run the snap-task and snap-task-agree phases and stop (no "
+                    "result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -4991,6 +5401,9 @@ def main() -> int:
         data, _, _, _, cands = build_stream(args.seed)
         snapshot_phases(data, cands, args.seed, dev, card)
         return 0
+    if args.only_snapshot_tasks:
+        snapshot_task_phases(build_np_stream(), args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -5044,6 +5457,7 @@ def main() -> int:
     hook_paths.update(tpnet_phases(data, cands, np_data, args.seed, dev, card))
     hook_paths.update(ctan_tncn_phases(data, cands, args.seed, dev, card))
     hook_paths.update(snapshot_phases(data, cands, args.seed, dev, card))
+    hook_paths.update(snapshot_task_phases(np_data, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.

@@ -48,7 +48,14 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.linkproppred.gcn",
              "tgm_tpu_torch.examples.linkproppred.tgcn",
              "tgm_tpu_torch.examples.linkproppred.gclstm",
-             "tgm_tpu_torch.examples.linkproppred.roland"):
+             "tgm_tpu_torch.examples.linkproppred.roland",
+             "tgm_tpu_torch.examples.nodeproppred.gcn",
+             "tgm_tpu_torch.examples.nodeproppred.tgcn",
+             "tgm_tpu_torch.examples.nodeproppred.gclstm",
+             "tgm_tpu_torch.examples.nodeproppred.persistant_forecast",
+             "tgm_tpu_torch.examples.graphproppred.gcn",
+             "tgm_tpu_torch.examples.graphproppred.tgcn",
+             "tgm_tpu_torch.examples.graphproppred.persistant_forecast"):
     assert name in names, names
 print("imported", len(names))
 """

@@ -1,7 +1,7 @@
 """Array-backed storage engine (port of ``tgm_tpu/core/_storage/array_backend.py``).
 
-Reduced to the edge and node-label accessors the port reads, and the
-temporal CSR the uniform neighbour sampler queries. It shares the ``DGData``
+The edge, node-feature, node-label and type accessors, and the temporal
+CSR the uniform neighbour sampler queries. It shares the ``DGData``
 arrays without copying and resolves a slice by binary search over the
 sorted timeline.
 """
@@ -47,6 +47,9 @@ class DGStorageArrayBackend:
     def _label_sel(self, sl: DGSliceTracker) -> slice:
         return slice_range(self._data.node_y_mask, *self._bounds(sl))
 
+    def _node_x_sel(self, sl: DGSliceTracker) -> slice:
+        return slice_range(self._data.node_x_mask, *self._bounds(sl))
+
     def get_start_time(self, sl: DGSliceTracker) -> Optional[int]:
         lb, ub = self._bounds(sl)
         return None if lb >= ub else int(self._data.time[lb])
@@ -60,7 +63,11 @@ class DGStorageArrayBackend:
         return ub - lb
 
     def get_nodes(self, sl: DGSliceTracker) -> Set[int]:
-        return set(np.unique(self._data.edge_index[self._edge_sel(sl)]).tolist())
+        """Ids of the slice's edges and node-feature events (not its labels)."""
+        nodes = set(np.unique(self._data.edge_index[self._edge_sel(sl)]).tolist())
+        if self._data.node_x_mask is not None:
+            nodes.update(np.unique(self._data.node_x_nids[self._node_x_sel(sl)]).tolist())
+        return nodes
 
     def get_edges(self, sl: DGSliceTracker) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         sel = self._edge_sel(sl)
@@ -71,6 +78,21 @@ class DGStorageArrayBackend:
     def get_edge_rows(self, sl: DGSliceTracker) -> slice:
         """The slice's edges as a contiguous range of this storage's edge rows."""
         return self._edge_sel(sl)
+
+    def get_node_events(self, sl: DGSliceTracker) -> Tuple[np.ndarray, np.ndarray]:
+        """(node ids, times) of the slice's node-feature events (empty without them)."""
+        if self._data.node_x_mask is None:
+            return np.empty(0, np.int32), np.empty(0, np.int64)
+        sel = self._node_x_sel(sl)
+        return self._data.node_x_nids[sel], self._data.time[self._data.node_x_mask[sel]]
+
+    def get_node_x(self, sl: DGSliceTracker):
+        """(times, node ids, features) of the slice's node-feature events, or None."""
+        if self._data.node_x_mask is None or self._data.node_x is None:
+            return None
+        sel = self._node_x_sel(sl)
+        return (self._data.time[self._data.node_x_mask[sel]], self._data.node_x_nids[sel],
+                self._data.node_x[sel])
 
     def get_node_labels(self, sl: DGSliceTracker) -> Tuple[np.ndarray, np.ndarray]:
         """(node ids, times) of the slice's label events (empty without labels)."""
@@ -91,6 +113,28 @@ class DGStorageArrayBackend:
         if self._data.edge_x is None:
             return None
         return self._data.edge_x[self._edge_sel(sl)]
+
+    def get_edge_type(self, sl: DGSliceTracker) -> Optional[np.ndarray]:
+        if self._data.edge_type is None:
+            return None
+        return self._data.edge_type[self._edge_sel(sl)]
+
+    def get_static_node_x(self) -> Optional[np.ndarray]:
+        return self._data.static_node_x
+
+    def get_node_type(self) -> Optional[np.ndarray]:
+        return self._data.node_type
+
+    def get_num_timestamps(self, sl: DGSliceTracker) -> int:
+        lb, ub = self._bounds(sl)
+        return len(np.unique(self._data.time[lb:ub]))
+
+    def get_node_x_dim(self) -> Optional[int]:
+        return None if self._data.node_x is None else self._data.node_x.shape[1]
+
+    def get_static_node_x_dim(self) -> Optional[int]:
+        sx = self._data.static_node_x
+        return None if sx is None else sx.shape[1]
 
     def get_node_y_dim(self) -> Optional[int]:
         return None if self._data.node_y is None else self._data.node_y.shape[1]

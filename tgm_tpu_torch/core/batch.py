@@ -2,7 +2,9 @@
 
 A plain attribute container of tensors. Edge arrays have a static width: padded
 slots hold ``PADDED_NODE_ID`` / 0 and are marked invalid in ``edge_valid``
-(node-label arrays likewise, in ``node_y_valid``). Hooks attach their
+(node-feature and node-label arrays likewise, in ``node_x_valid`` and
+``node_y_valid``). The JAX batch's optional fields (``FIELDS``) read None
+where a batch lacks them; ``has`` tells which it holds. Hooks attach their
 products as attributes (``batch.neg = ...``). ``num_node_labels``, where
 set, is the batch's real label count as a host int, so a step can branch on
 it without waiting for the card.
@@ -25,6 +27,12 @@ def _move(value: Any, device: torch.device) -> Any:
 
 class DGBatch:
     """One batch of temporal-graph events plus hook-produced attributes."""
+
+    # The JAX ``DGBatch``'s optional fields, None until set.
+    FIELDS = ("edge_x", "edge_type", "node_x_time", "node_x_nids", "node_x", "node_x_valid",
+              "node_y_time", "node_y_nids", "node_y", "node_y_valid")
+    edge_x = edge_type = node_x_time = node_x_nids = node_x = node_x_valid = None
+    node_y_time = node_y_nids = node_y = node_y_valid = None
 
     def __init__(
         self,

@@ -2,11 +2,10 @@
 
 Slicing by event index (``slice_events``) or timestamp (``slice_time``,
 end-exclusive), ``materialize()`` of a slice into a ``DGBatch`` padded to
-static widths (edges, global ``edge_ids``, ``edge_x`` and the node-label
-events), and the slice properties the loader, the streams and the hooks
-read. The uniform sampler's temporal CSR lives in the storage
-(``temporal_csr``). Dynamic node features and edge and node types are
-queued in ROADMAP.md.
+static widths (edges, global ``edge_ids``, ``edge_x``, ``edge_type``, the
+node-feature and the node-label events), and the slice's properties (host
+numpy arrays and counts). The uniform sampler's temporal CSR lives in the
+storage (``temporal_csr``).
 """
 
 from __future__ import annotations
@@ -84,7 +83,9 @@ class DGraph:
     # ------------------------------------------------------------------ #
     def materialize(
         self,
+        materialize_features: bool = True,
         pad_edges_to: Optional[int] = None,
+        pad_node_x_to: Optional[int] = None,
         pad_node_y_to: Optional[int] = None,
         device: DeviceLike = None,
     ) -> DGBatch:
@@ -92,10 +93,12 @@ class DGraph:
 
         With ``pad_*_to`` widths the batch has static shapes: padded slots
         hold ``PADDED_NODE_ID`` / 0 (``edge_ids`` -1) and are invalid in
-        ``edge_valid`` / ``node_y_valid``. ``edge_ids`` are global: the
-        slice's rows offset by the split's place in the pre-split dataset.
-        With labels in the data the batch also carries ``num_node_labels``,
-        the host count of its real labels.
+        ``edge_valid`` / ``node_x_valid`` / ``node_y_valid``. ``edge_ids``
+        are global: the slice's rows offset by the split's place in the
+        pre-split dataset. ``materialize_features=False`` leaves out
+        ``edge_x`` and the node-feature and label events; ``edge_type`` is
+        there either way. With labels materialized the batch also carries
+        ``num_node_labels``, the host count of its real labels.
         """
         dev = resolve_device(device)
         up = lambda x: torch.as_tensor(x, device=dev)
@@ -112,20 +115,29 @@ class DGraph:
                         + np.arange(n_real, dtype=np.int32))
         batch.edge_ids = up(ids)
 
-        if self.edge_x_dim is not None:
-            ex, _ = pad_rows(self._storage.get_edge_x(self._slice), pad_edges_to, 0.0)
-            batch.edge_x = up(ex)
-        node_y = self._storage.get_node_y(self._slice)
-        if node_y is not None:
-            t, nids, labels = node_y
-            batch.num_node_labels = len(nids)
-            t, _ = pad_rows(t.astype(np.int32), pad_node_y_to, 0)
-            nids, valid = pad_rows(nids, pad_node_y_to, PADDED_NODE_ID)
-            labels, _ = pad_rows(labels, pad_node_y_to, 0.0)
-            batch.node_y_time = up(t)
-            batch.node_y_nids = up(nids.astype(np.int32))
-            batch.node_y = up(labels)
-            batch.node_y_valid = up(valid)
+        def node_events(triplet, width):
+            t, nids, feats = triplet
+            t, _ = pad_rows(t.astype(np.int32), width, 0)
+            nids, valid = pad_rows(nids, width, PADDED_NODE_ID)
+            feats, _ = pad_rows(feats, width, 0.0)
+            return up(t), up(nids.astype(np.int32)), up(feats), up(valid)
+
+        if materialize_features:
+            node_x = self._storage.get_node_x(self._slice)
+            if node_x is not None:
+                (batch.node_x_time, batch.node_x_nids, batch.node_x,
+                 batch.node_x_valid) = node_events(node_x, pad_node_x_to)
+            if self.edge_x_dim is not None:
+                ex, _ = pad_rows(self._storage.get_edge_x(self._slice), pad_edges_to, 0.0)
+                batch.edge_x = up(ex)
+            node_y = self._storage.get_node_y(self._slice)
+            if node_y is not None:
+                batch.num_node_labels = len(node_y[1])
+                (batch.node_y_time, batch.node_y_nids, batch.node_y,
+                 batch.node_y_valid) = node_events(node_y, pad_node_y_to)
+        edge_type = self._storage.get_edge_type(self._slice)
+        if edge_type is not None:
+            batch.edge_type = up(pad_rows(edge_type, pad_edges_to, 0)[0].astype(np.int32))
         return batch
 
     # ------------------------------------------------------------------ #
@@ -151,16 +163,94 @@ class DGraph:
         return len(self.edge_dst)
 
     @cached_property
+    def num_node_events(self) -> int:
+        return len(self.node_x_nids)
+
+    @cached_property
     def num_node_labels(self) -> int:
-        return len(self._storage.get_node_labels(self._slice)[0])
+        return len(self.node_y_nids)
+
+    @cached_property
+    def num_timestamps(self) -> int:
+        return self._storage.get_num_timestamps(self._slice)
 
     @cached_property
     def num_events(self) -> int:
         return self._storage.get_num_events(self._slice)
 
     @cached_property
+    def _edges(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self._storage.get_edges(self._slice)
+
+    @property
+    def edge_src(self) -> np.ndarray:
+        return self._edges[0]
+
+    @property
     def edge_dst(self) -> np.ndarray:
-        return self._storage.get_edges(self._slice)[1]
+        return self._edges[1]
+
+    @property
+    def edge_time(self) -> np.ndarray:
+        return self._edges[2]
+
+    @cached_property
+    def edge_x(self) -> Optional[np.ndarray]:
+        return self._storage.get_edge_x(self._slice)
+
+    @cached_property
+    def edge_type(self) -> Optional[np.ndarray]:
+        return self._storage.get_edge_type(self._slice)
+
+    @cached_property
+    def _node_events(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self._storage.get_node_events(self._slice)
+
+    @property
+    def node_x_nids(self) -> np.ndarray:
+        return self._node_events[0]
+
+    @property
+    def node_x_time(self) -> np.ndarray:
+        return self._node_events[1]
+
+    @cached_property
+    def node_x(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The slice's node-feature events as a (time, nids, feats) triplet."""
+        return self._storage.get_node_x(self._slice)
+
+    @cached_property
+    def _node_labels(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self._storage.get_node_labels(self._slice)
+
+    @property
+    def node_y_nids(self) -> np.ndarray:
+        return self._node_labels[0]
+
+    @property
+    def node_y_time(self) -> np.ndarray:
+        return self._node_labels[1]
+
+    @cached_property
+    def node_y(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The slice's labels as a (time, nids, labels) triplet."""
+        return self._storage.get_node_y(self._slice)
+
+    @cached_property
+    def static_node_x(self) -> Optional[np.ndarray]:
+        return self._storage.get_static_node_x()
+
+    @cached_property
+    def node_type(self) -> Optional[np.ndarray]:
+        return self._storage.get_node_type()
+
+    @cached_property
+    def static_node_x_dim(self) -> Optional[int]:
+        return self._storage.get_static_node_x_dim()
+
+    @cached_property
+    def node_x_dim(self) -> Optional[int]:
+        return self._storage.get_node_x_dim()
 
     @cached_property
     def node_y_dim(self) -> Optional[int]:

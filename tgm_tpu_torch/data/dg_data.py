@@ -1,12 +1,13 @@
 """Validated host-side container for temporal graph events.
 
-Port of ``tgm_tpu/data/dg_data.py`` reduced to edge events and node-label
-events: ``DGData.from_raw`` with its validation, the sorted unified timeline
-(a stable sort keeps edges before labels at equal times), ``split()``,
-``discretize()``, ``clone()``, ``num_nodes``, ``edge_x``, ``static_node_x``
-and ``edge_global_offset``. Dynamic node features, edge and node types and
-the CSV/pandas/TGB constructors are queued in ROADMAP.md. Everything here is
-numpy on the host; device upload happens once, in ``train.stream``.
+Port of ``tgm_tpu/data/dg_data.py``: edge events, dynamic node-feature
+events (``node_x_*``) and node-label events (``node_y_*``), edge and node
+types; ``DGData.from_raw`` with its validation, the sorted unified timeline
+(a stable sort keeps edges, then node features, then labels at equal
+times), ``split()``, ``discretize()``, ``clone()``, ``num_nodes``,
+``edge_x``, ``static_node_x`` and ``edge_global_offset``. The CSV, pandas
+and TGB constructors are queued in ROADMAP.md. Everything here is numpy on
+the host; device upload happens once, in ``train.stream``.
 """
 
 from __future__ import annotations
@@ -56,10 +57,10 @@ def _to_int32(x: np.ndarray, name: str) -> np.ndarray:
 
 @dataclass
 class DGData:
-    """Edge and node-label events of a dynamic graph, sorted by time.
+    """Edge, node-feature and node-label events of a dynamic graph, sorted by time.
 
-    ``time`` is the sorted int64 timeline of every event; ``edge_mask`` and
-    ``node_y_mask`` index each kind's events in it.
+    ``time`` is the sorted int64 timeline of every event; ``edge_mask``,
+    ``node_x_mask`` and ``node_y_mask`` index each kind's events in it.
     """
 
     time_delta: Union[TimeDeltaDG, str]
@@ -68,11 +69,17 @@ class DGData:
     edge_index: np.ndarray  # [num_edge_events, 2] int32
     edge_x: Optional[np.ndarray] = None  # [num_edge_events, D_edge] float32
 
+    node_x_mask: Optional[np.ndarray] = None  # [num_node_events] int32
+    node_x_nids: Optional[np.ndarray] = None  # [num_node_events] int32
+    node_x: Optional[np.ndarray] = None  # [num_node_events, D_node] float32
+
     node_y_mask: Optional[np.ndarray] = None  # [num_node_labels] int32
     node_y_nids: Optional[np.ndarray] = None  # [num_node_labels] int32
     node_y: Optional[np.ndarray] = None  # [num_node_labels, D_label] float32
 
     static_node_x: Optional[np.ndarray] = None  # [num_nodes, D_static] float32
+    edge_type: Optional[np.ndarray] = None  # [num_edge_events] int32
+    node_type: Optional[np.ndarray] = None  # [num_nodes] int32
 
     _split_strategy: Any = None
 
@@ -125,9 +132,10 @@ class DGData:
                 )
             self.edge_x = _to_float32(self.edge_x, "edge_x")
 
-        num_node_labels = self._validate_node_triplet()
-        # Labels do not widen the node range: a label id at or past the
-        # edges' range raises.
+        num_node_events = self._validate_node_triplet("node_x")
+        num_node_labels = self._validate_node_triplet("node_y")
+        # Node-feature ids widen the node range, labels do not: a label id
+        # at or past the range raises.
         num_nodes = self.num_nodes
         if self.node_y_nids is not None and int(self.node_y_nids.max()) + 1 > num_nodes:
             raise InvalidNodeIDError(
@@ -148,50 +156,71 @@ class DGData:
                 )
             self.static_node_x = _to_float32(self.static_node_x, "static_node_x")
 
-        expected = num_edges + num_node_labels
+        if self.edge_type is not None:
+            self.edge_type = _as_array(self.edge_type, "edge_type")
+            _require_integral(self.edge_type, "edge_type")
+            if self.edge_type.ndim != 1 or self.edge_type.shape[0] != num_edges:
+                raise ValueError(
+                    f"edge_type must have shape [num_edges], got {self.edge_type.shape}")
+            self.edge_type = _to_int32(self.edge_type, "edge_type")
+
+        if self.node_type is not None:
+            self.node_type = _as_array(self.node_type, "node_type")
+            _require_integral(self.node_type, "node_type")
+            if self.node_type.ndim != 1 or self.node_type.shape[0] < num_nodes:
+                raise ValueError(
+                    f"node_type must have shape [num_nodes], got {self.node_type.shape}")
+            self.node_type = _to_int32(self.node_type, "node_type")
+
+        expected = num_edges + num_node_events + num_node_labels
         if self.time.ndim != 1 or self.time.shape[0] != expected:
             raise ValueError(
-                f"time must have shape [{expected}] (edges {num_edges} + node labels "
-                f"{num_node_labels}), got {self.time.shape}"
+                f"time must have shape [{expected}] (edges {num_edges} + node events "
+                f"{num_node_events} + node labels {num_node_labels}), got {self.time.shape}"
             )
         self._sort_if_needed()
 
-    def _validate_node_triplet(self) -> int:
-        """Check and normalise the label events (``node_y_mask``,
-        ``node_y_nids``, ``node_y``); returns their number (0 without a mask)."""
-        if self.node_y_mask is None:
+    def _validate_node_triplet(self, prefix: str) -> int:
+        """Check and normalise one kind of node events (``{prefix}_mask``,
+        ``{prefix}_nids``, ``{prefix}``, ``prefix`` "node_x" or "node_y");
+        returns their number (0 without a mask)."""
+        mask = getattr(self, f"{prefix}_mask")
+        if mask is None:
             return 0
-        mask = _as_array(self.node_y_mask, "node_y_mask")
-        _require_integral(mask, "node_y_mask")
-        self.node_y_mask = mask.astype(np.int32)
+        mask = _as_array(mask, f"{prefix}_mask")
+        _require_integral(mask, f"{prefix}_mask")
+        setattr(self, f"{prefix}_mask", mask.astype(np.int32))
         n = mask.shape[0]
         if n == 0:
-            raise ValueError("node_y_mask is an empty array; double-check your inputs")
+            raise ValueError(f"{prefix}_mask is an empty array; double-check your inputs")
 
-        if self.node_y_nids is None:
-            raise ValueError("node_y_mask given without node_y_nids")
-        nids = _as_array(self.node_y_nids, "node_y_nids")
-        _require_integral(nids, "node_y_nids")
+        nids = getattr(self, f"{prefix}_nids")
+        if nids is None:
+            raise ValueError(f"{prefix}_mask given without {prefix}_nids")
+        nids = _as_array(nids, f"{prefix}_nids")
+        _require_integral(nids, f"{prefix}_nids")
         if nids.ndim != 1 or nids.shape[0] != n:
-            raise ValueError(f"node_y_nids must have shape [{n}], got {nids.shape}")
+            raise ValueError(f"{prefix}_nids must have shape [{n}], got {nids.shape}")
         if np.any(nids == PADDED_NODE_ID):
             raise InvalidNodeIDError(
-                f"node_y_nids contains node ids matching PADDED_NODE_ID ({PADDED_NODE_ID})"
+                f"{prefix}_nids contains node ids matching PADDED_NODE_ID ({PADDED_NODE_ID})"
             )
         if int(nids.max()) >= _INT32_MAX:
-            raise InvalidNodeIDError("node_y_nids exceed the int32 limit")
-        self.node_y_nids = _to_int32(nids, "node_y_nids")
+            raise InvalidNodeIDError(f"{prefix}_nids exceed the int32 limit")
+        setattr(self, f"{prefix}_nids", _to_int32(nids, f"{prefix}_nids"))
 
-        if self.node_y is not None:
-            y = _as_array(self.node_y, "node_y")
-            if y.ndim != 2 or y.shape[0] != n:
-                raise ValueError(f"node_y must have shape [{n}, D], got {y.shape}")
-            self.node_y = _to_float32(y, "node_y")
+        feats = getattr(self, prefix)
+        if feats is not None:
+            feats = _as_array(feats, prefix)
+            if feats.ndim != 2 or feats.shape[0] != n:
+                raise ValueError(f"{prefix} must have shape [{n}, D], got {feats.shape}")
+            setattr(self, prefix, _to_float32(feats, prefix))
         return n
 
     def _sort_if_needed(self) -> None:
-        """Sort the timeline stably (equal times keep their order: edges
-        before labels) and each kind's rows by their new positions."""
+        """Sort the timeline stably (equal times keep their order: edges,
+        then node features, then labels) and each kind's rows by their new
+        positions."""
         if np.all(np.diff(self.time) >= 0):
             return
         sort_idx = np.argsort(self.time, kind="stable").astype(np.int32)
@@ -205,18 +234,28 @@ class DGData:
         self.edge_index = self.edge_index[order]
         if self.edge_x is not None:
             self.edge_x = self.edge_x[order]
+        if self.edge_type is not None:
+            self.edge_type = self.edge_type[order]
 
-        if self.node_y_mask is not None:
-            mask = inverse[self.node_y_mask]
+        for prefix in ("node_x", "node_y"):
+            mask = getattr(self, f"{prefix}_mask")
+            if mask is None:
+                continue
+            mask = inverse[mask]
             order = np.argsort(mask, kind="stable")
-            self.node_y_mask = mask[order]
-            self.node_y_nids = self.node_y_nids[order]
-            if self.node_y is not None:
-                self.node_y = self.node_y[order]
+            setattr(self, f"{prefix}_mask", mask[order])
+            setattr(self, f"{prefix}_nids", getattr(self, f"{prefix}_nids")[order])
+            feats = getattr(self, prefix)
+            if feats is not None:
+                setattr(self, prefix, feats[order])
 
     @property
     def edge_time(self) -> np.ndarray:
         return self.time[self.edge_mask]
+
+    @property
+    def node_x_time(self) -> Optional[np.ndarray]:
+        return None if self.node_x_mask is None else self.time[self.node_x_mask]
 
     @property
     def node_y_time(self) -> Optional[np.ndarray]:
@@ -224,8 +263,11 @@ class DGData:
 
     @property
     def num_nodes(self) -> int:
-        """Edge ids only: labels never widen the range."""
-        return int(self.edge_index.max()) + 1
+        """Edge and node-feature ids: labels never widen the range."""
+        max_id = int(self.edge_index.max())
+        if self.node_x_nids is not None:
+            max_id = max(max_id, int(self.node_x_nids.max()))
+        return max_id + 1
 
     @property
     def num_edge_events(self) -> int:
@@ -252,7 +294,8 @@ class DGData:
         """Coarsen the timeline into buckets of ``time_delta``.
 
         Of the events of one kind that share a bucket and an entity (the
-        (src, dst) pair of an edge, the node of a label), only the first in
+        (src, dst) pair of an edge, the node of a node-feature or label
+        event), only the first in
         the timeline survives, with its features. One stable lexsort a kind,
         on the int64 key ``src * (max_id + 1) + dst`` for edges. The result
         has ``time_delta`` and the bucket indices as its times; the same
@@ -293,19 +336,25 @@ class DGData:
             return keep
 
         ek = keep_first(self.edge_mask, self.edge_index)
-        labels = {}
-        if self.node_y_mask is not None:
-            nk = keep_first(self.node_y_mask, self.node_y_nids)
-            labels = dict(node_y_time=buckets[self.node_y_mask][nk],
-                          node_y_nids=self.node_y_nids[nk],
-                          node_y=None if self.node_y is None else self.node_y[nk])
+        node_kwargs = {}
+        for prefix in ("node_x", "node_y"):
+            mask = getattr(self, f"{prefix}_mask")
+            if mask is None:
+                continue
+            nids = getattr(self, f"{prefix}_nids")
+            nk = keep_first(mask, nids)
+            feats = getattr(self, prefix)
+            node_kwargs.update({f"{prefix}_time": buckets[mask][nk], f"{prefix}_nids": nids[nk],
+                                prefix: None if feats is None else feats[nk]})
         return DGData.from_raw(
             time_delta=time_delta,
             edge_time=buckets[self.edge_mask][ek],
             edge_index=self.edge_index[ek],
             edge_x=None if self.edge_x is None else self.edge_x[ek],
             static_node_x=None if self.static_node_x is None else self.static_node_x.copy(),
-            **labels,
+            edge_type=None if self.edge_type is None else self.edge_type[ek],
+            node_type=None if self.node_type is None else self.node_type.copy(),
+            **node_kwargs,
         )
 
     def clone(self) -> "DGData":
@@ -322,29 +371,41 @@ class DGData:
         edge_time: np.ndarray,
         edge_index: np.ndarray,
         edge_x: Optional[np.ndarray] = None,
+        node_x_time: Optional[np.ndarray] = None,
+        node_x_nids: Optional[np.ndarray] = None,
+        node_x: Optional[np.ndarray] = None,
         node_y_time: Optional[np.ndarray] = None,
         node_y_nids: Optional[np.ndarray] = None,
         node_y: Optional[np.ndarray] = None,
         static_node_x: Optional[np.ndarray] = None,
         time_delta: Union[TimeDeltaDG, str] = "r",
+        edge_type: Optional[np.ndarray] = None,
+        node_type: Optional[np.ndarray] = None,
     ) -> "DGData":
         """Build the sorted timeline from per-kind event times: the edges,
-        then the labels, concatenated; the masks locate each kind in it."""
+        then the node-feature events, then the labels, concatenated; the
+        masks locate each kind in it."""
         edge_time = _as_array(edge_time, "edge_time")
         parts = [edge_time]
-        node_y_mask = None
-        if node_y_time is not None:
-            node_y_time = _as_array(node_y_time, "node_y_time")
-            parts.append(node_y_time)
-            node_y_mask = len(edge_time) + np.arange(len(node_y_time))
+        masks = {}
+        for prefix, t in (("node_x", node_x_time), ("node_y", node_y_time)):
+            if t is not None:
+                t = _as_array(t, f"{prefix}_time")
+                start = sum(len(p) for p in parts)
+                masks[f"{prefix}_mask"] = start + np.arange(len(t))
+                parts.append(t)
         return cls(
             time_delta=time_delta,
             time=np.concatenate(parts),
             edge_mask=np.arange(len(edge_time)),
             edge_index=edge_index,
             edge_x=edge_x,
-            node_y_mask=node_y_mask,
+            node_x_nids=node_x_nids,
+            node_x=node_x,
             node_y_nids=node_y_nids,
             node_y=node_y,
             static_node_x=static_node_x,
+            edge_type=edge_type,
+            node_type=node_type,
+            **masks,
         )

@@ -2,15 +2,16 @@
 
 Event-ordered (``batch_unit='r'``) batches over global event indices, or
 time-ordered batches over timestamp windows (the batch unit converted to
-graph ticks); empty batches skipped or raised; hooks run per batch.
+graph ticks); a batch with no event of any kind (edge, node feature or
+label) skipped or raised; hooks run per batch.
 
 The loader computes the **batch plan** once, on the host: per-batch window
 bounds, each event kind's offsets and counts, and the epoch's widest window
 per kind rounded up to ``pad_multiple``. Every batch it yields is
-materialized on ``device`` at those widths (padded and masked), and
-``DeviceEventStream`` serves the same plan from arrays uploaded once.
-Dynamic node features are queued in ROADMAP.md: the plan's ``node_x_*``
-fields stay None.
+materialized on ``device`` at those widths (padded and masked;
+``materialize_features=False`` leaves out ``edge_x`` and the node-feature
+and label events), and ``DeviceEventStream`` serves the same plan from
+arrays uploaded once.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ class DGDataLoader:
         on_empty: Literal["skip", "raise", None] = "skip",
         hook_manager: Any = None,
         drop_last: bool = False,
+        materialize_features: bool = True,
         pad_multiple: int = 8,
         device: DeviceLike = None,
     ) -> None:
@@ -95,6 +97,7 @@ class DGDataLoader:
         self._batch_size = batch_size
         self._hook_manager = hook_manager
         self._on_empty = on_empty
+        self.materialize_features = materialize_features
         self.device = resolve_device(device)
 
         lo, hi = self._slice_index_bounds()
@@ -139,16 +142,26 @@ class DGDataLoader:
             return a.astype(np.int64), (b - a).astype(np.int64)
 
         edge_offsets, edge_counts = window_bounds(data.edge_mask)
+        node_x_offsets, node_x_counts = window_bounds(data.node_x_mask)
         node_y_offsets, node_y_counts = window_bounds(data.node_y_mask)
-        pad_edges = _round_up(int(edge_counts.max(initial=0)), pad_multiple)
-        pad_ny = (None if node_y_counts is None
-                  else _round_up(int(node_y_counts.max(initial=0)), pad_multiple))
+        pad = lambda c: None if c is None else _round_up(int(c.max(initial=0)), pad_multiple)
         return BatchPlan(
             kind=kind, starts=starts, batch_size=batch_size, edge_counts=edge_counts,
-            node_x_counts=None, node_y_counts=node_y_counts, pad_edges=pad_edges,
-            pad_node_x=None, pad_node_y=pad_ny, edge_offsets=edge_offsets,
-            node_y_offsets=node_y_offsets,
+            node_x_counts=node_x_counts, node_y_counts=node_y_counts,
+            pad_edges=pad(edge_counts), pad_node_x=pad(node_x_counts),
+            pad_node_y=pad(node_y_counts), edge_offsets=edge_offsets,
+            node_x_offsets=node_x_offsets, node_y_offsets=node_y_offsets,
         )
+
+    def nonempty(self) -> np.ndarray:
+        """Indices of the plan's batches with at least one event of any kind:
+        the batches iteration yields unless ``on_empty`` is None."""
+        p = self._plan
+        total = p.edge_counts.copy()
+        for counts in (p.node_x_counts, p.node_y_counts):
+            if counts is not None:
+                total += counts
+        return np.flatnonzero(total > 0)
 
     def plan(self) -> BatchPlan:
         return self._plan
@@ -166,11 +179,9 @@ class DGDataLoader:
 
     def __iter__(self) -> Iterator[DGBatch]:
         p = self._plan
+        kept = set(self.nonempty().tolist())
         for i, start in enumerate(p.starts):
-            total = int(p.edge_counts[i])
-            if p.node_y_counts is not None:
-                total += int(p.node_y_counts[i])
-            if total == 0:
+            if i not in kept:
                 if self._on_empty == "raise":
                     raise EmptyBatchError("Empty batch encountered")
                 if self._on_empty == "skip":
@@ -181,7 +192,9 @@ class DGDataLoader:
             else:
                 dg = self._dg.slice_time(int(start), int(start) + p.batch_size)
             batch = dg.materialize(
+                materialize_features=self.materialize_features,
                 pad_edges_to=p.pad_edges,
+                pad_node_x_to=p.pad_node_x,
                 pad_node_y_to=p.pad_node_y,
                 device=self.device,
             )

@@ -1,10 +1,12 @@
 """Temporal dataset split strategies (port of ``tgm_tpu/data/split.py``).
 
-``TemporalSplit`` (absolute boundaries, [start, end) per split, for edges
-and labels), ``TemporalRatioSplit`` (ratios of the time span) and
-``TGBSplit`` (inclusive per-split edge-time bounds; labels in
-``[start - 1, end)``). A split whose labels are all masked out drops them
-and logs a warning; ``static_node_x`` is shared, not copied.
+``TemporalSplit`` (absolute boundaries, [start, end) per split, for edges,
+node-feature events and labels), ``TemporalRatioSplit`` (ratios of the
+time span) and ``TGBSplit`` (inclusive per-split edge-time bounds; labels
+in ``[start - 1, end)``, every node-feature event in each split). A split
+whose node-feature or label events are all masked out drops that kind and
+logs a warning; ``static_node_x`` and ``node_type`` are shared, not
+copied.
 """
 
 from __future__ import annotations
@@ -30,28 +32,33 @@ class SplitStrategy(ABC):
         raise NotImplementedError
 
     def _masked_copy(self, data: "DGData", edge_mask: np.ndarray,
+                     node_x_mask: Optional[np.ndarray] = None,
                      node_y_mask: Optional[np.ndarray] = None) -> "DGData":
         from .dg_data import DGData
 
-        labels = {}
-        if data.node_y_nids is not None:
-            if node_y_mask is None:
-                node_y_mask = np.ones(data.node_y_nids.shape[0], dtype=bool)
-            if not node_y_mask.any():
-                logger.warning("All node_y events masked out; dropping from split")
-            else:
-                labels = dict(
-                    node_y_nids=data.node_y_nids[node_y_mask],
-                    node_y_time=data.time[data.node_y_mask[node_y_mask]],
-                    node_y=None if data.node_y is None else data.node_y[node_y_mask],
-                )
+        kwargs = {}
+        for prefix, mask in (("node_x", node_x_mask), ("node_y", node_y_mask)):
+            nids = getattr(data, f"{prefix}_nids")
+            if nids is None:
+                continue
+            if mask is None:
+                mask = np.ones(nids.shape[0], dtype=bool)
+            if not mask.any():
+                logger.warning("All %s events masked out; dropping from split", prefix)
+                continue
+            feats = getattr(data, prefix)
+            kwargs.update({f"{prefix}_nids": nids[mask],
+                           f"{prefix}_time": data.time[getattr(data, f"{prefix}_mask")[mask]],
+                           prefix: None if feats is None else feats[mask]})
         out = DGData.from_raw(
             time_delta=data.time_delta,
             edge_time=data.time[data.edge_mask[edge_mask]],
             edge_index=data.edge_index[edge_mask],
             edge_x=None if data.edge_x is None else data.edge_x[edge_mask],
             static_node_x=data.static_node_x,  # shared, not copied
-            **labels,
+            edge_type=None if data.edge_type is None else data.edge_type[edge_mask],
+            node_type=data.node_type,  # shared, not copied
+            **kwargs,
         )
         # Where this split's edges live in the parent's row space (temporal
         # splits select contiguous runs; anything else keeps 0).
@@ -76,17 +83,19 @@ class TemporalSplit(SplitStrategy):
 
     def apply(self, data: "DGData") -> Tuple["DGData", ...]:
         edge_times = data.edge_time
+        node_x_times = data.node_x_time
         node_y_times = data.node_y_time
         ranges = {"train": (-np.inf, self.val_time), "val": (self.val_time, self.test_time),
                   "test": (self.test_time, np.inf)}
+        in_range = lambda t, a, b: None if t is None else (t >= a) & (t < b)
         splits = []
         for name, (start, end) in ranges.items():
             edge_mask = (edge_times >= start) & (edge_times < end)
             if not edge_mask.any():
                 logger.warning("No edges in %s split range [%s, %s)", name, start, end)
                 continue
-            nym = None if node_y_times is None else (node_y_times >= start) & (node_y_times < end)
-            splits.append(self._masked_copy(data, edge_mask, nym))
+            splits.append(self._masked_copy(data, edge_mask, in_range(node_x_times, start, end),
+                                            in_range(node_y_times, start, end)))
         return tuple(splits)
 
 
@@ -131,5 +140,5 @@ class TGBSplit(SplitStrategy):
                 # TGB convention: labels attach to the window that starts one
                 # tick before the split's first edge, and end before ``end``.
                 node_y_mask = (node_y_times >= (start - 1)) & (node_y_times < end)
-            splits.append(self._masked_copy(data, edge_mask, node_y_mask))
+            splits.append(self._masked_copy(data, edge_mask, None, node_y_mask))
         return tuple(splits)

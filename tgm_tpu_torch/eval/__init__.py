@@ -1,3 +1,3 @@
-from .metrics import mrr, mrr_per_edge, mrr_sum_count, ndcg_at_k
+from .metrics import binary_accuracy, mrr, mrr_per_edge, mrr_sum_count, mse, ndcg_at_k
 
-__all__ = ["mrr", "mrr_per_edge", "mrr_sum_count", "ndcg_at_k"]
+__all__ = ["binary_accuracy", "mrr", "mrr_per_edge", "mrr_sum_count", "mse", "ndcg_at_k"]

@@ -2,8 +2,9 @@
 
 MRR with TGB's tie handling: the rank of the positive among its candidates is
 the mean of the optimistic (#neg > pos) and pessimistic (#neg >= pos) ranks;
-NDCG@k for node property prediction. Mask-aware: padded candidates and
-padded batch rows are excluded. The other metrics are queued in ROADMAP.md.
+NDCG@k for node property prediction; ``binary_accuracy`` of link logits
+and ``mse`` of graph-level regression. Mask-aware: padded candidates and
+padded batch rows are excluded.
 """
 
 from __future__ import annotations
@@ -81,3 +82,35 @@ def ndcg_at_k(
         return ndcg.mean()
     w = row_valid.to(ndcg.dtype)
     return (ndcg * w).sum() / w.sum().clamp_min(1.0)
+
+
+def binary_accuracy(
+    pos_score: torch.Tensor,
+    neg_score: torch.Tensor,
+    threshold: float = 0.0,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Share of positives above ``threshold`` and negatives at or below it;
+    with ``valid``, over the valid rows of both (the pair count at least 1)."""
+    if valid is None:
+        correct = ((pos_score > threshold).float().sum()
+                   + (neg_score <= threshold).float().sum())
+        total = pos_score.numel() + neg_score.numel()
+        return correct / max(total, 1)
+    correct = (((pos_score > threshold) & valid).sum()
+               + ((neg_score <= threshold) & valid).sum())
+    return correct / (2 * valid.sum()).clamp_min(1)
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor,
+        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared error; with ``valid``, over the valid rows, a mask of
+    fewer dimensions than the error broadcasting over its trailing ones
+    (the count at least 1)."""
+    err = (pred - target) ** 2
+    if valid is None:
+        return err.mean()
+    w = valid.to(err.dtype)
+    while w.dim() < err.dim():
+        w = w[..., None]
+    return (err * w).sum() / (w.sum() * (err.numel() / w.numel())).clamp_min(1.0)

@@ -1,5 +1,5 @@
 from .base import EncoderModule
-from .decoder.decoders import LinkPredictor, NodePredictor
+from .decoder.decoders import GraphPredictor, LinkPredictor, NodePredictor
 from .decoder.ncnpred import NCNPredictor
 from .encoder.ctan import CTAN, CTANMemoryState, ctan_memory_init, ctan_memory_update
 from .encoder.dygformer import (
@@ -66,6 +66,7 @@ __all__ = [
     "GCNConv",
     "GraphAttentionEmbedding",
     "GraphAttentionEmbeddingRowwise",
+    "GraphPredictor",
     "LearnableSumMerge",
     "LinkPredictor",
     "MLPMixer",

@@ -5,11 +5,11 @@ serves fixed-width batch windows with global ``edge_ids``: the split's rows
 offset by its place in the pre-split dataset (``DGData.edge_global_offset``),
 so one full-dataset feature table serves every split.
 
-``DeviceEventStream`` serves a ``DGDataLoader``'s batch plan (edge and
-node-label windows, event- or time-ordered) from arrays uploaded once. The
-plan's offsets and counts stay on the host, so ``batch_at(i)`` only issues
-slices and masks and never waits for the card; it keeps empty batches, as
-the JAX stream's scan does.
+``DeviceEventStream`` serves a ``DGDataLoader``'s batch plan (edge,
+node-feature and node-label windows, event- or time-ordered) from arrays
+uploaded once. The plan's offsets and counts stay on the host, so
+``batch_at(i)`` only issues slices and masks and never waits for the card;
+it keeps empty batches, as the JAX stream's scan does.
 """
 
 from __future__ import annotations
@@ -75,9 +75,10 @@ class DeviceEventStream:
     """A ``DGDataLoader``'s batch plan served from arrays on the loader's device.
 
     ``batch_at(i)`` gives what the loader's ``materialize`` gives for batch
-    ``i`` at the plan's widths (``edge_ids``, ``edge_x`` and the node-label
-    fields included), plus ``num_node_labels``, the batch's label count
-    from the plan (a host int). Batches the loader skips as empty are kept.
+    ``i`` at the plan's widths (``edge_ids``, ``edge_type``, and with the
+    loader's ``materialize_features`` ``edge_x`` and the node-feature and
+    label fields), plus ``num_node_labels``, the batch's label count from
+    the plan (a host int). Batches the loader skips as empty are kept.
     """
 
     def __init__(self, loader):
@@ -98,24 +99,33 @@ class DeviceEventStream:
         self._t = up(data.edge_time.astype(np.int32), W, 0)
         ids = data.edge_global_offset + np.arange(E, dtype=np.int32)
         self._ids = up(ids.astype(np.int32), W, -1)
-        self._edge_x = None if data.edge_x is None else up(data.edge_x, W, 0.0)
+        feats = loader.materialize_features
+        self._edge_x = None if data.edge_x is None or not feats else up(data.edge_x, W, 0.0)
+        self._edge_type = (None if data.edge_type is None
+                           else up(data.edge_type.astype(np.int32), W, 0))
         self._e_off = plan.edge_offsets.tolist()
         self._e_cnt = plan.edge_counts.tolist()
         self._ar_e = torch.arange(W, device=self.device)
 
-        self._ny = None
-        if plan.node_y_offsets is not None and data.node_y_nids is not None:
-            Wy = plan.pad_node_y
-            y = data.node_y
-            self._ny = {
-                "W": Wy,
-                "nids": up(data.node_y_nids.astype(np.int32), Wy, PADDED_NODE_ID),
-                "t": up(data.node_y_time.astype(np.int32), Wy, 0),
-                "y": None if y is None else up(y, Wy, 0.0),
-                "off": plan.node_y_offsets.tolist(),
-                "cnt": plan.node_y_counts.tolist(),
-                "ar": torch.arange(Wy, device=self.device),
+        def node_windows(prefix: str):
+            """The plan's windows over one kind of node events, or None."""
+            offsets = getattr(plan, f"{prefix}_offsets")
+            nids = getattr(data, f"{prefix}_nids")
+            if not feats or offsets is None or nids is None:
+                return None
+            Wn, x = getattr(plan, f"pad_{prefix}"), getattr(data, prefix)
+            return {
+                "W": Wn,
+                "nids": up(nids.astype(np.int32), Wn, PADDED_NODE_ID),
+                "t": up(getattr(data, f"{prefix}_time").astype(np.int32), Wn, 0),
+                "x": None if x is None else up(x, Wn, 0.0),
+                "off": offsets.tolist(),
+                "cnt": getattr(plan, f"{prefix}_counts").tolist(),
+                "ar": torch.arange(Wn, device=self.device),
             }
+
+        self._nx = node_windows("node_x")
+        self._ny = node_windows("node_y")
 
     @property
     def edge_x(self) -> Optional[torch.Tensor]:
@@ -138,15 +148,19 @@ class DeviceEventStream:
         )
         if self._edge_x is not None:
             batch.edge_x = torch.where(valid[:, None], win(self._edge_x), 0.0)
-        ny = self._ny
-        if ny is not None:
-            s, Wy = ny["off"][i], ny["W"]
-            v = ny["ar"] < ny["cnt"][i]
-            wy = lambda a: a[s : s + Wy]
-            batch.node_y_time = torch.where(v, wy(ny["t"]), 0)
-            batch.node_y_nids = torch.where(v, wy(ny["nids"]), PADDED_NODE_ID)
-            if ny["y"] is not None:
-                batch.node_y = torch.where(v[:, None], wy(ny["y"]), 0.0)
-            batch.node_y_valid = v
-            batch.num_node_labels = ny["cnt"][i]
+        if self._edge_type is not None:
+            batch.edge_type = torch.where(valid, win(self._edge_type), 0)
+        for prefix, w in (("node_x", self._nx), ("node_y", self._ny)):
+            if w is None:
+                continue
+            s, Wn = w["off"][i], w["W"]
+            v = w["ar"] < w["cnt"][i]
+            wn = lambda a: a[s : s + Wn]
+            setattr(batch, f"{prefix}_time", torch.where(v, wn(w["t"]), 0))
+            setattr(batch, f"{prefix}_nids", torch.where(v, wn(w["nids"]), PADDED_NODE_ID))
+            if w["x"] is not None:
+                setattr(batch, prefix, torch.where(v[:, None], wn(w["x"]), 0.0))
+            setattr(batch, f"{prefix}_valid", v)
+        if self._ny is not None:
+            batch.num_node_labels = self._ny["cnt"][i]
         return batch

@@ -23,10 +23,11 @@ without its ``RandomProjectionModule``) and ``LinkPredictor`` or
 takes ``{"mem", "enc", "dec"}`` as the JAX TNCN example builds it (the
 TGN memory and segment encoder, and an ``NCNPredictor``).
 ``load_gcn_params``, ``load_tgcn_params``, ``load_gclstm_params`` and
-``load_roland_params`` take ``{"enc", "dec"}`` as the JAX snapshot
+``load_roland_params`` take ``{"enc", "dec"}`` as the JAX snapshot link
 examples build it (``GCN``, ``TGCN``, ``GCLSTM``, ``ROLAND`` and a
-``LinkPredictor``); ``load_flax_gru_cell`` takes a flax ``GRUCell``'s
-parameters alone.
+``LinkPredictor``), or ``{"enc", "head"}`` as the snapshot node and graph
+examples build it (the head a ``NodePredictor`` or a ``GraphPredictor``);
+``load_flax_gru_cell`` takes a flax ``GRUCell``'s parameters alone.
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone,
 ``load_mlp_mixer_params`` a flax ``MLPMixer``'s variables.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
@@ -37,8 +38,8 @@ variables and copies them into the port's. The mappings:
 * ``TorchGRUCell`` ``wi/bi/wh/bh`` -> ``weight_ih``^T / ``bias_ih`` /
   ``weight_hh``^T / ``bias_hh``;
 * ``Time2Vec`` ``w (1, T)`` / ``b (T,)`` -> ``w.weight`` (T, 1) / ``w.bias``;
-* the ``LinkPredictor`` MLP's ``Dense_0``, ``Dense_1``, ... (under ``mlp``;
-  ``_MLP_0`` for the ``NodePredictor``) -> its Linear layers in order (the
+* the ``LinkPredictor`` and ``GraphPredictor`` MLP's ``Dense_0``,
+  ``Dense_1``, ... (under ``mlp``; ``_MLP_0`` for the ``NodePredictor``) -> its Linear layers in order (the
   same for the co-occurrence encoder's MLP);
 * ``LayerNorm_i`` ``scale`` / ``bias`` -> ``LayerNorm.weight`` / ``bias``;
 * ``MultiHeadDotProductAttention_0`` ``query``/``key``/``value`` kernels
@@ -340,6 +341,11 @@ def load_tncn_params(params: Mapping[str, Any], memory: nn.Module, encoder: nn.M
     _dense(decoder.xsmlp[2], mlp["layers_2"])
 
 
+def _snapshot_head(decoder: nn.Module, params: Mapping[str, Any]) -> None:
+    """The link examples' ``"dec"``, or the node and graph examples' ``"head"``."""
+    _head(decoder, params["dec"] if "dec" in params else params["head"])
+
+
 def _gcn_conv(conv: nn.Module, p: Mapping[str, Any]) -> None:
     _dense(conv.lin, p["Dense_0"])
     _copy(conv.bias, p["bias"])
@@ -373,46 +379,46 @@ def load_flax_gru_cell(p: Mapping[str, Any], cell: nn.GRUCell) -> None:
 
 @torch.no_grad()
 def load_gcn_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a ``GCN`` and a
-    ``LinkPredictor``, in place."""
+    """Copy the flax tree ``{"enc", "dec" or "head"}`` into a ``GCN`` and its
+    head, in place."""
     enc = params["enc"]["params"]
     n_tree = sum(1 for k in enc if k.startswith("GCNConv_"))
     if n_tree != len(encoder.convs):
         raise ValueError(f"encoder has {len(encoder.convs)} layers, the tree {n_tree}")
     for i, conv in enumerate(encoder.convs):
         _gcn_conv(conv, enc[f"GCNConv_{i}"])
-    _head(decoder, params["dec"])
+    _snapshot_head(decoder, params)
 
 
 @torch.no_grad()
 def load_tgcn_params(params: Mapping[str, Any], encoder: nn.Module, decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a ``TGCN`` and a
-    ``LinkPredictor``, in place."""
+    """Copy the flax tree ``{"enc", "dec" or "head"}`` into a ``TGCN`` and its
+    head, in place."""
     enc = params["enc"]["params"]
     for g in ("u", "r", "c"):
         _gcn_conv(getattr(encoder, f"conv_{g}"), enc[f"conv_{g}"])
         _dense(getattr(encoder, f"linear_{g}"), enc[f"linear_{g}"])
-    _head(decoder, params["dec"])
+    _snapshot_head(decoder, params)
 
 
 @torch.no_grad()
 def load_gclstm_params(params: Mapping[str, Any], encoder: nn.Module,
                        decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a ``GCLSTM`` and a
-    ``LinkPredictor``, in place."""
+    """Copy the flax tree ``{"enc", "dec" or "head"}`` into a ``GCLSTM`` and
+    its head, in place."""
     enc = params["enc"]["params"]
     for g in ("i", "f", "c", "o"):
         _copy(getattr(encoder, f"W_{g}"), enc[f"W_{g}"])
         _copy(getattr(encoder, f"b_{g}"), enc[f"b_{g}"])
         _cheb_conv(getattr(encoder, f"conv_{g}"), enc[f"conv_{g}"])
-    _head(decoder, params["dec"])
+    _snapshot_head(decoder, params)
 
 
 @torch.no_grad()
 def load_roland_params(params: Mapping[str, Any], encoder: nn.Module,
                        decoder: nn.Module) -> None:
-    """Copy the flax tree ``{"enc", "dec"}`` into a ``ROLAND`` (any update
-    mechanism) and a ``LinkPredictor``, in place."""
+    """Copy the flax tree ``{"enc", "dec" or "head"}`` into a ``ROLAND`` (any
+    update mechanism) and its head, in place."""
     enc = params["enc"]["params"]
     own = {"learnable": {"tau"}, "gru": {"gru1", "gru2"}, "mlp": {"mlp1", "mlp2"}}
     extra = set(enc) - {"conv1", "conv2"}
@@ -429,4 +435,4 @@ def load_roland_params(params: Mapping[str, Any], encoder: nn.Module,
     elif encoder.update == "mlp":
         _dense(encoder.mlp1, enc["mlp1"])
         _dense(encoder.mlp2, enc["mlp2"])
-    _head(decoder, params["dec"])
+    _snapshot_head(decoder, params)
