@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
         [--only-mixer] [--only-ctan-tncn] [--only-snapshot] [--only-snapshot-tasks]
+        [--only-baselines]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -16,8 +17,9 @@ neighbour sampling, TGN with the packed recency layout, every other hook,
 GraphMixer and TPNet link prediction and TPNet node prediction, CTAN and
 TNCN link prediction, GCN, TGCN, GC-LSTM and ROLAND snapshot link
 prediction, GCN, TGCN and GC-LSTM snapshot node prediction and GCN and
-TGCN snapshot graph regression, and its hand-written CUDA kernels, in
-phases:
+TGCN snapshot graph regression, the parameter-free baselines (EdgeBank,
+PopTrack, t-CoMem and their mean with EdgeBank, base3), and its
+hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -337,7 +339,31 @@ phases:
               |w|, the weights' gap after the 100 reported), then 100 test
               predictions from the card's weights and state within 1e-4 *
               max |pred|. ``--only-snapshot-tasks`` runs phases 40-41 alone.
-42. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+42. baseline-serve: the EdgeBank (unlimited and fixed), PopTrack (k 50, decay
+              0.9) and base3 (window 0.15, k 50, weight 0.8) examples' build
+              and evaluate path on the card (``run_baseline``: val + test, 239
+              batches of 200 with 20 TGB candidates each, the predictors
+              updated by each batch whole), on the smoke's stream and on the
+              uniform-activity one of phases 38-39: ms a batch, edges/s, the
+              peak and its rise over the phase's start, host syncs a batch
+              (``torch.cuda.set_sync_debug_mode``; in all, and inside the
+              predictors' score and update), val and test MRR. Every hand
+              kernel's launches must be 0.
+43. baseline-agree: the same four over the val pass on the card and on the
+              CPU, on each stream: EdgeBank and PopTrack scores bit-equal,
+              t-CoMem's and base3's within 1e-6 * max |score|, per-edge
+              reciprocal ranks equal apart from near-tie edges (a candidate
+              tying its positive on one device only, or within one float32
+              ulp of it; counted and printed), and the states after the pass
+              exact (EdgeBank's table, popularity, the rings with their
+              cursors and lengths, the co-occurrence table, the windows).
+44. baseline-scale: EdgeBank (fixed) and t-CoMem at tgbl-review's size
+              (352,637 nodes, 4,873,540 events from ``--seed``), built on the
+              first 70%: 100 batches of 200 edges, each scored with 20
+              candidates a positive, then stored; ms a batch, the state's
+              bytes, the table's rows and the host's reads of its size.
+              ``--only-baselines`` runs phases 42-44 alone.
+45. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -345,7 +371,7 @@ phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-43. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+46. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -5301,6 +5327,332 @@ def snapshot_task_phases(np_data, seed: int, dev, card: str):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# The parameter-free baselines
+# ---------------------------------------------------------------------- #
+# (label, example module, flags): the examples' defaults, EdgeBank in both
+# memory modes.
+BASELINES = (("EdgeBank unlimited", "edgebank", ()),
+             ("EdgeBank fixed", "edgebank", ("--memory-mode", "fixed")),
+             ("PopTrack", "poptrack", ("--k", "50", "--decay", "0.9")),
+             ("base3", "base3", ("--window-ratio", "0.15", "--k", "50", "--co-occur", "0.8")))
+# tgbl-review's size: 352,637 nodes, 4,873,540 events.
+REVIEW_NODES, REVIEW_EVENTS = 352_637, 4_873_540
+SCALE_BATCHES = 100
+BASELINE_TOL = 1e-6  # t-CoMem and base3, card against CPU: * max |score|
+
+
+def _baseline_build(module: str, argv, data, cands, seed: int, device):
+    """A baseline example's ``ctx`` (its predictors built on the train
+    edges) and the example module."""
+    import importlib
+
+    ex = importlib.import_module(f"tgm_tpu_torch.examples.linkproppred.{module}")
+    args = _example_args(ex, seed, device, argv)
+    return ex.build(args, data=copy.copy(data), cands=(cands["val"], cands["test"]))
+
+
+class _SyncCount:
+    """Counts the synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
+    reports while it is active: in all, inside the wrapped functions, and by
+    the innermost line of the port that made each."""
+
+    def __enter__(self):
+        import collections
+        import warnings
+
+        self.n, self.inside, self.sites = 0, {}, collections.Counter()
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            self.n += 1
+            f = sys._getframe(1)  # the innermost frame of the port's code: a walk, no source read
+            while f is not None and "tgm_tpu_torch" not in f.f_code.co_filename:
+                f = f.f_back
+            site = "?" if f is None else (f"{f.f_code.co_filename.split('tgm_tpu_torch/')[-1]}:"
+                                          f"{f.f_lineno}")
+            self.sites[site] += 1
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+
+    def count(self) -> int:
+        return self.n
+
+    def wrap(self, name: str, fn):
+        self.inside[name] = 0
+
+        def counted(*args):
+            n0 = self.n
+            out = fn(*args)
+            self.inside[name] += self.n - n0
+            return out
+
+        return counted
+
+
+def baseline_serve_phase(data, cands, stream: str, seed: int, dev, card: str):
+    """Each baseline through its example's evaluate path on the card: the
+    predictors built on the train edges, then val and test through the TGB
+    candidate hooks (``run_baseline``). ms a batch, edges/s, the peak and
+    its rise over the phase's start, host syncs a batch (in all, and inside
+    the predictors' score and update), MRR; no hand kernel may launch.
+    Returns each path's launches under its ``kernels``-line key."""
+    from tgm_tpu_torch.examples import _linkpred_common as common
+
+    # The stream and the TGB hook alone: every batch through the same hook
+    # pipeline with a step that scores nothing.
+    ctx = _baseline_build("poptrack", (), data, cands, seed, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_batches = 0
+    for split in ("val", "test"):
+        common.run_split(ctx.setup, split, lambda batch: batch.edge_valid)
+        n_batches += ctx.setup.streams[split].num_batches
+    torch.cuda.synchronize()
+    log("baseline-serve", f"{stream} stream: the stream and TGB hook alone "
+                          f"{(time.perf_counter() - t0) / n_batches * 1e3:.3f} ms a batch [{card}]")
+    del ctx
+
+    out = {}
+    for label, module, argv in BASELINES:
+        base = _reset_peak()
+        t0 = time.perf_counter()
+        ctx = _baseline_build(module, argv, data, cands, seed, dev)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        s = ctx.setup
+        n_batches = s.streams["val"].num_batches + s.streams["test"].num_batches
+        n_edges = s.streams["val"].num_edges + s.streams["test"].num_edges
+        reset_launches()
+        with _SyncCount() as syncs:
+            score, update = syncs.wrap("score", ctx.score), syncs.wrap("update", ctx.update)
+            t0 = time.perf_counter()
+            res = common.run_baseline(s, score, update)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_sync = syncs.count()
+        launches = read_launches()
+        check_launches(f"{label} ({stream})", launches, {}, 1)
+        for split in ("val", "test"):
+            rr = res[f"{split}_rr"]
+            if rr.numel() != s.streams[split].num_edges or not torch.isfinite(rr).all():
+                raise AssertionError(f"{label} ({stream}) {split}: reciprocal ranks malformed")
+            if not 0.0 < res[f"{split}_mrr"] <= 1.0:
+                raise AssertionError(f"{label} ({stream}) {split} MRR {res[f'{split}_mrr']}")
+        log("baseline-serve", f"{label} ({stream} stream): built in {built:.3f} s; val + test "
+                              f"{n_batches} batches of {BATCH} ({n_edges} edges, {NUM_CANDIDATES} "
+                              f"candidates) in {dt:.3f} s, ms_per_batch={dt / n_batches * 1e3:.3f} "
+                              f"edges_per_s={n_edges / dt:.0f}; host syncs {n_sync} "
+                              f"({n_sync / n_batches:.2f} a batch; score {syncs.inside['score']}, "
+                              f"update {syncs.inside['update']}; by site {dict(syncs.sites)}); "
+                              f"val_mrr={res['val_mrr']:.6f} "
+                              f"test_mrr={res['test_mrr']:.6f}; {_peak_line(base)}; "
+                              f"launches={launches} [{card}]")
+        key = module if module != "edgebank" else "edgebank_" + ("fixed" if argv else "unlimited")
+        out[f"launches_baseline_{key}" + ("" if stream == "zipf" else f"_{stream}")] = launches
+    return out
+
+
+def _baseline_state(ctx):
+    """A baseline ctx's predictor state, on the CPU, by name."""
+    out = {}
+    for name in ("model", "edgebank", "tcomem"):
+        m = getattr(ctx, name, None)
+        if m is None:
+            continue
+        if hasattr(m, "memory"):
+            out[f"{name}.memory"] = m.memory.items()
+        if hasattr(m, "co_occurrence"):
+            out[f"{name}.co_occurrence"] = m.co_occurrence.items()
+        for f in ("popularity", "recent_ts", "recent_dst", "recent_len", "recent_pos"):
+            if hasattr(m, f):
+                out[f"{name}.{f}"] = getattr(m, f)
+        for f in ("_window_start", "_window_end"):
+            if hasattr(m, f):
+                out[f"{name}.{f}"] = getattr(m, f)
+    return {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu()
+            for k, v in out.items()}
+
+
+def _near_ties(pos_a, neg_a, pos_b, neg_b, valid):
+    """Edges with a valid candidate that ties its positive on one device
+    only, or lies within one float32 ulp of it without tying on either."""
+    def near(pos, neg):
+        gap = (neg - pos[:, None]).abs()
+        ulp = torch.from_numpy(np.spacing(pos.abs().numpy()))[:, None]
+        return (gap > 0) & (gap <= ulp), gap == 0
+
+    na, ta = near(pos_a, neg_a)
+    nb, tb = near(pos_b, neg_b)
+    return ((na | nb | (ta != tb)) & valid).any(1)
+
+
+def baseline_agree_phase(data, cands, stream: str, seed: int, dev, card: str):
+    """Each baseline over the val pass on the card and on the CPU (the same
+    port code): EdgeBank and PopTrack scores bit-equal, t-CoMem's and
+    base3's within ``BASELINE_TOL`` * max |score|, per-edge reciprocal
+    ranks equal apart from near-tie edges (counted), and the predictors'
+    states after the pass exact."""
+    from tgm_tpu_torch.examples import _linkpred_common as common
+
+    for label, module, argv in BASELINES:
+        t0 = time.perf_counter()
+        runs = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            ctx = _baseline_build(module, argv, data, cands, seed, device)
+            scores, tc_scores = [], []
+
+            def score(src, dst, ctx=ctx, scores=scores, tc_scores=tc_scores):
+                out = ctx.score(src, dst)
+                scores.append(out.cpu())
+                if hasattr(ctx, "tcomem"):
+                    tc_scores.append(ctx.tcomem(src, dst).cpu())
+                return out
+
+            rr, valid = common.run_split(ctx.setup, "val", common.baseline_batch(score, ctx.update))
+            B = ctx.setup.streams["val"].batch_size
+            sc = torch.stack(scores)
+            runs[key] = dict(
+                rr=rr.cpu().reshape(-1), valid=valid.cpu().reshape(-1), scores=sc,
+                pos=sc[:, :B].reshape(-1), neg=sc[:, B:].reshape(-1, NUM_CANDIDATES),
+                tc=torch.stack(tc_scores) if tc_scores else None,
+                state=_baseline_state(ctx))
+        g, c = runs["card"], runs["cpu"]
+        exact = module != "base3"
+        gaps = []
+        for what in ("scores", "tc"):
+            if g[what] is None:
+                continue
+            gap = float((g[what] - c[what]).abs().max())
+            tol = 0.0 if exact else BASELINE_TOL * float(c[what].abs().max().clamp_min(1.0))
+            if gap > tol:
+                raise AssertionError(f"baseline-agree {label}: {what} differ by {gap:.3g} "
+                                     f"(allowed {tol:.3g})")
+            gaps.append(f"{what} max gap {gap:.3g} (allowed {tol:.3g})")
+        if not torch.equal(g["valid"], c["valid"]):
+            raise AssertionError(f"baseline-agree {label}: edge masks differ")
+        valid = g["valid"]
+        cand_valid = torch.ones_like(g["neg"], dtype=torch.bool)  # synthetic lists: no padding
+        ties = _near_ties(g["pos"], g["neg"], c["pos"], c["neg"], cand_valid) & valid
+        differ = (g["rr"] != c["rr"]) & valid
+        if (differ & ~ties).any():
+            raise AssertionError(f"baseline-agree {label}: {int((differ & ~ties).sum())} ranks "
+                                 f"differ off near-tie edges")
+        if exact and differ.any():
+            raise AssertionError(f"baseline-agree {label}: ranks differ on exact scores")
+        for k, want in c["state"].items():
+            got = g["state"][k]
+            same = (all(torch.equal(a, b) for a, b in zip(got, want)) if isinstance(want, tuple)
+                    else torch.equal(got, want))
+            if not same:
+                raise AssertionError(f"baseline-agree {label}: state {k} differs")
+        log("baseline-agree", f"{label} ({stream} stream): {int(valid.sum())} val edges card vs "
+                              f"CPU: "
+                              f"{'; '.join(gaps)}; {int(ties.sum())} near-tie edges, "
+                              f"{int(differ.sum())} ranks differ; states exact "
+                              f"({', '.join(sorted(c['state']))}); "
+                              f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def build_review_stream(seed: int):
+    """tgbl-review's size: 4,873,540 (user, item) events over 352,637 nodes
+    (a zipf(1.5) item popularity), epoch-second times, from ``seed``."""
+    rng = np.random.default_rng(seed + 2)
+    n_items = REVIEW_NODES // 8
+    src = rng.integers(n_items, REVIEW_NODES, REVIEW_EVENTS)
+    pop = rng.zipf(1.5, n_items).astype(np.float64)
+    pop /= pop.sum()
+    dst = rng.choice(n_items, REVIEW_EVENTS, p=pop)
+    t = 929_232_000 + np.sort(rng.integers(0, 609_120_000, REVIEW_EVENTS))
+    return src, dst, t, pop
+
+
+def baseline_scale_phase(seed: int, dev, card: str):
+    """EdgeBank (fixed) and t-CoMem at tgbl-review's size on the card, built
+    on the first 70% of the events: ``SCALE_BATCHES`` batches of 200 edges,
+    each scored with 20 candidates a positive, then stored; ms a batch, the
+    state's bytes and the host's reads of a table's size."""
+    from tgm_tpu_torch.nn.modules.edgebank import EdgeBankPredictor
+    from tgm_tpu_torch.nn.modules.t_comem import tCoMemPredictor
+
+    t0 = time.perf_counter()
+    src, dst, t, pop = build_review_stream(seed)
+    n0 = int(REVIEW_EVENTS * 0.7)
+    rng = np.random.default_rng(seed + 3)
+    n_q = SCALE_BATCHES * BATCH
+    cand = torch.from_numpy(rng.choice(len(pop), (n_q, NUM_CANDIDATES), p=pop)).to(dev)
+    edges = [torch.from_numpy(x[n0 : n0 + n_q]).to(dev) for x in (src, dst, t)]
+    log("baseline-scale", f"stream {REVIEW_NODES} nodes, {REVIEW_EVENTS} events built in "
+                          f"{time.perf_counter() - t0:.1f} s; predictors on the first {n0} [{card}]")
+    for label, make in (
+        ("EdgeBank fixed", lambda: EdgeBankPredictor(src[:n0], dst[:n0], t[:n0],
+                                                     memory_mode="fixed", device=dev)),
+        ("t-CoMem", lambda: tCoMemPredictor(src[:n0], dst[:n0], t[:n0], num_nodes=REVIEW_NODES,
+                                            k=50, device=dev)),
+    ):
+        base = _reset_peak()
+        t0 = time.perf_counter()
+        model = make()
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        table = model.memory if hasattr(model, "memory") else model.co_occurrence
+        reads = -table.size_reads
+        reset_launches()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SCALE_BATCHES):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            s_, d_, t_ = (e[sl] for e in edges)
+            outs.append(model(torch.cat([s_, s_.repeat_interleave(NUM_CANDIDATES)]),
+                              torch.cat([d_, cand[sl].reshape(-1)])))
+            model.update(s_, d_, t_)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_launches(f"{label} at scale", read_launches(), {}, 1)
+        scores = torch.stack(outs)
+        if not torch.isfinite(scores).all() or float(scores.min()) < 0:
+            raise AssertionError(f"{label} at scale: scores not finite or negative")
+        state = [v for v in vars(model).values() if isinstance(v, torch.Tensor)]
+        state_b = sum(v.numel() * v.element_size() for v in state if v._base is None)
+        table_b = (table._keys.numel() + table._vals.numel()) * 8
+        reads += table.size_reads
+        rows = table.size()
+        log("baseline-scale", f"{label}: built in {built:.3f} s; {SCALE_BATCHES} batches "
+                              f"(score {BATCH * (1 + NUM_CANDIDATES)} queries, store {BATCH} edges) "
+                              f"in {dt:.3f} s, ms_per_batch={dt / SCALE_BATCHES * 1e3:.3f}; state "
+                              f"{(state_b + table_b) / 2**30:.3f} GiB (table {table_b / 2**30:.3f} "
+                              f"GiB: {rows} of {table.capacity} rows in use); size reads "
+                              f"{reads} in the batches; "
+                              f"mean score {float(scores.mean()):.6f}; {_peak_line(base)} [{card}]")
+        del model, table, outs, scores
+
+
+def baseline_phases(data, cands, seed: int, dev, card: str):
+    """baseline-serve and baseline-agree on the smoke stream and on the
+    uniform one, then baseline-scale; returns each serve path's launches
+    under its ``kernels``-line key."""
+    t0 = time.perf_counter()
+    u_data, u_cands = build_uniform_stream(data, seed)
+    out = {}
+    for stream, d, c in (("zipf", data, cands), ("uniform", u_data, u_cands)):
+        out.update(baseline_serve_phase(d, c, stream, seed, dev, card))
+        baseline_agree_phase(d, c, stream, seed, dev, card)
+    baseline_scale_phase(seed, dev, card)
+    log("baseline-scale", f"the baseline phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5334,6 +5686,9 @@ def main() -> int:
     ap.add_argument("--only-snapshot-tasks", action="store_true",
                     help="build, run the snap-task and snap-task-agree phases and stop (no "
                     "result lines)")
+    ap.add_argument("--only-baselines", action="store_true",
+                    help="build, run the baseline-serve, baseline-agree and baseline-scale phases "
+                    "and stop (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -5404,6 +5759,10 @@ def main() -> int:
     if args.only_snapshot_tasks:
         snapshot_task_phases(build_np_stream(), args.seed, dev, card)
         return 0
+    if args.only_baselines:
+        data, _, _, _, cands = build_stream(args.seed)
+        baseline_phases(data, cands, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -5458,6 +5817,7 @@ def main() -> int:
     hook_paths.update(ctan_tncn_phases(data, cands, args.seed, dev, card))
     hook_paths.update(snapshot_phases(data, cands, args.seed, dev, card))
     hook_paths.update(snapshot_task_phases(np_data, args.seed, dev, card))
+    hook_paths.update(baseline_phases(data, cands, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
@@ -5501,7 +5861,8 @@ def main() -> int:
     # train epoch and its val + test eval, the packed recency layout's
     # hook-route train epoch and val + test eval and its pipeline's, the
     # GraphMixer, TPNet, CTAN and TNCN examples' train epochs and val + test
-    # evals, and the snapshot examples' train epoch with val and test.
+    # evals, the snapshot examples' train epoch with val and test, and the
+    # baselines' val + test passes on both streams.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"],

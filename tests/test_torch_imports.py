@@ -55,7 +55,16 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.nodeproppred.persistant_forecast",
              "tgm_tpu_torch.examples.graphproppred.gcn",
              "tgm_tpu_torch.examples.graphproppred.tgcn",
-             "tgm_tpu_torch.examples.graphproppred.persistant_forecast"):
+             "tgm_tpu_torch.examples.graphproppred.persistant_forecast",
+             "tgm_tpu_torch.nn.modules.edgebank", "tgm_tpu_torch.nn.modules.poptrack",
+             "tgm_tpu_torch.nn.modules.t_comem", "tgm_tpu_torch.nn.modules.pair_table",
+             "tgm_tpu_torch.data.tgb", "tgm_tpu_torch.util.seed", "tgm_tpu_torch.util.logging",
+             "tgm_tpu_torch.examples.linkproppred.edgebank",
+             "tgm_tpu_torch.examples.linkproppred.poptrack",
+             "tgm_tpu_torch.examples.linkproppred.base3",
+             "tgm_tpu_torch.examples.linkproppred.tgb_seq.edgebank",
+             "tgm_tpu_torch.examples.linkproppred.thgl.edgebank",
+             "tgm_tpu_torch.examples.linkproppred.tkgl.edgebank"):
     assert name in names, names
 print("imported", len(names))
 """

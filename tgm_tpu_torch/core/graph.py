@@ -20,6 +20,7 @@ import torch
 from ..constants import PADDED_NODE_ID
 from ..device import DeviceLike, resolve_device
 from ..timedelta import TimeDeltaDG
+from ..util.logging import log_latency
 from ._storage import DGSliceTracker, DGStorage
 from .batch import DGBatch
 
@@ -81,6 +82,7 @@ class DGraph:
         return obj
 
     # ------------------------------------------------------------------ #
+    @log_latency
     def materialize(
         self,
         materialize_features: bool = True,

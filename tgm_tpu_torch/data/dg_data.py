@@ -5,17 +5,20 @@ events (``node_x_*``) and node-label events (``node_y_*``), edge and node
 types; ``DGData.from_raw`` with its validation, the sorted unified timeline
 (a stable sort keeps edges, then node features, then labels at equal
 times), ``split()``, ``discretize()``, ``clone()``, ``num_nodes``,
-``edge_x``, ``static_node_x`` and ``edge_global_offset``. The CSV, pandas
-and TGB constructors are queued in ROADMAP.md. Everything here is numpy on
-the host; device upload happens once, in ``train.stream``.
+``edge_x``, ``static_node_x`` and ``edge_global_offset``; the pandas and
+CSV constructors (``from_pandas``, ``from_csv``) and the TGB and TGB-Seq
+loaders (``from_tgb``, ``from_tgb_seq``, in ``data/tgb.py``). Everything
+here is numpy on the host; device upload happens once, in
+``train.stream``.
 """
 
 from __future__ import annotations
 
 import copy
+import pathlib
 import warnings
 from dataclasses import dataclass, fields, replace
-from typing import Any, Optional, Tuple, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -27,6 +30,7 @@ from ..exceptions import (
     InvalidNodeIDError,
 )
 from ..timedelta import TimeDeltaDG
+from ..util.logging import log_latency
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -289,6 +293,7 @@ class DGData:
             raise ValueError("Cannot override split strategy for TGB datasets")
         return strategy.apply(self)
 
+    @log_latency
     def discretize(self, time_delta: Union[TimeDeltaDG, str, None],
                    reduce_op: str = "first") -> "DGData":
         """Coarsen the timeline into buckets of ``time_delta``.
@@ -409,3 +414,124 @@ class DGData:
             node_type=node_type,
             **masks,
         )
+
+    @classmethod
+    def from_pandas(
+        cls,
+        edge_df,
+        edge_src_col: str,
+        edge_dst_col: str,
+        edge_time_col: str,
+        edge_x_col: Optional[List[str]] = None,
+        node_x_df=None,
+        node_x_nids_col: Optional[str] = None,
+        node_x_time_col: Optional[str] = None,
+        node_x_col: Optional[List[str]] = None,
+        node_y_df=None,
+        node_y_nids_col: Optional[str] = None,
+        node_y_time_col: Optional[str] = None,
+        node_y_col: Optional[List[str]] = None,
+        static_node_x_df=None,
+        static_node_x_col: Optional[List[str]] = None,
+        time_delta: Union[TimeDeltaDG, str] = "r",
+        edge_type_col: Optional[str] = None,
+        node_type_col: Optional[str] = None,
+    ) -> "DGData":
+        """Build from data frames: anything whose ``df[col].to_numpy(dtype)``
+        gives a column (or, for a list of names, a 2-D block); pandas itself
+        is not imported."""
+        edge_index = np.stack([edge_df[edge_src_col].to_numpy(np.int64),
+                               edge_df[edge_dst_col].to_numpy(np.int64)], axis=1)
+        edge_time = edge_df[edge_time_col].to_numpy(np.int64)
+        edge_x = None if edge_x_col is None else edge_df[edge_x_col].to_numpy(np.float32)
+        edge_type = None if edge_type_col is None else edge_df[edge_type_col].to_numpy(np.int64)
+
+        def node_triplet(df, nids_col, time_col, feat_cols, what):
+            if df is None:
+                return None, None, None
+            if nids_col is None or time_col is None:
+                raise ValueError(f"specified {what} df without node id / time columns")
+            x = None if feat_cols is None else df[feat_cols].to_numpy(np.float32)
+            return df[time_col].to_numpy(np.int64), df[nids_col].to_numpy(np.int64), x
+
+        node_x_time, node_x_nids, node_x = node_triplet(
+            node_x_df, node_x_nids_col, node_x_time_col, node_x_col, "node_x")
+        node_y_time, node_y_nids, node_y = node_triplet(
+            node_y_df, node_y_nids_col, node_y_time_col, node_y_col, "node_y")
+
+        static_node_x = node_type = None
+        if static_node_x_df is not None:
+            if static_node_x_col is None and node_type_col is None:
+                raise ValueError(
+                    "specified static_node_x_df without static_node_x_col / node_type_col")
+            if static_node_x_col is not None:
+                static_node_x = static_node_x_df[static_node_x_col].to_numpy(np.float32)
+            if node_type_col is not None:
+                node_type = static_node_x_df[node_type_col].to_numpy(np.int64)
+
+        return cls.from_raw(
+            time_delta=time_delta, edge_time=edge_time, edge_index=edge_index, edge_x=edge_x,
+            node_x_time=node_x_time, node_x_nids=node_x_nids, node_x=node_x,
+            node_y_time=node_y_time, node_y_nids=node_y_nids, node_y=node_y,
+            static_node_x=static_node_x, edge_type=edge_type, node_type=node_type,
+        )
+
+    @classmethod
+    def from_csv(
+        cls,
+        edge_file_path: Union[str, pathlib.Path],
+        edge_src_col: str,
+        edge_dst_col: str,
+        edge_time_col: str,
+        edge_x_col: Optional[List[str]] = None,
+        node_x_file_path: Optional[Union[str, pathlib.Path]] = None,
+        node_x_nids_col: Optional[str] = None,
+        node_x_time_col: Optional[str] = None,
+        node_x_col: Optional[List[str]] = None,
+        node_y_file_path: Optional[Union[str, pathlib.Path]] = None,
+        node_y_nids_col: Optional[str] = None,
+        node_y_time_col: Optional[str] = None,
+        node_y_col: Optional[List[str]] = None,
+        static_node_x_file_path: Optional[Union[str, pathlib.Path]] = None,
+        static_node_x_col: Optional[List[str]] = None,
+        time_delta: Union[TimeDeltaDG, str] = "r",
+        edge_type_col: Optional[str] = None,
+        node_type_col: Optional[str] = None,
+    ) -> "DGData":
+        """Build from CSV files with pandas' reader (``from_pandas`` on the
+        frames). pandas is imported here only: the rest of the package runs
+        without it."""
+        import pandas as pd
+
+        def maybe_read(p):
+            return None if p is None else pd.read_csv(str(p))
+
+        return cls.from_pandas(
+            edge_df=pd.read_csv(str(edge_file_path)), edge_src_col=edge_src_col,
+            edge_dst_col=edge_dst_col, edge_time_col=edge_time_col, edge_x_col=edge_x_col,
+            node_x_df=maybe_read(node_x_file_path), node_x_nids_col=node_x_nids_col,
+            node_x_time_col=node_x_time_col, node_x_col=node_x_col,
+            node_y_df=maybe_read(node_y_file_path), node_y_nids_col=node_y_nids_col,
+            node_y_time_col=node_y_time_col, node_y_col=node_y_col,
+            static_node_x_df=maybe_read(static_node_x_file_path),
+            static_node_x_col=static_node_x_col, time_delta=time_delta,
+            edge_type_col=edge_type_col, node_type_col=node_type_col,
+        )
+
+    @classmethod
+    def from_tgb(cls, name: str, time_delta: Union[TimeDeltaDG, str, None] = None,
+                 **kwargs) -> "DGData":
+        """A TGB dataset (tgbl-, tgbn-, tkgl-, thgl-) from the optional
+        ``py-tgb`` package, with its official split as a ``TGBSplit``."""
+        from .tgb import load_tgb
+
+        return load_tgb(cls, name, time_delta=time_delta, **kwargs)
+
+    @classmethod
+    def from_tgb_seq(cls, name: str, time_delta: Union[TimeDeltaDG, str, None] = None,
+                     **kwargs) -> "DGData":
+        """A TGB-Seq dataset from the optional ``tgb-seq`` package, with its
+        official split as a ``TGBSplit``."""
+        from .tgb import load_tgb_seq
+
+        return load_tgb_seq(cls, name, time_delta=time_delta, **kwargs)

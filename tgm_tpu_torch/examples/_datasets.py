@@ -1,16 +1,17 @@
-"""Example datasets (port of the synthetic branch of ``examples/_datasets.py``).
+"""Example datasets (port of ``examples/_datasets.py``).
 
+A TGB name loads through ``DGData.from_tgb`` (the optional ``py-tgb``
+package), with no candidate arrays: the TGB hooks then load the package's.
 ``synthetic[-N-E]`` generates a reproducible interaction stream shaped like
 tgbl-wiki (default N = 1,000 nodes, E = 20,000 events, 172-dim edge
 features) with power-law node activity, a TGB-style 70/15/15 split over
 time and pre-generated negative candidates for val and test;
-``node_label_classes > 0`` adds tgbn-style node-label events. Real TGB
-datasets are queued in ROADMAP.md.
+``node_label_classes > 0`` adds tgbn-style node-label events.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -21,7 +22,7 @@ from ..data.split import TGBSplit
 def load_dataset(
     name: str, num_negatives: int = 20, edge_dim: int = 172, seed: int = 0,
     node_label_classes: int = 0,
-) -> Tuple[DGData, np.ndarray, np.ndarray]:
+) -> Tuple[DGData, Optional[np.ndarray], Optional[np.ndarray]]:
     """Return (data, val_candidates, test_candidates).
 
     ``node_label_classes > 0`` attaches node-label events: the source of
@@ -30,10 +31,7 @@ def load_dataset(
     random numbers, so the edges and candidates stay as they are.
     """
     if not name.startswith("synthetic"):
-        raise NotImplementedError(
-            f"dataset {name!r}: only synthetic[-N-E] is ported; loading TGB datasets "
-            "(data/tgb.py) is queued in ROADMAP.md"
-        )
+        return DGData.from_tgb(name), None, None
     parts = name.split("-")
     n_nodes = int(parts[1]) if len(parts) > 1 else 1000
     n_events = int(parts[2]) if len(parts) > 2 else 20000

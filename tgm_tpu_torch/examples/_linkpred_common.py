@@ -8,7 +8,8 @@ negatives for train, TGB candidates for val and test) and one
 then val, the hooks reset between epochs), then test, around step
 functions the example provides; the examples register their own neighbour
 hooks on ``setup.hm``. Each split runs through its key's hook
-pipeline batch by batch (``hook_epoch``), on ``args.device``.
+pipeline batch by batch (``hook_epoch``), on ``args.device``. The
+parameter-free baselines run val and test alone (``run_baseline``).
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import torch
 from ..core.graph import DGraph
 from ..data.dg_data import DGData
 from ..device import resolve_device
+from ..eval.metrics import mrr_per_edge
 from ..hooks import HookManager, RandomNegativeEdgeSamplerHook, TGBNegativeEdgeSamplerHook
 from ..train import DeviceEdgeStream, hook_epoch
+from ..util.seed import seed_everything
 from ._datasets import load_dataset
 
 SPLITS = ("train", "val", "test")
@@ -65,14 +68,18 @@ class LinkPredSetup:
 
 
 def setup_linkpred(args, static_dim: int = 1, data: Optional[DGData] = None,
-                   cands=None) -> LinkPredSetup:
-    """The dataset ``args.dataset`` names (or ``data`` with ``cands``, its val
-    and test candidates), static node features ``normal(N, static_dim)`` from
-    ``args.seed`` where it has none, the hook manager and the streams."""
+                   cands=None, load: Callable = load_dataset,
+                   neg_hook: type = TGBNegativeEdgeSamplerHook) -> LinkPredSetup:
+    """The dataset ``load(args.dataset)`` gives (or ``data`` with ``cands``,
+    its val and test candidates), static node features ``normal(N,
+    static_dim)`` from ``args.seed`` where it has none, the hook manager and
+    the streams. Val and test take their candidates from ``neg_hook`` (a
+    TGB candidate hook class), given the arrays, or, where ``load`` gives
+    none, loaded from the TGB package for ``args.dataset``."""
     dev = resolve_device(args.device)
-    torch.manual_seed(args.seed)
+    seed_everything(args.seed)
     if data is None:
-        data, val_cands, test_cands = load_dataset(args.dataset)
+        data, val_cands, test_cands = load(args.dataset)
     else:
         val_cands, test_cands = cands
     if data.static_node_x is None:
@@ -85,9 +92,11 @@ def setup_linkpred(args, static_dim: int = 1, data: Optional[DGData] = None,
     neg_hooks = {
         "train": RandomNegativeEdgeSamplerHook(low=int(dst.min()), high=int(dst.max()),
                                                device=dev, seed=args.seed),
-        "val": TGBNegativeEdgeSamplerHook(val_cands, device=dev, seed=args.seed),
-        "test": TGBNegativeEdgeSamplerHook(test_cands, device=dev, seed=args.seed),
     }
+    for split, c in (("val", val_cands), ("test", test_cands)):
+        neg_hooks[split] = (
+            neg_hook(c, device=dev, seed=args.seed) if c is not None
+            else neg_hook(dataset_name=args.dataset, split_mode=split, device=dev, seed=args.seed))
     for key, h in neg_hooks.items():
         hm.register(key, h)
     setup = LinkPredSetup(data=data, train_dg=train_dg, val_dg=val_dg, test_dg=test_dg, hm=hm,
@@ -107,6 +116,41 @@ def run_split(setup: LinkPredSetup, split: str, batch_fn: Callable[[Any], Any]):
     _, states, outs = epoch(None, states)
     setup.hm.adopt_states(split, states)
     return outs
+
+
+def baseline_batch(score: Callable, update: Callable) -> Callable:
+    """The per-batch step of a parameter-free baseline: ``score(src, dst)``
+    over each positive and its TGB candidates in one call, each edge's
+    reciprocal rank (``mrr_per_edge``, padded candidates masked), then
+    ``update(src, dst, t)`` with the whole batch (the predictors skip its
+    padding rows). Returns ``(rr, edge_valid)``; nothing waits for the card."""
+
+    def step(batch):
+        src, dst, cands = batch.edge_src, batch.edge_dst, batch.neg_batch_list
+        B, Q = cands.shape
+        s = score(torch.cat([src, src.repeat_interleave(Q)]), torch.cat([dst, cands.reshape(-1)]))
+        rr = mrr_per_edge(s[:B], s[B:].reshape(B, Q), neg_valid=batch.neg_valid)
+        update(src, dst, batch.edge_time)
+        return rr, batch.edge_valid
+
+    return step
+
+
+def run_baseline(setup: LinkPredSetup, score: Callable, update: Callable) -> Dict[str, Any]:
+    """Val then test through ``baseline_batch``: each split's reciprocal
+    ranks of its valid edges (``{split}_rr``, on the device) and MRR, and
+    the events a second over both."""
+    out: Dict[str, Any] = {}
+    t0 = time.perf_counter()
+    for split in ("val", "test"):
+        rr, valid = run_split(setup, split, baseline_batch(score, update))
+        out[f"{split}_rr"] = rr[valid]  # waits for the card
+        out[f"{split}_mrr"] = float(out[f"{split}_rr"].double().mean())
+    dt = time.perf_counter() - t0
+    n = setup.streams["val"].num_edges + setup.streams["test"].num_edges
+    out["events_per_s"] = n / dt
+    print(f"val_mrr={out['val_mrr']:.4f} test_mrr={out['test_mrr']:.4f} events/s={n / dt:.0f}")
+    return out
 
 
 def run_epochs(
@@ -167,4 +211,5 @@ def run_epochs(
     return out
 
 
-__all__ = ["LinkPredSetup", "base_parser", "run_epochs", "run_split", "setup_linkpred"]
+__all__ = ["LinkPredSetup", "base_parser", "baseline_batch", "run_baseline", "run_epochs",
+           "run_split", "setup_linkpred"]

@@ -31,7 +31,10 @@ examples build it (the head a ``NodePredictor`` or a ``GraphPredictor``);
 ``load_tgn_memory_params`` takes the ``"mem"`` subtree alone,
 ``load_mlp_mixer_params`` a flax ``MLPMixer``'s variables.
 ``load_learnable_sum_merge`` takes a flax ``LearnableSumMerge``'s
-variables and copies them into the port's. The mappings:
+variables and copies them into the port's. The parameter-free baselines
+(EdgeBank, PopTrack, t-CoMem) have no parameters to carry across: each
+predictor's state is built from the same edge arrays in both packages, and
+the tests compare the states directly. The mappings:
 
 * Dense ``kernel (in, out)`` -> ``Linear.weight`` = kernel^T, ``bias`` -> ``bias``
   (``lin_edge`` has no bias);
