@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
         [--only-mixer] [--only-ctan-tncn] [--only-snapshot] [--only-snapshot-tasks]
-        [--only-baselines]
+        [--only-baselines] [--only-chunked]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -18,8 +18,10 @@ GraphMixer and TPNet link prediction and TPNet node prediction, CTAN and
 TNCN link prediction, GCN, TGCN, GC-LSTM and ROLAND snapshot link
 prediction, GCN, TGCN and GC-LSTM snapshot node prediction and GCN and
 TGCN snapshot graph regression, the parameter-free baselines (EdgeBank,
-PopTrack, t-CoMem and their mean with EdgeBank, base3), and its
-hand-written CUDA kernels, in phases:
+PopTrack, t-CoMem and their mean with EdgeBank, base3), TGN training
+chunk-streamed from the host (``ChunkedEdgeStream``, ``chunked_hook_epoch``)
+with the C++ host sorts of the data layer, and its hand-written CUDA
+kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -363,7 +365,31 @@ hand-written CUDA kernels, in phases:
               candidates a positive, then stored; ms a batch, the state's
               bytes, the table's rows and the host's reads of its size.
               ``--only-baselines`` runs phases 42-44 alone.
-45. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+45. native:    the C++ host library (``tgm_tpu_torch.native``) must build and
+              load; the stable time sort of the smoke stream's 157,474 events
+              shuffled and the (node, time) lexsort of their 314,948 directed
+              entries, exact against numpy; ms of each, C++ and numpy.
+46. chunk-train: TGN link-prediction training at full width (rowwise cores,
+              memory, embed and time 100, 2 heads, K = 10, random negatives,
+              Adam at 1e-4, no dropout, as ``bench_large.py`` runs it) over the
+              train split with the recency hook in the feature layout, one
+              epoch through ``chunked_hook_epoch`` with 50-batch chunks (11 at
+              seed 0) in fp32 transit and one in bf16 transit, between two
+              through the resident ``DeviceEdgeStream`` and ``hook_epoch``: ms
+              a batch, the chunk's bytes, resident / chunked epoch time against
+              each resident run, the peak's rise over
+              ``memory_allocated()`` at the reset (streams built after it), and
+              launches: K4 once, the push twice and the store commit once a
+              batch. The chunked streams must keep two pinned one-chunk
+              staging buffers, leave the host table unpinned and hold at most
+              two chunks at any upload.
+47. chunk-agree: the fp32 chunked epoch's recency ring and write
+              positions and the store's integer fields exact against the
+              first resident epoch; its losses and memory bit-equal to it if
+              the two resident runs are bit-equal, else the first loss
+              within 1e-5, the rest within 5e-3 and the memory within 1e-4.
+              ``--only-chunked`` runs phases 45-47 alone.
+48. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -371,7 +397,7 @@ hand-written CUDA kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-46. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+49. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -388,9 +414,11 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -5653,6 +5681,207 @@ def baseline_phases(data, cands, seed: int, dev, card: str):
     return out
 
 
+
+# ---------------------------------------------------------------------- #
+# The C++ host sorts and chunk-streamed TGN training
+# ---------------------------------------------------------------------- #
+CHUNK_BATCHES = 50  # batches a chunk: 11 chunks over the 550 train batches
+NATIVE_REPEATS = 3
+
+
+def _best_ms(fn, n: int = NATIVE_REPEATS):
+    """The result of ``fn()`` and the least of ``n`` host-clock runs in ms."""
+    times, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, min(times)
+
+
+def native_phase(data, seed: int, card: str) -> None:
+    """The C++ sorts of the data layer: built, loaded, exact and timed."""
+    from tgm_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError(f"native: the C++ host library did not build: {native.build_error}")
+    log("native", f"built (g++, at first use) and loaded in {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(len(data.time))
+    t = np.ascontiguousarray(data.time[perm]).astype(np.int64)
+    ei = data.edge_index[perm]
+    nodes = np.stack([ei[:, 0], ei[:, 1]], axis=1).ravel().astype(np.int64)
+    times = np.repeat(t, 2)
+    cases = (
+        (f"stable time sort of {len(t):,} shuffled events",
+         lambda: native.stable_sort_perm(t), lambda: np.argsort(t, kind="stable")),
+        (f"(node, time) lexsort of {len(nodes):,} directed entries",
+         lambda: native.lexsort2_perm(nodes, times), lambda: np.lexsort((times, nodes))),
+    )
+    for label, cxx, ref in cases:
+        got, cxx_ms = _best_ms(cxx)
+        want, np_ms = _best_ms(ref)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native: the {label} differs from numpy's")
+        log("native", f"{label}: exact; C++ {cxx_ms:.3f} ms, numpy {np_ms:.3f} ms (best of "
+                      f"{NATIVE_REPEATS}), {os.cpu_count()} host cores [{card}]")
+
+
+def chunk_run(train, seed: int, dev, kind: str):
+    """One TGN train epoch (no dropout) over ``train`` with the feature-layout
+    recency hook: ``kind`` "resident" (``DeviceEdgeStream``, ``hook_epoch``),
+    "fp32" or "bf16" (``ChunkedEdgeStream`` in that transit dtype,
+    ``chunked_hook_epoch``). Returns the epoch's readings and end state."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.hooks import HookManager, RandomNegativeEdgeSamplerHook, RecencyNeighborHook
+    from tgm_tpu_torch.train import (
+        ChunkedEdgeStream,
+        DeviceEdgeStream,
+        build_tgn_hook_cores,
+        chunked_hook_epoch,
+        hook_epoch,
+    )
+
+    memory, encoder, decoder = (m.to(dev) for m in make_models(seed))
+    dg = DGraph(train)
+    dst = dg.edge_dst
+    hm = HookManager(keys=["train"])
+    hm.register("train", RandomNegativeEdgeSamplerHook(int(dst.min()), int(dst.max()),
+                                                       device=dev, seed=seed))
+    # The feature layout (no edge_x_full): the one that scales past device memory.
+    rec = RecencyNeighborHook(WIKI_NODES, [NUM_NBRS], ["edge_src", "edge_dst", "neg"],
+                              ["edge_time", "edge_time", "neg_time"], edge_dim=WIKI_EDGE_DIM,
+                              device=dev)
+    hm.register_shared(rec)
+    opt = torch.optim.Adam([p for m in (memory, encoder, decoder) for p in m.parameters()],
+                           lr=TRAIN_LR)
+    train_core, _ = build_tgn_hook_cores(memory, encoder, decoder, opt, WIKI_NODES,
+                                         style="rowwise")
+    base = _reset_peak()
+    if kind == "resident":
+        stream = DeviceEdgeStream(dg, BATCH, device=dev)
+        epoch, states = hook_epoch(stream, hm, "train", dg, train_core)
+    else:
+        feat_dtype = torch.bfloat16 if kind == "bf16" else None
+        stream = ChunkedEdgeStream(dg, BATCH, CHUNK_BATCHES, feat_dtype=feat_dtype, device=dev)
+        epoch, states = chunked_hook_epoch(stream, hm, "train", dg, train_core)
+        # Chunks still referenced (by the epoch or a batch's views) at each upload.
+        live, most_live, put = [], [0], stream.put_chunk
+
+        def counted_put(k):
+            chunk = put(k)
+            live[:] = [r for r in live if r() is not None] + [weakref.ref(chunk["src"])]
+            most_live[0] = max(most_live[0], len(live))
+            return chunk
+
+        stream.put_chunk = counted_put
+    mem_state = memory.init_state(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    (mem_state, _), states, losses = epoch((mem_state, None), states)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    (ring,) = [st for st in states if isinstance(st, tuple)]
+    out = dict(kind=kind, seconds=dt, n=stream.num_batches, edges=stream.num_edges,
+               launches=launches, rise=torch.cuda.max_memory_allocated() - base,
+               losses=losses.cpu(), rec=[t.cpu() for t in ring],
+               mem={name: getattr(mem_state, name).cpu() for name in
+                    ("mem", "last_update", "s_other", "s_t", "s_valid", "d_other", "d_t",
+                     "d_valid")})
+    if kind != "resident":
+        staging = [slot["host"] for slot in stream._staging]
+        if len(staging) != 2 or not all(t.is_pinned() for h in staging for t in h.values()):
+            raise AssertionError(f"chunk-train {kind}: expected two pinned staging buffers")
+        if staging[0]["x"].shape[0] != CHUNK_BATCHES * BATCH or stream._edge_x.is_pinned():
+            raise AssertionError(f"chunk-train {kind}: a staging buffer is not one chunk, or "
+                                 "the host table was pinned")
+        if most_live[0] > 2:
+            raise AssertionError(f"chunk-train {kind}: {most_live[0]} chunks were live at once")
+        out.update(chunks=stream.num_chunks, nbytes=stream.chunk_nbytes, most_live=most_live[0])
+        epoch.close()
+    return out
+
+
+def chunk_train_phase(train, seed: int, dev, card: str):
+    """The resident epoch, the chunked epochs in fp32 and bf16 transit, and
+    the resident epoch again (so each chunked epoch has a resident one on
+    either side); returns the four runs."""
+    order = ("resident", "fp32", "bf16", "resident")
+    runs = [chunk_run(train, seed, dev, kind) for kind in order]
+    need = {"recency_feats_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+    resident_s = [r["seconds"] for r in runs if r["kind"] == "resident"]
+    for r in runs:
+        kind = r["kind"]
+        check_launches(f"chunk-train {kind}", r["launches"], need, r["n"])
+        if not torch.isfinite(r["losses"]).all() or r["losses"].shape != (r["n"],):
+            raise AssertionError(f"chunk-train {kind}: losses not finite or misshapen")
+        if not torch.isfinite(r["mem"]["mem"]).all():
+            raise AssertionError(f"chunk-train {kind}: non-finite memory")
+        extra = ("" if kind == "resident" else
+                 f"{r['chunks']} chunks of {CHUNK_BATCHES} batches, chunk_nbytes="
+                 f"{r['nbytes']:,}, at most {r['most_live']} chunks live, resident/chunked "
+                 f"epoch time "
+                 + " and ".join(f"{t / r['seconds']:.3f}" for t in resident_s)
+                 + " (the resident runs before and after); ")
+        log("chunk-train", f"{kind}: {r['edges']} edges in {r['n']} batches, {r['seconds']:.3f} "
+                           f"s: ms_per_batch={r['seconds'] / r['n'] * 1e3:.3f} edges_per_s="
+                           f"{r['edges'] / r['seconds']:.0f}; {extra}peak rise over "
+                           f"memory_allocated() at the reset {r['rise'] / 2**30:.4f} GiB; loss "
+                           f"first {float(r['losses'][0]):.6f} last "
+                           f"{float(r['losses'][-1]):.6f}; launches={r['launches']} [{card}]")
+    return runs
+
+
+def chunk_agree_phase(runs, card: str) -> None:
+    """The fp32 chunked epoch against the resident ones, all on the card."""
+    res, ch, _, again = runs
+    for name, g, w in zip(("nbr_ids", "nbr_times", "nbr_feats", "write_pos"), ch["rec"],
+                          res["rec"]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"chunk-agree: recency {name} differs from the resident epoch")
+    for name in ("last_update", "s_other", "s_t", "s_valid", "d_other", "d_t", "d_valid"):
+        if not torch.equal(ch["mem"][name], res["mem"][name]):
+            raise AssertionError(f"chunk-agree: memory state {name} differs from the resident "
+                                 "epoch")
+    resident_exact = (torch.equal(res["losses"], again["losses"])
+                      and torch.equal(res["mem"]["mem"], again["mem"]["mem"]))
+    loss_gap = (ch["losses"] - res["losses"]).abs()
+    mem_gap = float((ch["mem"]["mem"] - res["mem"]["mem"]).abs().max())
+    if resident_exact:
+        case = "the two resident runs are bit-equal, so the chunked one must be"
+        ok = float(loss_gap.max()) == 0.0 and mem_gap == 0.0
+    else:
+        case = ("the two resident runs differ (first loss gap "
+                f"{float((res['losses'] - again['losses']).abs()[0]):.3g}, max "
+                f"{float((res['losses'] - again['losses']).abs().max()):.3g}), so the bands hold")
+        ok = float(loss_gap[0]) <= 1e-5 and float(loss_gap.max()) <= 5e-3 and mem_gap <= 1e-4
+    if not ok:
+        raise AssertionError(f"chunk-agree: {case}; chunked against resident: first loss gap "
+                             f"{float(loss_gap[0]):.3g}, max {float(loss_gap.max()):.3g}, "
+                             f"max |mem| gap {mem_gap:.3g}")
+    log("chunk-agree", f"{ch['n']} batches: recency ring, write positions and the store's "
+                       f"integer fields exact; {case}: first loss gap {float(loss_gap[0]):.3g}, "
+                       f"max {float(loss_gap.max()):.3g}, max |mem| gap {mem_gap:.3g} [{card}]")
+
+
+def chunked_phases(data, train, seed: int, dev, card: str):
+    """native, chunk-train and chunk-agree; returns each chunk-train path's
+    launches under its ``kernels``-line key."""
+    t0 = time.perf_counter()
+    native_phase(data, seed, card)
+    runs = chunk_train_phase(train, seed, dev, card)
+    chunk_agree_phase(runs, card)
+    log("chunk-agree", f"the native and chunked phases took {time.perf_counter() - t0:.1f} s "
+                       f"[{card}]")
+    return {"launches_tgn_chunked_train": runs[1]["launches"],
+            "launches_tgn_chunked_bf16_train": runs[2]["launches"],
+            "launches_tgn_feature_layout_train": runs[0]["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5689,6 +5918,9 @@ def main() -> int:
     ap.add_argument("--only-baselines", action="store_true",
                     help="build, run the baseline-serve, baseline-agree and baseline-scale phases "
                     "and stop (no result lines)")
+    ap.add_argument("--only-chunked", action="store_true",
+                    help="build, run the native, chunk-train and chunk-agree phases and stop (no "
+                    "result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke test needs a card",
@@ -5763,6 +5995,10 @@ def main() -> int:
         data, _, _, _, cands = build_stream(args.seed)
         baseline_phases(data, cands, args.seed, dev, card)
         return 0
+    if args.only_chunked:
+        data, train, _, _, _ = build_stream(args.seed)
+        chunked_phases(data, train, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -5818,6 +6054,7 @@ def main() -> int:
     hook_paths.update(snapshot_phases(data, cands, args.seed, dev, card))
     hook_paths.update(snapshot_task_phases(np_data, args.seed, dev, card))
     hook_paths.update(baseline_phases(data, cands, args.seed, dev, card))
+    hook_paths.update(chunked_phases(data, train, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.
@@ -5861,8 +6098,9 @@ def main() -> int:
     # train epoch and its val + test eval, the packed recency layout's
     # hook-route train epoch and val + test eval and its pipeline's, the
     # GraphMixer, TPNet, CTAN and TNCN examples' train epochs and val + test
-    # evals, the snapshot examples' train epoch with val and test, and the
-    # baselines' val + test passes on both streams.
+    # evals, the snapshot examples' train epoch with val and test, the
+    # baselines' val + test passes on both streams, and the feature-layout TGN
+    # train epoch chunk-streamed in fp32 and bf16 transit and resident.
     def per_kernel(launches):
         return dict(launches, recency_eid_select=launches["recency_eid_select"]
                     + launches["recency_window_select_eid"],

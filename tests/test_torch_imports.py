@@ -64,7 +64,11 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.linkproppred.base3",
              "tgm_tpu_torch.examples.linkproppred.tgb_seq.edgebank",
              "tgm_tpu_torch.examples.linkproppred.thgl.edgebank",
-             "tgm_tpu_torch.examples.linkproppred.tkgl.edgebank"):
+             "tgm_tpu_torch.examples.linkproppred.tkgl.edgebank",
+             "tgm_tpu_torch.native", "tgm_tpu_torch.train.chunked",
+             "tgm_tpu_torch.examples.analytics.batch_analytics_example",
+             "tgm_tpu_torch.examples.analytics.dos",
+             "tgm_tpu_torch.examples.analytics.node_analytics_example"):
     assert name in names, names
 print("imported", len(names))
 """

@@ -8,8 +8,18 @@ kernels under ``csrc/`` run on CUDA tensors, their plain PyTorch versions on
 CPU tensors.
 """
 
+from .constants import PADDED_NODE_ID
 from .core import DGBatch, DGraph
 from .data import DGData, DGDataLoader
-from .timedelta import TimeDeltaDG
+from .timedelta import TGB_SEQ_TIME_DELTAS, TGB_TIME_DELTAS, TimeDeltaDG
 
-__all__ = ["DGBatch", "DGData", "DGDataLoader", "DGraph", "TimeDeltaDG"]
+__all__ = [
+    "DGBatch",
+    "DGData",
+    "DGDataLoader",
+    "DGraph",
+    "PADDED_NODE_ID",
+    "TGB_SEQ_TIME_DELTAS",
+    "TGB_TIME_DELTAS",
+    "TimeDeltaDG",
+]

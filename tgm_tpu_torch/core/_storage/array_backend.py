@@ -1,9 +1,9 @@
 """Array-backed storage engine (port of ``tgm_tpu/core/_storage/array_backend.py``).
 
-The edge, node-feature, node-label and type accessors, and the temporal
-CSR the uniform neighbour sampler queries. It shares the ``DGData``
-arrays without copying and resolves a slice by binary search over the
-sorted timeline.
+The edge, node-feature, node-label and type accessors, the temporal CSR
+the uniform neighbour sampler queries (sorted by the C++ ``lexsort2_perm``)
+and ``get_nbrs``, its host sampler. It shares the ``DGData`` arrays without
+copying and resolves a slice by binary search over the sorted timeline.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 
-from .base import DGSliceTracker
+from ...constants import PADDED_NODE_ID
+from ...native import lexsort2_perm
+from .base import DGSliceTracker, DGStorageBase
 
 
 def slice_range(sorted_idx: np.ndarray, lb: int, ub: int) -> slice:
@@ -23,7 +25,7 @@ def slice_range(sorted_idx: np.ndarray, lb: int, ub: int) -> slice:
     return slice(a, b)
 
 
-class DGStorageArrayBackend:
+class DGStorageArrayBackend(DGStorageBase):
     """Sorted host arrays of one ``DGData``."""
 
     def __init__(self, data: "DGData") -> None:
@@ -165,7 +167,7 @@ class DGStorageArrayBackend:
                 nbrs = np.stack([dst, src], axis=1).ravel()
                 eids = np.repeat(eid, 2)
                 times = np.repeat(t, 2)
-            order = np.lexsort((times, nodes))  # stable: the input order breaks ties
+            order = lexsort2_perm(nodes, times)  # stable: the input order breaks ties
             nodes, nbrs, eids, times = nodes[order], nbrs[order], eids[order], times[order]
             row_ptr = np.searchsorted(nodes, np.arange(d.num_nodes + 1, dtype=np.int64))
             key_base = int(d.time.max()) + 2
@@ -178,3 +180,56 @@ class DGStorageArrayBackend:
                 np.int64(key_base),
             )
         return self._csr[directed]
+
+    def get_nbrs(
+        self,
+        seed_nodes: np.ndarray,
+        num_nbrs: int,
+        slice: DGSliceTracker,
+        directed: bool,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Up to ``num_nbrs`` neighbours of each seed at or before the slice's
+        end time, left-aligned and padded with ``PADDED_NODE_ID`` / zeros:
+        ``(nbr_nids (B, K) int32, nbr_times (B, K) int64, nbr_feats (B, K, D)
+        float32)``. A seed with at most ``num_nbrs`` candidates takes them in
+        (time, edge) order; a larger row takes a uniform draw without
+        replacement from an unseeded generator, kept in that order."""
+        seed_nodes = np.asarray(seed_nodes)
+        row_ptr, nbrs, times, eids, composite, key_base = self.temporal_csr(directed)
+        B = len(seed_nodes)
+        D = self.get_edge_x_dim() or 0
+
+        out_nids = np.full((B, num_nbrs), PADDED_NODE_ID, dtype=np.int32)
+        out_times = np.zeros((B, num_nbrs), dtype=np.int64)
+        out_feats = np.zeros((B, num_nbrs, D), dtype=np.float32)
+        if B == 0:
+            return out_nids, out_times, out_feats
+
+        end_time = slice.end_time if slice.end_time is not None else int(self._data.time[-1])
+        # The composite key's base is max time + 2: a later end time would
+        # reach into the next node's keys, and means "no bound" anyway.
+        end_time = min(end_time, int(key_base) - 1)
+        valid_seed = seed_nodes != PADDED_NODE_ID
+        safe_seed = np.where(valid_seed, seed_nodes, 0).astype(np.int64)
+        lo = row_ptr[safe_seed]
+        hi = np.searchsorted(composite, safe_seed * key_base + end_time, side="right")
+        cnt = np.where(valid_seed, np.maximum(hi - lo, 0), 0)
+
+        cols = np.arange(num_nbrs)[None, :]
+        take = cols < np.minimum(cnt, num_nbrs)[:, None]
+        idx = lo[:, None] + cols
+        over = cnt > num_nbrs
+        if over.any():
+            rng = np.random.default_rng()
+            for i in np.nonzero(over)[0]:
+                choice = rng.choice(cnt[i], size=num_nbrs, replace=False)
+                choice.sort()
+                idx[i] = lo[i] + choice
+        idx = np.where(take, np.minimum(idx, len(nbrs) - 1 if len(nbrs) else 0), 0)
+
+        out_nids = np.where(take, nbrs[idx], PADDED_NODE_ID).astype(np.int32)
+        out_times = np.where(take, times[idx], 0)
+        if D:
+            feats = self._data.edge_x[eids[idx]]
+            out_feats = np.where(take[:, :, None], feats, 0.0).astype(np.float32)
+        return out_nids, out_times, out_feats

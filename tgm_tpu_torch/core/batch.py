@@ -59,6 +59,13 @@ class DGBatch:
         out.__dict__.update(changes)
         return out
 
+    @property
+    def num_valid_edges(self) -> torch.Tensor:
+        """The number of valid edges, a 0-dim tensor on the batch's device."""
+        if self.edge_valid is None:
+            return torch.tensor(self.edge_src.shape[0], device=self.edge_src.device)
+        return self.edge_valid.sum()
+
     def to(self, device: Any) -> "DGBatch":
         out = DGBatch.__new__(DGBatch)
         out.__dict__.update({k: _move(v, torch.device(device)) for k, v in self.__dict__.items()})

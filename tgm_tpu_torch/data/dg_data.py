@@ -29,6 +29,7 @@ from ..exceptions import (
     InvalidDiscretizationError,
     InvalidNodeIDError,
 )
+from ..native import stable_sort_perm
 from ..timedelta import TimeDeltaDG
 from ..util.logging import log_latency
 
@@ -227,7 +228,7 @@ class DGData:
         positions."""
         if np.all(np.diff(self.time) >= 0):
             return
-        sort_idx = np.argsort(self.time, kind="stable").astype(np.int32)
+        sort_idx = stable_sort_perm(self.time).astype(np.int32)
         inverse = np.empty_like(sort_idx)
         inverse[sort_idx] = np.arange(len(sort_idx), dtype=np.int32)
         self.time = self.time[sort_idx]

@@ -1,4 +1,4 @@
-"""Exceptions of the port (the subset of ``tgm_tpu/exceptions.py`` it raises)."""
+"""Exceptions of the port (port of ``tgm_tpu/exceptions.py``)."""
 
 
 class TGMError(Exception):
@@ -47,3 +47,11 @@ class InvalidDiscretizationError(TGMError):
 
 class UndefinedRecipeError(TGMError):
     """A recipe name was not registered in the RecipeRegistry."""
+
+
+class InvalidBatchUnitError(TGMError):
+    """Loader batch unit is incompatible with the graph's time granularity."""
+
+
+class SplitStrategyError(TGMError):
+    """Split configuration is invalid or applied twice."""

@@ -72,6 +72,12 @@ class BaseDGHook(ABC):
             name = f"{name}_{self._id}"
         setattr(batch, name, value)
 
+    def get_batch_attribute(self, batch: DGBatch, name: str) -> Any:
+        """Read ``name`` from the batch (suffixed with the hook id if set)."""
+        if self._id:
+            name = f"{name}_{self._id}"
+        return getattr(batch, name)
+
     def init_state(self, dg: Optional[DGraph]) -> Any:
         """This hook's initial state (None if stateless)."""
         return None

@@ -4,9 +4,10 @@ Port of ``tgm_tpu/hooks/manager.py``: keyed and shared hooks, a Kahn
 topological sort over requires/produces (with the implicit
 negatives-before-neighbour-samplers edge), ``activate``, ``reset_state``,
 ``as_transform`` (the resolved pipeline as a function over the hooks' states),
-``adopt_states`` and ``validate_requirement`` (an encoder's ``requires``
-against what a key's hooks produce, with ``difflib`` suggestions).
-Checkpoint state collection is queued in ROADMAP.md.
+``adopt_states``, ``validate_requirement`` (an encoder's ``requires``
+against what a key's hooks produce, with ``difflib`` suggestions), and
+``collect_states`` / ``load_states`` for checkpoints, keyed
+``f"{i}:{hook!r}"`` as in JAX.
 """
 
 from __future__ import annotations
@@ -71,11 +72,14 @@ class HookManager:
         self._key_to_hooks[key].append(hook)
         self._dirty[key] = True
 
+    def set_active_hooks(self, key: str) -> None:
+        self._ensure_valid_key(key)
+        self._active_key = key
+
     @contextmanager
     def activate(self, key: str) -> Iterator[None]:
-        self._ensure_valid_key(key)
         prev = self._active_key
-        self._active_key = key
+        self.set_active_hooks(key)
         try:
             yield
         finally:
@@ -252,6 +256,34 @@ class HookManager:
             if h.has_state:
                 h.state = s
 
+    def collect_states(self) -> Dict[str, Any]:
+        """Every stateful hook's state, for checkpoints: ``{"shared": {name:
+        state}, "keyed": {key: {name: state}}}`` with ``name = f"{i}:{hook!r}"``
+        (``i`` the hook's place in its list)."""
+        out: Dict[str, Any] = {"shared": {}, "keyed": {}}
+        for i, h in enumerate(self._shared_hooks):
+            if h.has_state:
+                out["shared"][f"{i}:{h!r}"] = getattr(h, "state", None)
+        for k, hooks in self._key_to_hooks.items():
+            out["keyed"][k] = {}
+            for i, h in enumerate(hooks):
+                if h.has_state and h not in self._shared_hooks:
+                    out["keyed"][k][f"{i}:{h!r}"] = getattr(h, "state", None)
+        return out
+
+    def load_states(self, states: Dict[str, Any]) -> None:
+        """Put ``collect_states``' states back on the hooks whose names match."""
+        for i, h in enumerate(self._shared_hooks):
+            name = f"{i}:{h!r}"
+            if h.has_state and name in states.get("shared", {}):
+                h.state = states["shared"][name]
+        for k, hooks in self._key_to_hooks.items():
+            keyed = states.get("keyed", {}).get(k, {})
+            for i, h in enumerate(hooks):
+                name = f"{i}:{h!r}"
+                if h.has_state and name in keyed and h not in self._shared_hooks:
+                    h.state = keyed[name]
+
     def _ensure_valid_hook(self, hook: Any) -> None:
         if not isinstance(hook, DGHook):
             raise BadHookProtocolError(
@@ -269,3 +301,15 @@ class HookManager:
     def _ensure_valid_key(self, key: str) -> None:
         if key not in self._key_to_hooks:
             raise KeyError(f"{key} was not a declared key in the hook manager")
+
+    def __str__(self) -> str:
+        lines = ["HookManager:", "  Shared hooks:"]
+        for h in self._shared_hooks:
+            lines.append(f"    - {h!r} (requires={h.requires}, produces={h.produces})")
+        lines.append(f"  Active key: {self._active_key}")
+        lines.append("  Keyed hooks:")
+        for key, hooks in self._key_to_hooks.items():
+            lines.append(f"    {key}:")
+            for h in hooks:
+                lines.append(f"    - {h!r} (requires={h.requires}, produces={h.produces})")
+        return "\n".join(lines)

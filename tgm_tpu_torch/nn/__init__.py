@@ -1,3 +1,4 @@
+from . import decoder, encoder, modules
 from .base import EncoderModule
 from .decoder.decoders import GraphPredictor, LinkPredictor, NodePredictor
 from .decoder.ncnpred import NCNPredictor
@@ -46,9 +47,12 @@ from .modules.aggregation import (
     SumEmbdPooling,
 )
 from .modules.attention import TemporalAttention
+from .modules.edgebank import EdgeBankPredictor
 from .modules.graph_conv import ChebConv, GCNConv
 from .modules.gru import TorchGRUCell
 from .modules.mlp_mixer import FeedForwardNet, MLPMixer
+from .modules.poptrack import PopTrackPredictor
+from .modules.t_comem import tCoMemPredictor
 from .modules.time_encoding import Time2Vec
 
 __all__ = [
@@ -58,6 +62,7 @@ __all__ = [
     "ChebConv",
     "ConcatMerge",
     "DyGFormer",
+    "EdgeBankPredictor",
     "EncoderModule",
     "FeedForwardNet",
     "FusedSelfAttention",
@@ -76,6 +81,7 @@ __all__ = [
     "NCNPredictor",
     "NeighborCooccurrenceEncoder",
     "NodePredictor",
+    "PopTrackPredictor",
     "ROLAND",
     "RandomProjectionModule",
     "RandomProjectionState",
@@ -92,10 +98,14 @@ __all__ = [
     "TorchGRUCell",
     "TransformerEncoder",
     "ctan_memory_init",
+    "decoder",
     "ctan_memory_update",
     "dygformer_stack_layers",
+    "encoder",
+    "modules",
     "rp_init_state",
     "rp_update",
+    "tCoMemPredictor",
     "tgn_commit_staged",
     "tgn_init_state",
     "tgn_mean_init_state",

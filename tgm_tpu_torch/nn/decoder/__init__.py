@@ -1,3 +1,4 @@
+from .decoders import GraphPredictor, LinkPredictor, NodePredictor
 from .ncnpred import NCNPredictor
 
-__all__ = ["NCNPredictor"]
+__all__ = ["GraphPredictor", "LinkPredictor", "NCNPredictor", "NodePredictor"]

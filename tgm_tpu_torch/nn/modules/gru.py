@@ -34,3 +34,6 @@ class TorchGRUCell(nn.GRUCell):
         n = torch.tanh(i_n + r * h_n)
         h_new = (1.0 - z) * n + z * h
         return h_new, h_new
+
+
+__all__ = ["TorchGRUCell"]

@@ -1,4 +1,5 @@
 from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+from .chunked import ChunkedEdgeStream, chunked_hook_epoch
 from .epoch import jit_scan_epoch, scan_epoch
 from .hook_pipeline import hook_epoch, scanned_hook_epoch
 from .programs import (
@@ -24,6 +25,7 @@ from .tgn_pipeline import TGNCarry, TGNPipeline
 
 __all__ = [
     "CheckpointManager",
+    "ChunkedEdgeStream",
     "DeviceEdgeStream",
     "DeviceEventStream",
     "TGATCarry",
@@ -43,6 +45,7 @@ __all__ = [
     "build_tgn_node_cores",
     "build_tpnet_link_cores",
     "build_tpnet_node_cores",
+    "chunked_hook_epoch",
     "hook_epoch",
     "jit_scan_epoch",
     "merged_snapshot_schedule",
