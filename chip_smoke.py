@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
         [--only-mixer] [--only-ctan-tncn] [--only-snapshot] [--only-snapshot-tasks]
-        [--only-baselines] [--only-chunked]
+        [--only-baselines] [--only-chunked] [--only-parallel]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -20,8 +20,10 @@ prediction, GCN, TGCN and GC-LSTM snapshot node prediction and GCN and
 TGCN snapshot graph regression, the parameter-free baselines (EdgeBank,
 PopTrack, t-CoMem and their mean with EdgeBank, base3), TGN training
 chunk-streamed from the host (``ChunkedEdgeStream``, ``chunked_hook_epoch``)
-with the C++ host sorts of the data layer, and its hand-written CUDA
-kernels, in phases:
+with the C++ host sorts of the data layer, TGN training over temporal
+spans (chain, stale, resync), the pipelined eval and the node-sharded TGN
+and TGAT steps over process meshes (``tgm_tpu_torch.parallel``), and its
+hand-written CUDA kernels, in phases:
 
 1. build:     compile ``tgm_tpu_torch/csrc/*.cu`` with nvcc (all at once).
 2. kernels:   each kernel at the serving shapes against its plain PyTorch
@@ -389,7 +391,34 @@ kernels, in phases:
               the two resident runs are bit-equal, else the first loss
               within 1e-5, the rest within 5e-3 and the memory within 1e-4.
               ``--only-chunked`` runs phases 45-47 alone.
-48. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
+48. par-train: ``tgm_tpu_torch.parallel.temporal`` on the pipe phases'
+              ``TGNPipeline`` (eid layout) over the first 120 train batches:
+              the plain epoch (``scan_epoch``), ``chain_epoch`` over 4 spans
+              (bit-equal to it: losses, state and weights),
+              ``stale_parallel_epoch`` over 4
+              spans with ``merge_stale_carries`` (every merged memory and
+              recency row exactly the row of the span that touched it last),
+              ``stale_resync_epoch`` over 4 spans and 2 rounds; ms a batch
+              and launches (K1 once, the push twice, the store commit once a
+              batch).
+49. par-eval: the plain epoch's trained carry flushed, val (all of it)
+              through ``eval_step`` one after another and through
+              ``pipelined_eval_epoch`` over 3 spans: MRR sums and counts
+              bit-equal; ms a batch of both and the launches (the advance
+              prologue adds the push and the store commit for spans 0-1).
+50. par-sharded: ``tools/torch_multihost_sim.py`` at P = 1 (NCCL), 2 (a 1-D
+              mesh) and 4 (a 2 x 2 mesh, the parameter matrices split over
+              ``model``), gloo ranks sharing the card, the three at once:
+              the sharded TGN (feature and eid layouts) and TGAT (eid,
+              feature, side-augmented table) steps at the JAX tests' sizes
+              (every step within 1e-5 of the single process, state too) and
+              at the wiki shape, 10 steps each: trained (the first step's
+              loss and state within 1e-5, every loss within 5e-3, integer
+              state exact) and frozen at lr = 0 (every loss and the memory,
+              messages and recency rows within 1e-5 after the last step);
+              ms a step and rank 0's launches.
+              ``--only-parallel`` runs phases 48-50 alone.
+51. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
               (torch.profiler). ``--only-store-step`` runs this phase alone, as
@@ -397,7 +426,7 @@ kernels, in phases:
     query-kernels: the device kernels of one feature-layout query at S =
               16, B = K = 10, through the parent tree's route and in place
               (torch.profiler): count and summed µs.
-49. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
+52. dyg-train-profile: 5 DyGFormer train steps (hook step, forward+backward,
               Adam; dropout 0.1) under torch.profiler: device µs and
               launches a batch, the busy share against their unprofiled wall
               time, the GEMMs' µs and the top kernels. Store-step and this
@@ -5882,6 +5911,214 @@ def chunked_phases(data, train, seed: int, dev, card: str):
             "launches_tgn_feature_layout_train": runs[0]["launches"]}
 
 
+# The parallel phases (``tgm_tpu_torch.parallel``): the pipe phases'
+# TGNPipeline (eid layout: K1, the push and the store commit) over the first
+# PAR_BATCHES train batches (depth cut from 551), val whole.
+PAR_BATCHES = 120
+PAR_SPANS, PAR_ROUNDS, PAR_EVAL_SPANS = 4, 2, 3
+PAR_WORLDS = (1, 2, 4)  # ranks of the sharded steps: NCCL alone, gloo sharing the card
+PAR_SIM_CASES = ("tgn_feature", "tgn_eid", "tgat_eid", "tgat_feature", "tgat_aug",
+                 "tgn_eid_wiki", "tgn_eid_wiki_frozen")
+TGN_ADVANCE = {"recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
+
+
+def _zero_launches():
+    return {f.__name__: 0 for f in kernel_wrappers()}
+
+
+def _carries_equal(a, b) -> bool:
+    same = all(torch.equal(x, y) for x, y in zip(a.mem_state + a.rec_state,
+                                                  b.mem_state + b.rec_state))
+    return same and all(torch.equal(p, q) for p, q in zip(a.params.parameters(),
+                                                          b.params.parameters()))
+
+
+def _par_train(label: str, run, n: int, card: str, need_batches: int = None):
+    """Run ``run()`` (a train schedule over n batches) with its launches
+    counted and checked (TGN_STEP for each batch a step ran on)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check_launches(label, launches, TGN_STEP, need_batches or n)
+    log("par-train", f"{label}: {n} batches in {dt:.3f} s, ms_per_batch={dt / n * 1e3:.3f} "
+                     f"launches per batch { {k: v / n for k, v in launches.items() if v} } "
+                     f"[{card}]")
+    return out, launches
+
+
+def par_train_phase(data, train, seed: int, dev, card: str):
+    """chain_epoch over PAR_SPANS spans against the plain epoch (bit-equal),
+    stale_parallel_epoch over PAR_SPANS spans with the owner-wise merge
+    checked exactly, stale_resync_epoch over PAR_ROUNDS rounds."""
+    from tgm_tpu_torch.parallel import temporal as pt
+    from tgm_tpu_torch.train import scan_epoch
+
+    pipe = make_tgn_pipeline(data, train, dev)
+    stream = split_stream(train, dev)
+    n = PAR_BATCHES
+    carry0 = pipe.init_carry(seed)
+    launches = {}
+    (c_plain, l_plain), launches["launches_tgn_parallel_plain"] = _par_train(
+        "plain scan_epoch", lambda: scan_epoch(pipe.train_step, stream.batch_at,
+                                               pt.copy_carry(carry0), n), n, card)
+    (c_chain, l_chain), launches["launches_tgn_parallel_chain"] = _par_train(
+        f"chain_epoch over {PAR_SPANS} spans", lambda: pt.chain_epoch(
+            pipe.train_step, stream.batch_at, pt.copy_carry(carry0), n, PAR_SPANS), n, card)
+    if not (torch.equal(l_plain, l_chain) and _carries_equal(c_plain, c_chain)):
+        raise AssertionError("chain_epoch is not bit-equal to the plain epoch")
+    log("par-train", f"chain_epoch bit-equal to the plain epoch: {n} losses, the state and the "
+                     f"weights; loss first {float(l_chain[0]):.6f} last {float(l_chain[-1]):.6f} "
+                     f"[{card}]")
+
+    (carries, losses), launches["launches_tgn_parallel_stale"] = _par_train(
+        f"stale_parallel_epoch over {PAR_SPANS} spans", lambda: pt.stale_parallel_epoch(
+            pipe.train_step, stream.batch_at, pt.copy_carry(carry0), n, PAR_SPANS), n, card)
+    if losses.shape != (PAR_SPANS, n // PAR_SPANS) or not torch.isfinite(losses).all():
+        raise AssertionError(f"stale losses malformed: {tuple(losses.shape)}")
+    t0 = time.perf_counter()
+    merged = pt.merge_stale_carries(carries, WIKI_NODES)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    # Owner-wise, exactly: each row from the span with the latest update
+    # (write position for the recency rows), the later span on ties.
+    span = torch.arange(PAR_SPANS, device=dev)[:, None]
+    for name, order, fields, got in (
+            ("memory", [c.mem_state.last_update for c in carries],
+             [c.mem_state for c in carries], merged.mem_state),
+            ("recency", [c.rec_state[3] for c in carries],
+             [c.rec_state for c in carries], merged.rec_state)):
+        key = torch.stack(order).long() * PAR_SPANS + span
+        win = key.argmax(0)
+        rows = torch.arange(win.shape[0], device=dev)
+        for i, f in enumerate(zip(*fields)):
+            if not torch.equal(got[i], torch.stack(list(f))[win, rows]):
+                raise AssertionError(f"merge: {name} field {i} is not the owner's row")
+        if not torch.equal(got[3] if name == "recency" else got.last_update,
+                           torch.stack(order).max(0).values):
+            raise AssertionError(f"merge: {name} order is not the spans' max")
+    if not all(torch.isfinite(p).all() for p in merged.params.parameters()):
+        raise AssertionError("merged weights not finite")
+    log("par-train", f"stale: losses finite, shape {tuple(losses.shape)}, mean "
+                     f"{float(losses.mean()):.6f}; merge {merge_ms:.1f} ms, owner-wise rows "
+                     f"exact [{card}]")
+    (merged, rounds), launches["launches_tgn_parallel_resync"] = _par_train(
+        f"stale_resync_epoch over {PAR_SPANS} spans x {PAR_ROUNDS} rounds",
+        lambda: pt.stale_resync_epoch(pipe.train_step, stream.batch_at, pt.copy_carry(carry0),
+                                      n, PAR_SPANS, WIKI_NODES, PAR_ROUNDS), n, card)
+    if len(rounds) != PAR_ROUNDS or not all(torch.isfinite(r).all() for r in rounds):
+        raise AssertionError("resync losses malformed")
+    return pipe, c_plain, launches
+
+
+def par_eval_phase(pipe, carry, val, cands, dev, card: str):
+    """pipelined_eval_epoch over PAR_EVAL_SPANS spans of val against the
+    sequential eval: MRR sums and counts bit-equal."""
+    from tgm_tpu_torch.parallel import temporal as pt
+    from tgm_tpu_torch.parallel.temporal import split_spans
+    from tgm_tpu_torch.train import scan_epoch
+
+    carry = pipe.flush_all(carry)
+    stream = split_stream(val, dev)
+    rows = cand_rows(cands["val"], stream, dev)
+    nv = stream.num_batches
+    score = lambda c, i: pipe.eval_step(c, stream.batch_at(i), rows[i * BATCH : (i + 1) * BATCH])
+    advance = lambda c, i: pipe.eval_advance_state(c, stream.batch_at(i))
+    out = {}
+    for label, run in (("sequential", lambda: scan_epoch(score, lambda i: i,
+                                                         pt.copy_carry(carry), nv)[1]),
+                       ("pipelined", lambda: pt.pipelined_eval_epoch(advance, score, carry, nv,
+                                                                     PAR_EVAL_SPANS))):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[label] = (res, read_launches(), dt)
+    (s_seq, c_seq), l_seq, dt_seq = out["sequential"]
+    ((s, c), valid), l_pipe, dt_pipe = out["pipelined"]
+    check_launches("sequential eval", l_seq, TGN_STEP, nv)
+    advanced = sum(e - b for b, e in split_spans(nv, PAR_EVAL_SPANS)[:-1])
+    need = {k: TGN_STEP.get(k, 0) * nv + TGN_ADVANCE.get(k, 0) * advanced for k in l_pipe}
+    if l_pipe != need:
+        raise AssertionError(f"pipelined eval launches {l_pipe}, expected {need}")
+    if not (torch.equal(s[valid], s_seq) and torch.equal(c[valid], c_seq)):
+        raise AssertionError("pipelined eval MRR sums differ from the sequential eval's")
+    mrr = float(s_seq.sum() / c_seq.sum())
+    log("par-eval", f"val {nv} batches over {PAR_EVAL_SPANS} spans: sums and counts bit-equal to "
+                    f"the sequential eval, MRR {mrr:.6f}; sequential ms_per_batch="
+                    f"{dt_seq / nv * 1e3:.3f}, pipelined (the advance prologue over {advanced} "
+                    f"batches and the spans, one after another on one card) ms_per_batch="
+                    f"{dt_pipe / nv * 1e3:.3f}; launches {l_pipe} [{card}]")
+    return {"launches_tgn_parallel_sequential_eval": l_seq,
+            "launches_tgn_parallel_pipelined_eval": l_pipe}
+
+
+def par_sharded_phase(card: str):
+    """``tools/torch_multihost_sim.py`` on the card at P = 1 (NCCL), 2 (a 1-D
+    mesh) and 4 (2 x 2, the parameters split over ``model``), gloo ranks
+    sharing the card, all three at once: each case's sharded steps against
+    the single-process steps (every rank launching K1 or K4 once, the push
+    twice and the store commit once a TGN step)."""
+    import tempfile
+
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_multihost_sim.py")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {w: subprocess.Popen(
+            [sys.executable, tool, "--num-processes", str(w), "--device", "cuda",
+             "--out", os.path.join(tmp, f"p{w}.json"), "--cases", *PAR_SIM_CASES],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for w in PAR_WORLDS}
+        try:
+            done = {w: q.communicate(timeout=400) for w, q in procs.items()}
+        finally:
+            for q in procs.values():
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
+        dt = time.perf_counter() - t0
+        for w, q in procs.items():
+            if q.returncode != 0:
+                raise AssertionError(f"sharded steps at P = {w}: exit {q.returncode}: "
+                                     f"{done[w][1][-3000:]}")
+            with open(os.path.join(tmp, f"p{w}.json")) as f:
+                rec = json.load(f)
+            for case, c in rec["cases"].items():
+                log("par-sharded", f"P={w} {rec['backend']} mesh {rec['mesh_axes']} "
+                                   f"{rec['mesh_shape']} {case}: {c['steps']} steps, ms_per_step="
+                                   f"{c['ms_per_step']:.3f} (single process "
+                                   f"{c['ms_per_step_single_process']:.3f}), loss gap "
+                                   f"{c['max_abs_diff_loss']:.3g}, state gap after step 1 "
+                                   f"{c['max_abs_diff_state_step1']:.3g} and after the last "
+                                   f"{c['max_abs_diff_state']:.3g}, integer state equal "
+                                   f"{c['int_state_equal']}, split params {c['split_params']}, "
+                                   f"rank 0 launches {c['launches_rank0']} [{card}]")
+            if not rec["ok"]:
+                raise AssertionError(f"sharded steps at P = {w} differ from one process")
+            launches[f"launches_tgn_sharded_p{w}"] = dict(
+                _zero_launches(), **rec["cases"]["tgn_eid_wiki"]["launches_rank0"])
+    log("par-sharded", f"the three worlds ran at once in {dt:.1f} s [{card}]")
+    return launches
+
+
+def parallel_phases(data, train, val, cands, seed: int, dev, card: str):
+    """par-train, par-eval and par-sharded; returns their launches under
+    their ``kernels``-line keys."""
+    t0 = time.perf_counter()
+    pipe, carry, launches = par_train_phase(data, train, seed, dev, card)
+    launches.update(par_eval_phase(pipe, carry, val, cands, dev, card))
+    del pipe, carry
+    launches.update(par_sharded_phase(card))
+    log("par-sharded", f"the parallel phases took {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5918,6 +6155,9 @@ def main() -> int:
     ap.add_argument("--only-baselines", action="store_true",
                     help="build, run the baseline-serve, baseline-agree and baseline-scale phases "
                     "and stop (no result lines)")
+    ap.add_argument("--only-parallel", action="store_true",
+                    help="build, run the par-train, par-eval and par-sharded phases and stop "
+                    "(no result lines)")
     ap.add_argument("--only-chunked", action="store_true",
                     help="build, run the native, chunk-train and chunk-agree phases and stop (no "
                     "result lines)")
@@ -5999,6 +6239,10 @@ def main() -> int:
         data, train, _, _, _ = build_stream(args.seed)
         chunked_phases(data, train, args.seed, dev, card)
         return 0
+    if args.only_parallel:
+        data, train, val, _, cands = build_stream(args.seed)
+        parallel_phases(data, train, val, cands, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -6055,6 +6299,7 @@ def main() -> int:
     hook_paths.update(snapshot_task_phases(np_data, args.seed, dev, card))
     hook_paths.update(baseline_phases(data, cands, args.seed, dev, card))
     hook_paths.update(chunked_phases(data, train, args.seed, dev, card))
+    hook_paths.update(parallel_phases(data, train, val, cands, args.seed, dev, card))
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.

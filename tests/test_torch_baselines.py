@@ -3,9 +3,11 @@
 EdgeBank (unlimited and fixed), PopTrack and t-CoMem are built from the
 same numpy edges in both packages and fed the same batches; the port gets
 each batch whole, its padding rows (PAD ids, time 0) included, and the JAX
-package its valid rows, as the examples call them. After the constructor
-and after every update the states compare exactly: EdgeBank's stored pairs
-with their latest times and its window; PopTrack's popularity; t-CoMem's
+package its valid rows, as the examples call them, apart from EdgeBank,
+which both packages get whole: it keys every row as the JAX package does
+(ROADMAP fault 24, resolved). After the constructor and after every
+update the states compare exactly: EdgeBank's stored keys with their
+latest times, its key base and its window; PopTrack's popularity; t-CoMem's
 rings, cursors, lengths, popularity, co-occurrence counts and window. Each
 batch's queries (its sources against random candidates, padded rows
 included) score bit for bit alike for EdgeBank and PopTrack, and within
@@ -15,8 +17,10 @@ number of bit-equal scores is printed).
 Streams: a hot-node one (zipf ids, small times), one with epoch-second
 times (t0 = 1.5e9, where a float32 window comparison answers wrongly),
 one whose ids grow after the constructor (JAX's key base grows), and one
-heavy in self-loops. ROADMAP fault 24 (JAX's EdgeBank aliases a query
-with a negative id onto a stored pair) is pinned by its own test.
+heavy in self-loops. EdgeBank's queries include the padded rows' (PAD,
+PAD) and (PAD, candidate) pairs, which JAX's composite key may alias onto
+a stored key; the port answers them alike (fault 24's own test pins a
+case).
 """
 
 import numpy as np
@@ -81,12 +85,11 @@ def decode(keys):
 
 def edgebank_state(p: EdgeBankPredictor, j: JEdgeBank):
     j._merge_pending()
-    s, d = j._keys // j._pair_base, j._keys % j._pair_base
     last = np.r_[j._keys[1:] != j._keys[:-1], True]  # the run's last entry: its latest time
-    js, jd, jt = s[last], d[last], j._times[last]
     keys, vals = p.memory.items()
-    ps, pd = decode(keys)
-    np.testing.assert_array_equal(np.stack([ps, pd, vals.numpy()]), np.stack([js, jd, jt]))
+    np.testing.assert_array_equal(np.stack([keys.numpy(), vals.numpy()]),
+                                  np.stack([j._keys[last], j._times[last]]))
+    assert p._pair_base == j._pair_base
     assert (p.window_start, p.window_end) == (j.window_start, j.window_end)
 
 
@@ -132,8 +135,9 @@ def test_predictor_matches_jax_batch_by_batch(model, stream):
     for (s, d, tt), (ps, pd, pt) in batches(src, dst, t, n0):
         qs, qd = queries(rng, ps)
         if model.startswith("edgebank"):
-            keep = (qs >= 0) & (qd >= 0)  # fault 24: JAX may alias a padded query
-            qs, qd = qs[keep], qd[keep]
+            # Both packages key every row alike: JAX gets the padded batch too.
+            s, d, tt = ps, pd, pt
+            qd[rng.random(len(qd)) < 0.1] = PAD  # (src, PAD) queries too
         got, want = p(qs, qd), j(qs, qd)
         assert got.dtype == torch.float32 and got.device == CPU
         got = got.numpy()
@@ -175,27 +179,49 @@ def test_fixed_window_compares_in_fp64_at_epoch_seconds():
     assert float(tc([0], [3])[0]) == 0.0  # (0, 3) never co-occurred; its ring is out of window
 
 
-def test_fault_24_padded_query_aliases_in_jax_only():
-    """JAX keys (src, dst) as src * base + dst, so the query (1, -1) reads
-    the key of (0, 9): the JAX package answers 1.0, the port 0."""
-    j = JEdgeBank(np.array([0, 3]), np.array([9, 4]), np.array([1, 2]))
-    p = EdgeBankPredictor([0, 3], [9, 4], [1, 2], device=CPU)
-    assert j(np.array([1]), np.array([-1]))[0] == 1.0
-    assert float(p([1], [-1])[0]) == 0.0
-    np.testing.assert_array_equal(p([0, 3, 1, -1], [9, 4, 9, 9]).numpy(),
-                                  j(np.array([0, 3, 1]), np.array([9, 4, 9])).tolist() + [0.0])
+@pytest.mark.parametrize("kw", [dict(memory_mode="fixed"), {}])
+def test_fault_24_padded_query_aliases_in_jax_only(kw):
+    """ROADMAP fault 24, resolved: JAX keys (src, dst) as src * base + dst,
+    so the query (1, -1) reads the key of (0, 9), and the port keys it the
+    same way: both answer 1.0. So do negative ids in updates (stored under
+    their aliasing keys) and queries whose ids raise the base (every key is
+    re-keyed, and keys that meet keep their latest time)."""
+    j = JEdgeBank(np.array([0, 3]), np.array([9, 4]), np.array([1, 2]), **kw)
+    p = EdgeBankPredictor([0, 3], [9, 4], [1, 2], device=CPU, **kw)
+    hit = 0.0 if kw else 1.0  # fixed: (0, 9) at t = 1 is before the window
+    assert j(np.array([1]), np.array([-1]))[0] == hit
+    assert float(p([1], [-1])[0]) == hit
+    qs, qd = np.array([0, 3, 1, -1, 2, -1, 5]), np.array([9, 4, 9, 9, -1, -1, 4])
+    np.testing.assert_array_equal(p(qs, qd).numpy(), j(qs, qd))
+    for s, d, t in (([2, -1, 5], [-3, -1, 0], [4, 0, 6]), ([-2, 7], [12, -1], [3, 9]),
+                    ([1, 30], [-1, 2], [10, 11])):
+        p.update(s, d, t)
+        j.update(np.array(s), np.array(d), np.array(t))
+        edgebank_state(p, j)
+        qs = np.arange(-2, 40) % 33 - 2
+        qd = (np.arange(-2, 40) * 7) % 35 - 2
+        np.testing.assert_array_equal(p(qs, qd).numpy(), j(qs, qd))
+        edgebank_state(p, j)  # the queries' ids may raise the base
 
 
 @pytest.mark.parametrize("kw", [dict(memory_mode="fixed"), {}])
 def test_update_skips_padding_rows(kw):
-    """A padded batch updates as its valid rows alone do."""
+    """EdgeBank stores a padded batch's rows as the JAX EdgeBank does (PAD
+    rows keyed too, fault 24 resolved), and a query of the padded key hits
+    in both; PopTrack and t-CoMem update with a padded batch as with its
+    valid rows alone."""
     a = EdgeBankPredictor([0, 1], [1, 2], [1, 2], device=CPU, **kw)
-    b = EdgeBankPredictor([0, 1], [1, 2], [1, 2], device=CPU, **kw)
+    j = JEdgeBank(np.array([0, 1]), np.array([1, 2]), np.array([1, 2]), **kw)
+    # A query first, as the examples make one: the JAX update below raises
+    # the key base, and with keys still pending it would drop its own keys
+    # (ROADMAP fault 27).
+    np.testing.assert_array_equal(a([0], [1]).numpy(), j(np.array([0]), np.array([1])))
     a.update([2, -1, -1], [3, -1, -1], [9, 0, 0])
-    b.update([2], [3], [9])
-    for x, y in zip(a.memory.items(), b.memory.items()):
-        assert torch.equal(x, y)
-    assert (a.window_start, a.window_end) == (b.window_start, b.window_end)
+    j.update(np.array([2, -1, -1]), np.array([3, -1, -1]), np.array([9, 0, 0]))
+    edgebank_state(a, j)
+    qs, qd = np.array([2, -1, -1, 0, 1]), np.array([3, -1, 3, 1, 0])
+    np.testing.assert_array_equal(a(qs, qd).numpy(), j(qs, qd))
+    assert float(a([-1], [-1])[0]) == (1.0 if not kw else 0.0)  # t = 0 is out of the window
     pa = PopTrackPredictor([0], [1], [1], num_nodes=4, k=1, device=CPU)
     pb = PopTrackPredictor([0], [1], [1], num_nodes=4, k=1, device=CPU)
     pa.update([2, -1], [0, -1], [3, 0])

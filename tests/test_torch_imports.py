@@ -66,6 +66,9 @@ for name in ("tgm_tpu_torch.examples.linkproppred.tgn", "tgm_tpu_torch.examples.
              "tgm_tpu_torch.examples.linkproppred.thgl.edgebank",
              "tgm_tpu_torch.examples.linkproppred.tkgl.edgebank",
              "tgm_tpu_torch.native", "tgm_tpu_torch.train.chunked",
+             "tgm_tpu_torch.parallel", "tgm_tpu_torch.parallel.mesh",
+             "tgm_tpu_torch.parallel.sharding", "tgm_tpu_torch.parallel.temporal",
+             "tgm_tpu_torch.parallel.spmd",
              "tgm_tpu_torch.examples.analytics.batch_analytics_example",
              "tgm_tpu_torch.examples.analytics.dos",
              "tgm_tpu_torch.examples.analytics.node_analytics_example"):

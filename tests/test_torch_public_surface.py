@@ -2,7 +2,7 @@
 
 * Every name of every JAX ``__all__`` (and every public exception and
   constant) is present in the port, apart from the names ROADMAP.md leaves
-  out with a reason and the ``parallel`` package, which is still to port.
+  out with a reason; ``parallel`` included (ROADMAP item 10d).
 * ``HookManager.collect_states`` / ``load_states`` / ``set_active_hooks`` /
   ``__str__``, ``DGBatch.num_valid_edges``, ``BaseDGHook.get_batch_attribute``,
   the storage's ``get_nbrs`` and the backend registry, on the cases of the
@@ -47,8 +47,8 @@ LEFT_OUT = {
     "tgm_tpu.train": {"tncn_train_scores_occurrence"},
     "tgm_tpu.train.tncn_pipeline": {"tncn_train_scores_occurrence"},
 }
-# Still to port (ROADMAP item 10d).
-NOT_YET = ("tgm_tpu.parallel",)
+# Still to port: nothing (ROADMAP item 10d, the last, is ported).
+NOT_YET = ()
 # The Pallas functions' counterparts are the port's kernel wrappers.
 RENAMED = {"tgm_tpu.ops.pallas": "tgm_tpu_torch.ops"}
 
@@ -77,7 +77,7 @@ def test_every_jax_all_is_matched_by_the_port():
             missing += [f"{pname}.__all__ lacks {n}" for n in sorted(names - exported)]
         checked += 1
     assert not missing, missing
-    assert checked >= 19  # the JAX modules with an __all__, parallel aside
+    assert checked >= 20  # the JAX modules with an __all__, parallel included
 
 
 def test_exceptions_and_constants_are_all_there():

@@ -18,7 +18,9 @@
 * ``TGNMemory``: Time2Vec + GRU message update with ``stage`` (train mode
   returns the staged rows, differentiable in the GRU and Time2Vec weights;
   eval mode the stored rows), ``flush``, ``flush_all`` and ``store``, for
-  all three state layouts (``aggregator="mean"`` takes the mean state).
+  all three state layouts (``aggregator="mean"`` takes the mean state);
+  ``stage_rows`` stages rows gathered elsewhere (``pending_rows``), as the
+  node-sharded step does with rows fetched from their owners.
 * ``tgn_commit_staged``: writes staged rows, detached, into the stored
   memory (the train-mode commit of rows the forward already staged).
 * ``GraphAttentionEmbedding``: TransformerConv over a deduplicated batch
@@ -269,6 +271,20 @@ def tgn_mean_store_messages(
     return state
 
 
+def pending_rows(state, rows: torch.Tensor):
+    """The scalar and raw message-store fields of ``rows`` (in range, dump
+    row included) of an unpacked or packed state: ``(last_update, s_other,
+    s_t, s_valid, s_raw, d_other, d_t, d_valid, d_raw)``."""
+    if isinstance(state, TGNPackedState):
+        meta, raws = state.meta[rows], state.raws[rows]
+        R = raws.shape[1] // 2
+        return (meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3].bool(), raws[:, :R],
+                meta[:, 4], meta[:, 5], meta[:, 6].bool(), raws[:, R:])
+    return (state.last_update[rows], state.s_other[rows], state.s_t[rows], state.s_valid[rows],
+            state.s_raw[rows], state.d_other[rows], state.d_t[rows], state.d_valid[rows],
+            state.d_raw[rows])
+
+
 class TGNMemory(nn.Module):
     """Learnable part of the TGN memory: Time2Vec + GRU message update.
 
@@ -306,31 +322,29 @@ class TGNMemory(nn.Module):
         return tgn_init_state(self.num_nodes, self.memory_dim, self.raw_msg_dim, device)
 
     def _staged(self, state, nids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Updated (memory, last_update) rows for ``nids`` from pending messages.
-
-        LastAggregator: message = [mem[n] | mem[other] | raw | enc(t -
-        last_update[n])] of the winner across the two role stores (src role
-        wins ties); the GRU runs on every row (zero message when none is
-        pending); last_update = the winner's time (0 if none). The winner is
-        chosen from the scalar fields first, so only its role's row is
-        gathered and encoded.
-        """
+        """Updated (memory, last_update) rows for ``nids`` from pending messages
+        (``stage_rows`` over the state's own rows)."""
         if self.aggregator == "mean":
             return self._staged_mean(state, nids)
         n = state.mem.shape[0] - 1
         rows = _safe_rows(nids, n)
-        if isinstance(state, TGNPackedState):
-            meta, raws = state.meta[rows], state.raws[rows]
-            R = raws.shape[1] // 2
-            last_upd, s_other, s_t, v_s, d_other, d_t, v_d = (
-                meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3].bool(), meta[:, 4], meta[:, 5],
-                meta[:, 6].bool())
-            s_raw, d_raw = raws[:, :R], raws[:, R:]
-        else:
-            last_upd = state.last_update[rows]
-            s_other, s_t, v_s = state.s_other[rows], state.s_t[rows], state.s_valid[rows]
-            d_other, d_t, v_d = state.d_other[rows], state.d_t[rows], state.d_valid[rows]
-            s_raw, d_raw = state.s_raw[rows], state.d_raw[rows]
+        return self.stage_rows(state.mem[rows], pending_rows(state, rows),
+                               lambda other: state.mem[other.clamp(0, n).long()])
+
+    def stage_rows(self, mem_rows: torch.Tensor, pending, mem_of) -> Tuple[torch.Tensor,
+                                                                          torch.Tensor]:
+        """The LastAggregator's staged rows from gathered ones: ``mem_rows``
+        and ``pending`` (``pending_rows``) of the same rows, and ``mem_of(ids)``,
+        the stored memory of the winners' counterparts (PAD where there is
+        none; the local version reads row 0 for it, ``clamp(0, N)``).
+
+        Message = [mem[n] | mem[other] | raw | enc(t - last_update[n])] of the
+        winner across the two role stores (src role wins ties); the GRU runs
+        on every row (zero message when none is pending); last_update = the
+        winner's time (0 if none). The winner is chosen from the scalar
+        fields first, so only its role's row is gathered and encoded.
+        """
+        last_upd, s_other, s_t, v_s, s_raw, d_other, d_t, v_d, d_raw = pending
         t_s_eff = torch.where(v_s, s_t, -1)
         t_d_eff = torch.where(v_d, d_t, -1)
         use_d = t_d_eff > t_s_eff
@@ -338,8 +352,7 @@ class TGNMemory(nn.Module):
 
         other_w = torch.where(use_d, d_other, s_other)
         t_w = torch.where(use_d, d_t, s_t)
-        mem_rows = state.mem[rows]
-        mem_other = state.mem[other_w.clamp(0, n).long()]
+        mem_other = mem_of(other_w)
         raw_w = torch.where(use_d[:, None], d_raw, s_raw)
         enc = self.time_enc((t_w - last_upd).float())
 
@@ -610,6 +623,7 @@ __all__ = [
     "TGNMemory",
     "TGNMemoryState",
     "TGNPackedState",
+    "pending_rows",
     "rowwise_project_edge_feats",
     "tgn_commit_staged",
     "tgn_init_state",

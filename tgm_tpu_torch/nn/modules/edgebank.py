@@ -1,22 +1,28 @@
 """EdgeBank, the parameter-free memory baseline (port of
 ``tgm_tpu/nn/modules/edgebank.py``).
 
-The memory is a ``SortedPairTable`` on the device: one row per (src, dst)
-pair ever updated, holding the pair's latest time. A query is a
-``searchsorted``: ``pos_prob`` where the pair is stored (and, in
+The memory is a ``SortedPairTable`` on the device: one row per pair key
+ever updated, holding the key's latest time. A query is a
+``searchsorted``: ``pos_prob`` where the key is stored (and, in
 ``"fixed"`` mode, its latest time is at or after the window start), else
 0, as float32. Fixed mode needs only the latest time, since the JAX
-package reads the last entry of the pair's time-sorted run.
+package reads the last entry of the key's time-sorted run.
+
+Keys are the JAX package's: ``src * base + dst`` in int64, where ``base``
+is one more than the largest id seen so far in updates and queries alike
+(at least 1). When an update or a query raises ``base``, every stored key
+is re-keyed as JAX does it (``key // old * base + key % old``, floor
+division), and keys that meet on one value keep their latest time. So a
+padded row (``PADDED_NODE_ID``) or any negative id is stored and answered
+as the JAX package stores and answers it: a query such as (1, -1) can read
+the key of another pair. Reading ``base``'s growth back waits for the
+card once an update or query.
 
 The window: ``window_start = t_max - window_ratio * (t_max - t_min)`` over
-the constructor's edges, then ``window_end - window_size`` after each
-update, all in fp64 on the device (an int64 tensor compared with a Python
-float would be compared in float32).
-
-Rows whose src or dst is negative (``PADDED_NODE_ID``) are padding: an
-update skips them, and a query of one answers 0. So a padded batch goes
-in whole, with no mask that would wait for the card. (The JAX package's
-composite key aliases such a query onto a stored pair: ROADMAP fault 24.)
+every row of the constructor's edges, then ``window_end - window_size``
+after each update, whose rows all move ``window_end``, as in JAX; all in
+fp64 on the device (an int64 tensor compared with a Python float would be
+compared in float32).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Literal
 import torch
 
 from ...device import DeviceLike, resolve_device
-from .pair_table import SortedPairTable, capacity_for, pair_keys
+from .pair_table import SortedPairTable, capacity_for
 
 INT64_MIN = torch.iinfo(torch.int64).min
 
@@ -82,7 +88,7 @@ class EdgeBankPredictor:
         self._window_ratio = float(window_ratio)
         self._fixed_memory = memory_mode == "fixed"
 
-        t_min, t_max = time_range(ts, valid_edges(src, dst))
+        t_min, t_max = int(ts.min()), int(ts.max())
         if self._fixed_memory:
             window_start = t_max - window_ratio * (t_max - t_min)
         else:
@@ -91,21 +97,37 @@ class EdgeBankPredictor:
         self._window_end = torch.tensor(t_max, dtype=torch.int64, device=self.device)
         self._window_start = torch.tensor(window_start, dtype=torch.float64, device=self.device)
         self.memory = SortedPairTable(self.device, capacity_for(len(src)))
+        self._pair_base = 1  # grows with the largest id seen
         self.update(src, dst, ts)
 
+    def _key(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """``src * base + dst`` after raising ``base`` to cover this call's
+        ids, re-keying the table first when it grows (the JAX ``_key``)."""
+        m = int(torch.maximum(src.max(), dst.max()).clamp_min(0)) + 1 if src.numel() else 1
+        if m > self._pair_base:
+            old, self._pair_base = self._pair_base, m
+            keys, vals = self.memory.items()
+            if keys.numel():
+                keys = torch.div(keys, old, rounding_mode="floor") * m + torch.remainder(keys, old)
+                table = SortedPairTable(self.device, self.memory.capacity)
+                table.merge(keys, vals, "amax")
+                self.memory = table
+        return src * self._pair_base + dst
+
     def update(self, src, dst, ts) -> None:
-        """Store a batch of edges (padding rows skipped) and advance the window."""
+        """Store a batch of edges, every row keyed as the JAX package keys
+        it, and advance the window."""
         src, dst, ts = (as_long(x, self.device) for x in (src, dst, ts))
         check_edges(src, dst, ts)
-        t_hi = torch.where(valid_edges(src, dst), ts, INT64_MIN).max()
-        self._window_end = torch.maximum(self._window_end, t_hi)
+        self._window_end = torch.maximum(self._window_end, ts.max())
         if self._fixed_memory:
             self._window_start = self._window_end.double() - self._window_size
-        self.memory.merge(pair_keys(src, dst), ts, "amax")
+        keys = self._key(src, dst)  # may replace self.memory: key before binding merge
+        self.memory.merge(keys, ts, "amax")
 
     def __call__(self, query_src, query_dst) -> torch.Tensor:
-        """float32 ``pos_prob`` for each queried pair in (windowed) memory, else 0."""
-        q = pair_keys(as_long(query_src, self.device), as_long(query_dst, self.device))
+        """float32 ``pos_prob`` for each queried key in (windowed) memory, else 0."""
+        q = self._key(as_long(query_src, self.device), as_long(query_dst, self.device))
         hit, row = self.memory.lookup(q)
         if self._fixed_memory:
             hit &= self.memory.values(row).double() >= self._window_start

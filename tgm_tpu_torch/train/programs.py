@@ -70,11 +70,14 @@ from ..nn.encoder.tgn import TGNMemory, tgn_commit_staged
 from ..nn.encoder.tpnet import rp_update
 
 
-def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """``optax.sigmoid_binary_cross_entropy``, mean over ``mask`` (at least 1)."""
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                    denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy``, summed over ``mask`` and divided
+    by ``denom`` (default: the mask's count, at least 1; a sharded step gives
+    the whole batch's)."""
     loss = -target * F.logsigmoid(logits) - (1.0 - target) * F.logsigmoid(-logits)
     w = mask.to(loss.dtype)
-    return (loss * w).sum() / w.sum().clamp_min(1.0)
+    return (loss * w).sum() / (w.sum().clamp_min(1.0) if denom is None else denom)
 
 
 def _raw_msg(batch) -> torch.Tensor:
@@ -149,16 +152,22 @@ def build_local_edges(batch, num_nodes: int):
 def tgn_embed(memory: TGNMemory, encoder: Any, mem_state,
               seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
               nbr_x: torch.Tensor, training: bool, generator: Optional[torch.Generator] = None,
-              nbr_msg_proj: Optional[torch.Tensor] = None):
+              nbr_msg_proj: Optional[torch.Tensor] = None,
+              stage: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]] = None):
     """Rowwise TGN embeddings of S seeds over their (S, K) recency neighbours.
 
     Stages memory for [seeds | neighbours] (train mode) or reads the stored
     rows (eval mode) and runs the encoder. Returns ``(z, (z_mem,
     last_update))`` with the memory rows of the S + S * K staged ids.
+    ``stage(ids)``, where given, replaces ``memory.stage(mem_state, ids,
+    training)`` (the node-sharded step stages rows fetched from their owners).
     """
     S, K = nbrs.shape
     rows = torch.cat([seeds, nbrs.reshape(-1)])
-    z_mem, last_upd = memory.stage(mem_state, rows, training=training)
+    if stage is None:
+        z_mem, last_upd = memory.stage(mem_state, rows, training=training)
+    else:
+        z_mem, last_upd = stage(rows)
     M = z_mem.shape[-1]
     z = encoder(
         z_mem[:S], z_mem[S:].reshape(S, K, M), last_upd[:S], nbr_time, nbr_x,
@@ -171,24 +180,26 @@ def tgn_loss_and_grad(memory: TGNMemory, encoder: Any, decoder: Any,
                       opt: torch.optim.Optimizer, mem_state,
                       seeds: torch.Tensor, nbrs: torch.Tensor, nbr_time: torch.Tensor,
                       nbr_x: torch.Tensor, edge_valid: torch.Tensor,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None, stage=None,
+                      denom: Optional[torch.Tensor] = None):
     """Masked BCE of a train batch and its backward; returns ``(loss, staged)``.
 
     Seeds are laid out [src | dst | neg], B each. ``opt``'s gradients are
     zeroed in place and every parameter gets one, so every parameter steps
     every time, as optax updates every leaf. ``loss`` is detached;
     ``staged`` holds the staged (memory, last_update) rows of src | dst, the
-    train-mode commit set.
+    train-mode commit set. ``stage`` goes to ``tgn_embed``, ``denom`` to
+    ``bce_with_logits``.
     """
     B = edge_valid.shape[0]
     zero_every_grad(opt)
     with torch.enable_grad():
         z, (st_mem, st_last) = tgn_embed(memory, encoder, mem_state, seeds, nbrs, nbr_time,
-                                         nbr_x, True, generator)
+                                         nbr_x, True, generator, stage=stage)
         pos = decoder(z[:B], z[B : 2 * B])
         neg = decoder(z[:B], z[2 * B : 3 * B])
-        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid) + bce_with_logits(
-            neg, torch.zeros_like(neg), edge_valid
+        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid, denom) + bce_with_logits(
+            neg, torch.zeros_like(neg), edge_valid, denom
         )
         loss.backward()
     return loss.detach(), (st_mem[: 2 * B].detach(), st_last[: 2 * B])
@@ -256,20 +267,21 @@ def score_dedup_rows(decoder: Any, batch, z: torch.Tensor):
 
 
 def train_loss_and_grad(opt: torch.optim.Optimizer, embed: Callable[[], torch.Tensor],
-                        decoder: Any, edge_valid: torch.Tensor) -> torch.Tensor:
+                        decoder: Any, edge_valid: torch.Tensor,
+                        denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked BCE of one train batch and its backward; returns the detached loss.
 
     ``embed()`` gives the embeddings of [src | dst | neg], B rows each.
     ``opt``'s gradients are zeroed in place and every parameter gets one
-    (``zero_every_grad``)."""
+    (``zero_every_grad``). ``denom`` goes to ``bce_with_logits``."""
     B = edge_valid.shape[0]
     zero_every_grad(opt)
     with torch.enable_grad():
         z = embed()
         pos = decoder(z[:B], z[B : 2 * B])
         neg = decoder(z[:B], z[2 * B : 3 * B])
-        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid) + bce_with_logits(
-            neg, torch.zeros_like(neg), edge_valid
+        loss = bce_with_logits(pos, torch.ones_like(pos), edge_valid, denom) + bce_with_logits(
+            neg, torch.zeros_like(neg), edge_valid, denom
         )
         loss.backward()
     return loss.detach()

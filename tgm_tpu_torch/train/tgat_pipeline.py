@@ -180,42 +180,50 @@ class TGATPipeline:
                              device=rng.device, dtype=torch.int32)
 
     # ------------------------------------------------------------------ #
-    def _hops(self, rec_state, seeds: torch.Tensor, seed_t: torch.Tensor):
+    def _hops(self, rec_state, seeds: torch.Tensor, seed_t: torch.Tensor, select=None):
         """Multi-hop recency expansion (hop i+1's seeds are hop i's neighbours).
 
         Returns ``(hops, nbr_kv_x)``: ``hops`` is TGAT's argument tuple
         (seed_nids, seed_times, nbr_nids, nbr_edge_x, nbr_edge_time), per hop;
         ``nbr_kv_x`` the per-hop [node ‖ edge] K/V rows with the aug table
         (the deepest hop's only; ``None`` otherwise). One K1 (or K4) launch
-        a hop."""
-        last = len(self.num_nbrs) - 1
+        a hop. ``select`` (default ``_select_hop``) answers one hop; the
+        node-sharded step gives one that asks each seed's owner."""
+        select = self._select_hop if select is None else select
         hop_seeds, hop_times = [seeds.int()], [seed_t.int()]
         hop_nbrs: List[torch.Tensor] = []
         hop_nbr_t: List[torch.Tensor] = []
         hop_nbr_x: List[torch.Tensor] = []
         hop_kv = None if self.aug_x is None else [None] * len(self.num_nbrs)
-        for hop, k in enumerate(self.num_nbrs):
+        for hop in range(len(self.num_nbrs)):
             if hop > 0:
                 hop_seeds.append(hop_nbrs[-1].reshape(-1))
                 hop_times.append(hop_nbr_t[-1].reshape(-1))
-            seeds, seed_t = hop_seeds[-1], hop_times[-1]
-            if self.aug_x is not None and hop == last:
-                nbrs, nts, pay, kv = recency_eid_select(rec_state, seeds, seed_t, k, self.aug_x)
-                hop_kv[hop] = torch.where((pay >= 0)[..., None], kv, self.aug_fill)
-                # Never read: the deepest hop's edge features live in its K/V rows.
-                nxs = kv.new_zeros(()).expand(nbrs.shape + (self.edge_dim,))
-            elif self.aug_x is not None:
-                nbrs, nts, pay, _ = recency_eid_select(rec_state, seeds, seed_t, k)
-                nxs = gather_edge_feats(self.edge_x_full, torch.where(pay >= 0, pay >> 1, -1))
-            elif self.edge_x_full is not None:
-                nbrs, nts, _, nxs = recency_eid_select(rec_state, seeds, seed_t, k,
-                                                       self.edge_x_full)
-            else:
-                nbrs, nts, nxs = recency_feats_select(rec_state, seeds, seed_t, k)
+            nbrs, nts, nxs, kv = select(rec_state, hop, hop_seeds[-1], hop_times[-1])
+            if hop_kv is not None:
+                hop_kv[hop] = kv
             hop_nbrs.append(nbrs)
             hop_nbr_t.append(nts)
             hop_nbr_x.append(nxs)
         return (hop_seeds, hop_times, hop_nbrs, hop_nbr_x, hop_nbr_t), hop_kv
+
+    def _select_hop(self, rec_state, hop: int, seeds: torch.Tensor, seed_t: torch.Tensor):
+        """One hop's ``(nbrs, times, edge features, K/V rows or None)`` of
+        (S,) int32 seeds at their times: one K1 (or K4) launch."""
+        k = self.num_nbrs[hop]
+        if self.aug_x is not None and hop == len(self.num_nbrs) - 1:
+            nbrs, nts, pay, kv = recency_eid_select(rec_state, seeds, seed_t, k, self.aug_x)
+            kv = torch.where((pay >= 0)[..., None], kv, self.aug_fill)
+            # Never read: the deepest hop's edge features live in its K/V rows.
+            return nbrs, nts, kv.new_zeros(()).expand(nbrs.shape + (self.edge_dim,)), kv
+        if self.aug_x is not None:
+            nbrs, nts, pay, _ = recency_eid_select(rec_state, seeds, seed_t, k)
+            return (nbrs, nts,
+                    gather_edge_feats(self.edge_x_full, torch.where(pay >= 0, pay >> 1, -1)), None)
+        if self.edge_x_full is not None:
+            nbrs, nts, _, nxs = recency_eid_select(rec_state, seeds, seed_t, k, self.edge_x_full)
+            return nbrs, nts, nxs, None
+        return (*recency_feats_select(rec_state, seeds, seed_t, k), None)
 
     def _push(self, rec_state, batch):
         """Advance the recency buffers with this batch's events (one push, in place)."""
