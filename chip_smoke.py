@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--only-hook-step] [--only-store-step] [--only-dyg-serve]
         [--only-k4] [--only-segment] [--only-seg-agree N] [--only-nodeprop] [--only-hooks]
         [--only-mixer] [--only-ctan-tncn] [--only-snapshot] [--only-snapshot-tasks]
-        [--only-baselines] [--only-chunked] [--only-parallel]
+        [--only-baselines] [--only-chunked] [--only-parallel] [--only-bf16]
 
 Drives the port's paths through the hook API (TGN and DyGFormer streaming
 link-prediction inference, and TGN, DyGFormer and TGAT link-prediction
@@ -418,6 +418,29 @@ hand-written CUDA kernels, in phases:
               messages and recency rows within 1e-5 after the last step);
               ms a step and rank 0's launches.
               ``--only-parallel`` runs phases 48-50 alone.
+    bf16: the JAX package's bf16 options at full width on the wiki-shaped
+              stream, each route beside its fp32 one, over the first 150
+              train batches (depth cut from 550) and the whole val split:
+              K1 copying bf16 rows, exact against its plain version and
+              timed from a CUDA graph (S = 4,400 over the (E, 172) table
+              and over the (E, 100) projected table, S = 44,000 over the
+              (2E, 173) side-augmented table); ``TGNPipeline`` with
+              ``attn_bf16`` (val through the bf16 projected table and the
+              bf16 memory mirror), ``feat_bf16`` and ``dedup_staging``;
+              ``TGATPipeline`` with ``feat_bf16`` and ``attn_bf16``; the
+              DyGFormer example's train with ``compute_bf16`` and its val
+              through K5, and ``bf16_stream``'s val through the layers'
+              modules (40 batches): ms a batch, peak memory and its rise,
+              launches a batch (K1, K4, K5, the push, the store commit). On
+              the card, bit for bit: the mirror's val against val without
+              it, the mirror against the cast memory, the bf16 table
+              against the fp32 one on the bf16 K/V path, dedup_staging's
+              scores against staging every row. Card against CPU (TGN and
+              TGAT bf16: 3 train batches on the same weights and negatives,
+              integer state exact, first loss within 1e-4, then 3 val
+              batches on the card's weights, scores within 5e-3 x max and a
+              median of 1e-6 x max; DyGFormer through K5: one val batch,
+              the 5e-3 band). ``--only-bf16`` runs this block alone.
 51. store-step: one ``tgn_store_messages`` on a TGN serving batch, through its
               public signature only: µs per call from Python, device µs from
               a CUDA graph and the CUDA kernels one call runs
@@ -1130,10 +1153,12 @@ def k1_fused_case(rng, S: int, edge_x, dev, card: str, B: int = NUM_NBRS,
     # Bytes: seeds and query times; each distinct row's ids, times and
     # write_pos; the selected slots' edge ids; each distinct selected edge
     # row; the (S, K) int outputs and the (S, K, D) features.
-    nbytes = 8 * S + 4 * rows * (2 * B + 1) + 4 * selected + 4 * D * edge_rows \
-        + 4 * S * K * (3 + D)
+    es = edge_x.element_size()
+    nbytes = 8 * S + 4 * rows * (2 * B + 1) + 4 * selected + es * D * edge_rows \
+        + 4 * S * K * 3 + es * S * K * D
     return _time_and_report(
-        f"K1 fused recency_eid_select S={S} B={B} K={K} D={D} (selected {selected}/{S * K}, "
+        f"K1 fused recency_eid_select S={S} B={B} K={K} D={D} {edge_x.dtype} (selected "
+        f"{selected}/{S * K}, "
         f"{edge_rows} distinct edge rows, {rows} distinct state rows)",
         lambda: recency_eid_select(state, seeds, qt, K, edge_x),
         lambda: recency_eid_select_plain(state, seeds, qt, K, edge_x),
@@ -1198,7 +1223,7 @@ def kernel_phase(rng, dev, card: str):
     # TGAT: the hook path's hop-2 select at its train (12,000 seeds) and eval
     # (88,000) counts, B = K = 20, D = 172; TGATPipeline's deepest eval hop
     # over the (2E, 173) side-augmented table (44,000 seeds, B = K = 10;
-    # D % 4 != 0 takes the kernel's scalar copy).
+    # 692-byte rows take the kernel's 4-byte units).
     from tgm_tpu_torch.train import build_aug_table
 
     for prefix, S in (("tgat_train_hop2", 3 * BATCH * TGAT_NBRS[0]),
@@ -1547,17 +1572,18 @@ def agree_phase(data, val, cands, models, dev, card):
 # ---------------------------------------------------------------------- #
 # The DyGFormer serving path
 # ---------------------------------------------------------------------- #
-def make_dyg_models(seed: int):
+def make_dyg_models(seed: int, **flags):
+    """Encoder (``flags``: the bf16 options), decoder and node features from ``seed``."""
     from tgm_tpu_torch.nn import DyGFormer, LinkPredictor
 
     torch.manual_seed(seed)
-    encoder = DyGFormer(**DYG)
+    encoder = DyGFormer(**DYG, **flags)
     decoder = LinkPredictor(node_dim=DYG["output_dim"], hidden_dim=DYG["output_dim"])
     node_x = np.random.default_rng(seed).normal(size=(WIKI_NODES, 1)).astype(np.float32)
     return encoder.eval(), decoder.eval(), node_x
 
 
-def make_dyg_pipeline(cands, models, device):
+def make_dyg_pipeline(cands, models, device, stack: str = "kernel"):
     from tgm_tpu_torch.hooks import HookManager, RecencyNeighborHook, TGBNegativeEdgeSamplerHook
     from tgm_tpu_torch.train import build_dygformer_eval_core
 
@@ -1571,7 +1597,8 @@ def make_dyg_pipeline(cands, models, device):
                               device=device)
     hm.register_shared(rec)
     eval_core = build_dygformer_eval_core(encoder.to(device), decoder.to(device),
-                                          torch.as_tensor(node_x, device=device), WIKI_NODES)
+                                          torch.as_tensor(node_x, device=device), WIKI_NODES,
+                                          stack=stack)
     return hm, rec, eval_core
 
 
@@ -2095,11 +2122,12 @@ TGN_STEP = {"recency_eid_select": 1, "recency_push": PUSH_LAUNCHES, "tgn_store_c
 
 
 def make_tgn_pipeline(data, train, device, feature_layout: bool = False,
-                      packed_recency: bool = False):
+                      packed_recency: bool = False, **opts):
     """``TGNPipeline`` as ``bench.py`` builds it: dims 100, 2 heads, K = 10,
     Adam at 1e-4, negatives over the train split's destination range, the
     eid layout over the pre-split feature table (packed with
-    ``packed_recency``, ``bench.py --recency packed``) or the feature layout."""
+    ``packed_recency``, ``bench.py --recency packed``) or the feature layout;
+    ``opts``: the bf16 options."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import TGNPipeline
 
@@ -2107,7 +2135,7 @@ def make_tgn_pipeline(data, train, device, feature_layout: bool = False,
     return TGNPipeline(WIKI_NODES, WIKI_EDGE_DIM, DIMS, DIMS, DIMS, NUM_NBRS, TRAIN_LR,
                        int(dst.min()), int(dst.max()),
                        edge_x_full=None if feature_layout else data.edge_x,
-                       packed_recency=packed_recency, device=device)
+                       packed_recency=packed_recency, device=device, **opts)
 
 
 def split_stream(d, device):
@@ -2716,10 +2744,11 @@ def _drift_line(g, c) -> str:
             + "; ".join(_z_gap(x, y) for x, y in zip(g["z"], c["z"])))
 
 
-def make_tgat_pipe(data, train, device):
+def make_tgat_pipe(data, train, device, **opts):
     """``TGATPipeline`` as ``bench.py --model tgat`` builds it: K = (10, 10),
     time and embed dims 100, Adam at 1e-4, node features normal(N, 1) from
-    seed 0, the side-augmented table over the pre-split features."""
+    seed 0, the side-augmented table over the pre-split features; ``opts``:
+    the bf16 options."""
     from tgm_tpu_torch import DGraph
     from tgm_tpu_torch.train import TGATPipeline
 
@@ -2729,7 +2758,7 @@ def make_tgat_pipe(data, train, device):
                         lr=TRAIN_LR, neg_low=int(dst.min()), neg_high=int(dst.max()),
                         edge_x_full=data.edge_x,
                         edge_ends_full=(data.edge_index[:, 0], data.edge_index[:, 1]),
-                        device=device)
+                        device=device, **opts)
 
 
 def tgat_pipe_phase(data, train, val, test, cands, seed: int, dev, card: str):
@@ -6119,6 +6148,440 @@ def parallel_phases(data, train, val, cands, seed: int, dev, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# The bf16 options: TGN's attn_bf16 (with the bf16 projected table and the
+# memory mirror), feat_bf16 and dedup_staging; TGAT's feat_bf16 + attn_bf16
+# over the bf16 side-augmented table; DyGFormer's compute_bf16 (train, and
+# serve through K5) and bf16_stream (the layers' modules)
+# ---------------------------------------------------------------------- #
+BF16_TRAIN_BATCHES = 150  # train batches each bf16 route and its fp32 route run (depth cut)
+BF16_AGREE_BATCHES = 2  # train batches card vs CPU, then as many val batches
+BF16_DYG_STREAM_BATCHES = 40  # val batches of the bf16_stream module-stack serve
+BF16_BAND = (5e-3, 1e-6)  # scores card vs CPU: max and median |diff| over max |CPU score|
+
+
+def bf16_k1_phase(rng, dev, card: str):
+    """K1 copying bf16 rows, exact against its plain version and timed from
+    a CUDA graph: S = 4,400 over the (E, 172) table, S = 4,400 over the
+    (E, 100) projected table, S = 44,000 over the (2E, 173) side-augmented
+    table. Returns the measured numbers for K1's JSON entry."""
+    from tgm_tpu_torch.train import build_aug_table
+
+    eval_seeds = 2 * BATCH + BATCH * NUM_CANDIDATES
+    table = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                           device=dev).to(torch.bfloat16)
+    out = _measured("bf16_d172", k1_fused_case(rng, eval_seeds,
+                                               table(WIKI_EDGES, WIKI_EDGE_DIM), dev, card))
+    out.update(_measured("bf16_proj_d100", k1_fused_case(rng, eval_seeds,
+                                                         table(WIKI_EDGES, DIMS), dev, card)))
+    ends = rng.integers(0, WIKI_NODES, (2, WIKI_EDGES))
+    aug = build_aug_table(table(WIKI_EDGES, WIKI_EDGE_DIM), table(WIKI_NODES, 1), *ends)
+    out.update(_measured("bf16_tgat_aug_d173", k1_fused_case(
+        rng, eval_seeds * TGAT_PIPE_NBRS[0], aug, dev, card, side_payload=True,
+        iters=TGAT_TIMING_ITERS)))
+    return out
+
+
+def _bf16_train(label: str, pipe, carry, stream, n: int, need, card: str):
+    """``n`` train batches through ``jit_scan_epoch``: (carry, losses, ms a
+    batch, launches, the peak line); each batch launches ``need``."""
+    from tgm_tpu_torch.train import jit_scan_epoch
+
+    epoch = jit_scan_epoch(pipe.train_step, stream.batch_at, n)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, losses = epoch(carry)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    launches = read_launches()
+    peak = _peak_line(base)
+    check_launches(label, launches, need, n)
+    losses = losses.cpu()
+    if losses.shape != (n,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses not finite or of the wrong shape: {losses}")
+    return carry, losses, ms, launches, peak
+
+
+def _tgn_eval(pipe, carry, stream, rows, n: int, table=None, mirror=None):
+    """``n`` eval batches; (carry, per-batch MRR sums, counts, mirror)."""
+    sums, counts = [], []
+    for i in range(n):
+        out = pipe.eval_step(carry, stream.batch_at(i), rows[i * BATCH:(i + 1) * BATCH],
+                             nbr_proj_table=table, mem_bf16=mirror)
+        carry, (s, c) = out[:2]
+        mirror = out[2] if mirror is not None else None
+        sums.append(s)
+        counts.append(c)
+    return carry, torch.stack(sums), torch.stack(counts), mirror
+
+
+def _per_batch(launches, n: int):
+    return {k: v / n for k, v in launches.items() if v}
+
+
+def _bf16_scores(path: str, card_calls, cpu_calls, median: bool = True) -> str:
+    """Scores card vs CPU within ``BF16_BAND`` (the median only where
+    ``median``: K5's flips move whole sequences, fault 2)."""
+    got = torch.cat([torch.cat([p.flatten(), n.flatten()]) for p, n, *_ in card_calls])
+    want = torch.cat([torch.cat([p.flatten(), n.flatten()]) for p, n, *_ in cpu_calls])
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.abs().max())
+    mx, med = float(diff.max()), float(diff.median())
+    if not (mx <= BF16_BAND[0] * scale and (not median or med <= BF16_BAND[1] * scale)):
+        raise AssertionError(f"{path}: card vs CPU scores max {mx} median {med} apart, max "
+                             f"|score| {scale}")
+    return (f"scores max |diff| {mx:.3g} ({mx / scale:.3g} x max), median {med:.3g} "
+            f"({med / scale:.3g} x max)")
+
+
+def _to_cpu_carry(cpu_pipe, carry, seed: int):
+    """A CPU carry holding the card carry's weights and state."""
+    cpu = cpu_pipe.init_carry(seed)
+    cpu.params.load_state_dict(carry.params.state_dict())
+    rec = tuple(x.cpu().clone() for x in carry.rec_state)
+    mem = getattr(carry, "mem_state", None)
+    if mem is None:
+        return cpu._replace(rec_state=rec)
+    return cpu._replace(mem_state=type(mem)(*(x.cpu().clone() for x in mem)), rec_state=rec)
+
+
+def _tgn_bf16_route(name: str, opts, data, train, stream, vstream, rows, n: int, seed: int,
+                    dev, card: str, ms):
+    """One TGNPipeline route: ``n`` train batches, timed; ``dedup_staging``:
+    its forward_only scores against staging every row; ``fp32`` and
+    ``attn_bf16``: val through eval_step (``attn_bf16``: the bf16 projected
+    table and the memory mirror, then the bit identities). Fills ``ms``;
+    returns the launches by path."""
+    from tgm_tpu_torch.nn.modules.bf16 import BF16
+
+    pipe = make_tgn_pipeline(data, train, dev, **opts)
+    table_mb = pipe.edge_x_full.numel() * pipe.edge_x_full.element_size() / 2**20
+    carry, losses, ms[name], launches, peak = _bf16_train(
+        f"TGNPipeline {name} train", pipe, pipe.init_carry(seed), stream, n, TGN_STEP, card)
+    paths = {} if name.startswith("fp32") else {f"launches_tgn_{name}_train": launches}
+    log("bf16", f"TGN {name}: {n} train batches, train_ms_per_batch={ms[name]:.3f} (fp32 "
+                f"{ms['fp32']:.3f}); loss first {float(losses[0]):.6f} last "
+                f"{float(losses[-1]):.6f}; edge table {pipe.edge_x_full.dtype} "
+                f"{table_mb:.1f} MiB; {peak}; launches per batch {_per_batch(launches, n)} "
+                f"[{card}]")
+    if name == "dedup_staging":
+        # The distinct rows staged once: the same staged rows, so the same scores.
+        vb = vstream.batch_at(0)
+        fwd = pipe.forward_only(carry, vb)
+        pipe.dedup_staging = False
+        if not torch.equal(fwd, pipe.forward_only(carry, vb)):
+            raise AssertionError("dedup_staging changed forward_only's scores on the card")
+        log("bf16", f"TGN dedup_staging: forward_only scores bit-equal to staging every row "
+                    f"[{card}]")
+    if name not in ("fp32", "attn_bf16"):
+        return paths
+    nv = vstream.num_batches
+    carry = pipe.flush_all(carry)
+    start = clone_state(carry)
+    table = pipe.eval_proj_table(carry.params)
+    mirror = pipe.eval_mem_bf16(carry) if name == "attn_bf16" else None
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, s, c, mirror = _tgn_eval(pipe, carry, vstream, rows, nv, table, mirror)
+    torch.cuda.synchronize()
+    ms[f"{name}_eval"] = (time.perf_counter() - t0) / nv * 1e3
+    launches = read_launches()
+    check_launches(f"TGNPipeline {name} eval", launches, TGN_STEP, nv)
+    mrr = float(s.sum() / c.sum())
+    if not (np.isfinite(mrr) and 0.0 < mrr <= 1.0):
+        raise AssertionError(f"TGN {name} val MRR out of range: {mrr}")
+    if name == "fp32":
+        log("bf16", f"TGN fp32 val: eval_ms_per_batch={ms['fp32_eval']:.3f}, val_mrr={mrr:.6f}; "
+                    f"{_peak_line(base)} [{card}]")
+        return paths
+    paths["launches_tgn_attn_bf16_eval"] = launches
+    log("bf16", f"TGN attn_bf16 val (bf16 projected table {tuple(table.shape)} {table.dtype}, "
+                f"bf16 mirror): eval_ms_per_batch={ms['attn_bf16_eval']:.3f} (fp32 "
+                f"{ms['fp32_eval']:.3f}), val_mrr={mrr:.6f}; {_peak_line(base)}; launches per "
+                f"batch {_per_batch(launches, nv)} [{card}]")
+    # Bit for bit on the card: the mirror against the eval without it, the
+    # mirror against the cast memory, the bf16 table against the fp32 one on
+    # the bf16 K/V path.
+    if not torch.equal(mirror.view(torch.int16), carry.mem_state.mem.to(BF16).view(torch.int16)):
+        raise AssertionError("the bf16 mirror differs from the cast memory after val")
+    plain, s0, c0, _ = _tgn_eval(pipe, clone_state(start), vstream, rows, nv, table)
+    if not (torch.equal(s, s0) and torch.equal(c, c0)
+            and all(torch.equal(a, b) for a, b in zip((*carry.mem_state, *carry.rec_state),
+                                                      (*plain.mem_state, *plain.rec_state)))):
+        raise AssertionError("the eval with the bf16 mirror differs from the eval without it")
+    _, s1, _, _ = _tgn_eval(pipe, clone_state(start), vstream, rows, AGREE_BATCHES)
+    pipe.edge_x_full = pipe.edge_x_full.float()
+    _, s2, _, _ = _tgn_eval(pipe, clone_state(start), vstream, rows, AGREE_BATCHES)
+    if not torch.equal(s1, s2):
+        raise AssertionError("the bf16 table's eval differs from the fp32 table's")
+    log("bf16", f"TGN attn_bf16 on the card, bit for bit: the mirror's val equals val without "
+                f"it (sums, memory, recency), the mirror equals bf16(memory); {AGREE_BATCHES} val "
+                f"batches from the bf16 table equal those from the fp32 table [{card}]")
+    return paths
+
+
+def tgn_bf16_phase(data, train, val, cands, seed: int, dev, card: str):
+    """TGNPipeline's bf16 routes between two runs of the fp32 one at full
+    width: train ms a batch, peak memory and its rise, launches; val through
+    eval_step; the bit identities on the card; card against CPU."""
+    from tgm_tpu_torch.train import tgn_pipeline
+
+    stream, vstream = split_stream(train, dev), split_stream(val, dev)
+    rows = cand_rows(cands["val"], vstream, dev)
+    n = min(BF16_TRAIN_BATCHES, stream.num_batches)
+    routes = {"fp32": {}, "attn_bf16": {"attn_bf16": True}, "feat_bf16": {"feat_bf16": True},
+              "dedup_staging": {"dedup_staging": True}, "fp32_again": {}}
+    paths, ms = {}, {}
+    for name, opts in routes.items():
+        paths.update(_tgn_bf16_route(name, opts, data, train, stream, vstream, rows, n, seed,
+                                     dev, card, ms))
+    log("bf16", "TGN train ms a batch, fp32 first / last: "
+                f"{ms['fp32']:.3f} / {ms['fp32_again']:.3f}; "
+                + ", ".join(f"{k} {ms[k]:.3f}" for k in ("attn_bf16", "feat_bf16",
+                                                          "dedup_staging")) + f" [{card}]")
+
+    # Card against CPU: the first train batches on the same weights and
+    # negatives, then val batches on the card's weights and state.
+    cpu = torch.device("cpu")
+    pipes = {d: make_tgn_pipeline(data, train, d, attn_bf16=True) for d in (dev, cpu)}
+    negs = []
+    record_negatives(pipes[dev], negs)
+    inject_negatives(pipes[cpu], negs, cpu)
+    carries = {d: p.init_carry(seed) for d, p in pipes.items()}
+    streams = {dev: stream, cpu: split_stream(train, cpu)}
+    losses = {}
+    for d in (dev, cpu):
+        carries[d], losses[d], *_ = _bf16_train(f"TGNPipeline attn_bf16 agree ({d.type})",
+                                                pipes[d], carries[d], streams[d],
+                                                BF16_AGREE_BATCHES,
+                                                TGN_STEP if d == dev else {}, card)
+    compare_states("TGN attn_bf16 agree, train", carries[dev], carries[cpu])
+    loss_err = (losses[dev] - losses[cpu]).abs()
+    if float(loss_err[0]) > 1e-4:
+        raise AssertionError(f"TGN attn_bf16 first loss card {losses[dev]} CPU {losses[cpu]}")
+    carries[cpu] = _to_cpu_carry(pipes[cpu], carries[dev], seed)
+    vrows = {dev: rows, cpu: rows.cpu()}
+    vstreams = {dev: vstream, cpu: split_stream(val, cpu)}
+    calls = {}
+    for d in (dev, cpu):
+        p = pipes[d]
+        c = p.flush_all(carries[d])
+        with _RecordedScores(tgn_pipeline) as rec:
+            carries[d], *_ = _tgn_eval(p, c, vstreams[d], vrows[d], BF16_AGREE_BATCHES,
+                                       p.eval_proj_table(c.params), p.eval_mem_bf16(c))
+        calls[d] = rec.calls
+    compare_states("TGN attn_bf16 agree, val", carries[dev], carries[cpu])
+    log("bf16", f"TGN attn_bf16 card vs CPU: {BF16_AGREE_BATCHES} train batches, recency and "
+                f"integer memory exact, losses {losses[dev].tolist()} against "
+                f"{losses[cpu].tolist()} (first within 1e-4); {BF16_AGREE_BATCHES} val "
+                f"batches on the card's weights: {_bf16_scores('TGN attn_bf16', calls[dev], calls[cpu])}; "
+                f"state exact [{card}]")
+    return paths
+
+
+def tgat_bf16_phase(data, train, val, cands, seed: int, dev, card: str):
+    """TGATPipeline with feat_bf16 and attn_bf16 (the bf16 side-augmented
+    table) beside fp32: train and val, then card against CPU."""
+    from tgm_tpu_torch.train import tgat_pipeline
+
+    stream, vstream = split_stream(train, dev), split_stream(val, dev)
+    rows = cand_rows(cands["val"], vstream, dev)
+    n, nv = min(BF16_TRAIN_BATCHES, stream.num_batches), vstream.num_batches
+    paths, ms = {}, {}
+
+    def evaluate(pipe, carry, vs, rw, nb):
+        sums = []
+        for i in range(nb):
+            carry, (s, c) = pipe.eval_step(carry, vs.batch_at(i), rw[i * BATCH:(i + 1) * BATCH])
+            sums.append((s, c))
+        return carry, sums
+
+    for name, bf16 in (("fp32", False), ("bf16", True), ("fp32_again", False)):
+        pipe = make_tgat_pipe(data, train, dev, feat_bf16=bf16, attn_bf16=bf16)
+        carry, losses, ms[name], launches, peak = _bf16_train(
+            f"TGATPipeline {name} train", pipe, pipe.init_carry(seed), stream, n, TGAT_STEP, card)
+        if name == "fp32_again":
+            log("bf16", f"TGAT pipeline train ms a batch, fp32 first / last: {ms['fp32']:.3f} / "
+                        f"{ms[name]:.3f}, bf16 {ms['bf16']:.3f} [{card}]")
+            break
+        reset_launches()
+        t0 = time.perf_counter()
+        carry, sums = evaluate(pipe, carry, vstream, rows, nv)
+        torch.cuda.synchronize()
+        ms[f"{name}_eval"] = (time.perf_counter() - t0) / nv * 1e3
+        eval_launches = read_launches()
+        check_launches(f"TGATPipeline {name} eval", eval_launches, TGAT_STEP, nv)
+        mrr = float(sum(s for s, _ in sums) / sum(c for _, c in sums))
+        if not (np.isfinite(mrr) and 0.0 < mrr <= 1.0):
+            raise AssertionError(f"TGATPipeline {name} val MRR out of range: {mrr}")
+        if bf16:
+            paths["launches_tgat_pipeline_bf16_train"] = launches
+            paths["launches_tgat_pipeline_bf16_eval"] = eval_launches
+        log("bf16", f"TGAT pipeline {name}: aug table {tuple(pipe.aug_x.shape)} "
+                    f"{pipe.aug_x.dtype}; {n} train batches, train_ms_per_batch={ms[name]:.3f} "
+                    f"(fp32 {ms['fp32']:.3f}), loss first {float(losses[0]):.6f} last "
+                    f"{float(losses[-1]):.6f}; {peak}; val eval_ms_per_batch="
+                    f"{ms[f'{name}_eval']:.3f} (fp32 {ms['fp32_eval']:.3f}), val_mrr={mrr:.6f}; "
+                    f"launches per batch: train {_per_batch(launches, n)}, eval "
+                    f"{_per_batch(eval_launches, nv)} [{card}]")
+        del pipe, carry
+
+    cpu = torch.device("cpu")
+    pipes = {d: make_tgat_pipe(data, train, d, feat_bf16=True, attn_bf16=True)
+             for d in (dev, cpu)}
+    negs = []
+    record_negatives(pipes[dev], negs)
+    inject_negatives(pipes[cpu], negs, cpu)
+    carries = {d: p.init_carry(seed) for d, p in pipes.items()}
+    streams = {dev: stream, cpu: split_stream(train, cpu)}
+    losses = {}
+    for d in (dev, cpu):
+        carries[d], losses[d], *_ = _bf16_train(f"TGATPipeline bf16 agree ({d.type})", pipes[d],
+                                                carries[d], streams[d], BF16_AGREE_BATCHES,
+                                                TGAT_STEP if d == dev else {}, card)
+    for i, (g, w) in enumerate(zip(carries[dev].rec_state, carries[cpu].rec_state)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"TGATPipeline bf16 agree: recency tensor {i} differs")
+    if float((losses[dev] - losses[cpu]).abs()[0]) > 1e-4:
+        raise AssertionError(f"TGAT bf16 first loss card {losses[dev]} CPU {losses[cpu]}")
+    carries[cpu] = _to_cpu_carry(pipes[cpu], carries[dev], seed)
+    vstreams, vrows, calls = {dev: vstream, cpu: split_stream(val, cpu)}, {dev: rows,
+                                                                          cpu: rows.cpu()}, {}
+    for d in (dev, cpu):
+        with _RecordedScores(tgat_pipeline) as rec:
+            carries[d], _ = evaluate(pipes[d], carries[d], vstreams[d], vrows[d],
+                                     BF16_AGREE_BATCHES)
+        calls[d] = rec.calls
+    log("bf16", f"TGAT pipeline bf16 card vs CPU: {BF16_AGREE_BATCHES} train batches, recency "
+                f"exact, losses {losses[dev].tolist()} against {losses[cpu].tolist()} (first "
+                f"within 1e-4); {BF16_AGREE_BATCHES} val batches on the card's weights: "
+                f"{_bf16_scores('TGAT bf16', calls[dev], calls[cpu])} [{card}]")
+    return paths
+
+
+def dyg_bf16_phase(train, val, cands, seed: int, dev, card: str):
+    """DyGFormer with compute_bf16: the example's train flow beside fp32
+    (dropout 0.1), val through K5; bf16_stream's val through the layers'
+    modules; K5's bf16 route card against CPU."""
+    from tgm_tpu_torch import DGraph
+    from tgm_tpu_torch.train import DeviceEdgeStream, build_dygformer_eval_core, hook_epoch
+
+    dg, vdg = DGraph(train), DGraph(val)
+    stream = DeviceEdgeStream(dg, BATCH, device=dev)
+    n = min(BF16_TRAIN_BATCHES, stream.num_batches)
+    paths, ms = {}, {}
+    for name, flags in (("fp32", {}), ("compute_bf16", {"compute_bf16": True}),
+                        ("fp32_again", {})):
+        models = make_dyg_models(seed, **flags)
+        encoder, decoder, _ = models
+        hm, _, _, opt, x, train_core = make_dyg_train_pipeline(train, cands, models, dev, seed)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        fn, states = hm.as_transform("train", dg)
+        base = _reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(n):
+            states, batch = fn(states, stream.batch_at(i))
+            (generator,), loss = train_core((generator,), batch)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / n * 1e3
+        launches = read_launches()
+        peak = _peak_line(base)
+        check_launches(f"DyGFormer {name} train", launches, DYG_STEP, n)
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"DyGFormer {name} train losses not finite: {losses}")
+        hm.reset_state()
+        if name == "fp32_again":
+            log("bf16", f"DyGFormer train ms a batch, fp32 first / last: {ms['fp32']:.3f} / "
+                        f"{ms[name]:.3f}, compute_bf16 {ms['compute_bf16']:.3f} [{card}]")
+            break
+        # Val through K5, from a core built on the trained weights.
+        eval_core = build_dygformer_eval_core(encoder, decoder, x, WIKI_NODES)
+        vstream = DeviceEdgeStream(vdg, BATCH, device=dev)
+        epoch, vstates = hook_epoch(vstream, hm, "val", vdg, eval_core)
+        reset_launches()
+        t0 = time.perf_counter()
+        _, vstates, (s, c) = epoch(None, vstates)
+        torch.cuda.synchronize()
+        nv = vstream.num_batches
+        ms[f"{name}_eval"] = (time.perf_counter() - t0) / nv * 1e3
+        eval_launches = read_launches()
+        check_launches(f"DyGFormer {name} val", eval_launches,
+                       dict(DYG_STEP, transformer_stack_fwd=1), nv)
+        mrr = float(s.sum() / c.sum())
+        if not (np.isfinite(mrr) and 0.0 < mrr <= 1.0):
+            raise AssertionError(f"DyGFormer {name} val MRR out of range: {mrr}")
+        if name != "fp32":
+            paths["launches_dygformer_bf16_train"] = launches
+            paths["launches_dygformer_bf16_eval"] = eval_launches
+        log("bf16", f"DyGFormer {name}: {n} train batches (dropout {encoder.dropout}), "
+                    f"train_ms_per_batch={ms[name]:.3f} (fp32 {ms['fp32']:.3f}), loss first "
+                    f"{float(losses[0]):.6f} last {float(losses[-1]):.6f}; {peak}; val through "
+                    f"K5 eval_ms_per_batch={ms[f'{name}_eval']:.3f} (fp32 {ms['fp32_eval']:.3f}),"
+                    f" val_mrr={mrr:.6f}; launches per batch: train {_per_batch(launches, n)}, "
+                    f"val {_per_batch(eval_launches, nv)} [{card}]")
+        del hm, opt, train_core, eval_core, models, encoder, decoder
+
+    # bf16_stream: the layers' modules (K5 refuses LayerNormBF16), val.
+    models = make_dyg_models(seed, compute_bf16=True, bf16_stream=True)
+    hm, _, eval_core = make_dyg_pipeline(cands, models, dev, stack="module")
+    vstream = DeviceEdgeStream(vdg, BATCH, device=dev)
+    fn, states = hm.as_transform("val", vdg)
+    base = _reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    sums = []
+    for i in range(BF16_DYG_STREAM_BATCHES):
+        states, batch = fn(states, vstream.batch_at(i))
+        _, (s, c) = eval_core(None, batch)
+        sums.append((s, c))
+    torch.cuda.synchronize()
+    ms["stream_eval"] = (time.perf_counter() - t0) / BF16_DYG_STREAM_BATCHES * 1e3
+    launches = read_launches()
+    check_launches("DyGFormer bf16_stream val", launches, DYG_STEP, BF16_DYG_STREAM_BATCHES)
+    mrr = float(sum(s for s, _ in sums) / sum(c for _, c in sums))
+    if not (np.isfinite(mrr) and 0.0 < mrr <= 1.0):
+        raise AssertionError(f"DyGFormer bf16_stream val MRR out of range: {mrr}")
+    paths["launches_dygformer_bf16_stream_eval"] = launches
+    log("bf16", f"DyGFormer compute_bf16 + bf16_stream, the layers' modules: "
+                f"{BF16_DYG_STREAM_BATCHES} val batches, eval_ms_per_batch="
+                f"{ms['stream_eval']:.3f}, val_mrr={mrr:.6f}; {_peak_line(base)}; launches per "
+                f"batch {_per_batch(launches, BF16_DYG_STREAM_BATCHES)} [{card}]")
+
+    # K5's bf16 route, card against CPU, on the same fresh weights.
+    cpu = torch.device("cpu")
+    calls = {}
+    for d in (dev, cpu):
+        hm, _, core = make_dyg_pipeline(cands, make_dyg_models(seed, compute_bf16=True), d)
+        fn, states = hm.as_transform("val", vdg)
+        vs = DeviceEdgeStream(vdg, BATCH, device=d)
+        with _RecordedScores() as rec:
+            for i in range(1):
+                states, batch = fn(states, vs.batch_at(i))
+                core(None, batch)
+        calls[d] = rec.calls
+    log("bf16", f"DyGFormer compute_bf16 through K5, card vs CPU (its plain version), one val "
+                f"batch: {_bf16_scores('DyGFormer compute_bf16', calls[dev], calls[cpu], median=False)} "
+                f"(the max band: fault 2) [{card}]")
+    return paths
+
+
+def bf16_phases(data, train, val, cands, seed: int, dev, card: str):
+    """The bf16 block; returns K1's bf16 measurements and the routes' launches."""
+    t0 = time.perf_counter()
+    k1 = bf16_k1_phase(np.random.default_rng(seed + 23), dev, card)
+    paths = tgn_bf16_phase(data, train, val, cands, seed, dev, card)
+    paths.update(tgat_bf16_phase(data, train, val, cands, seed, dev, card))
+    paths.update(dyg_bf16_phase(train, val, cands, seed, dev, card))
+    log("bf16", f"block {time.perf_counter() - t0:.1f} s [{card}]")
+    return k1, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6158,6 +6621,9 @@ def main() -> int:
     ap.add_argument("--only-parallel", action="store_true",
                     help="build, run the par-train, par-eval and par-sharded phases and stop "
                     "(no result lines)")
+    ap.add_argument("--only-bf16", action="store_true",
+                    help="build, run the bf16 block (K1's bf16 rows, the TGN, TGAT and DyGFormer "
+                    "bf16 routes) and stop (no result lines)")
     ap.add_argument("--only-chunked", action="store_true",
                     help="build, run the native, chunk-train and chunk-agree phases and stop (no "
                     "result lines)")
@@ -6243,6 +6709,10 @@ def main() -> int:
         data, train, val, _, cands = build_stream(args.seed)
         parallel_phases(data, train, val, cands, args.seed, dev, card)
         return 0
+    if args.only_bf16:
+        data, train, val, _, cands = build_stream(args.seed)
+        bf16_phases(data, train, val, cands, args.seed, dev, card)
+        return 0
     rng = np.random.default_rng(args.seed)
     report = kernel_phase(rng, dev, card)
     report["recency_feats_select"] = k4_phase(rng, dev, card)
@@ -6300,6 +6770,9 @@ def main() -> int:
     hook_paths.update(baseline_phases(data, cands, args.seed, dev, card))
     hook_paths.update(chunked_phases(data, train, args.seed, dev, card))
     hook_paths.update(parallel_phases(data, train, val, cands, args.seed, dev, card))
+    k1_bf16, bf16_paths = bf16_phases(data, train, val, cands, args.seed, dev, card)
+    report["recency_eid_select"].update(k1_bf16)
+    hook_paths.update(bf16_paths)
     del np_data
     # Last: once torch.profiler has traced the card, later launches in this
     # process may cost more, so no serve or train phase may follow it.

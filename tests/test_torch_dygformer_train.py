@@ -18,8 +18,10 @@
   layout, kept values scaled by 1 / keep; the two pair calls of a step draw
   the same masks; eval is deterministic in either module mode and either
   stack.
-* ``compute_bf16`` / ``bf16_stream`` raise ``NotImplementedError``; the stack
-  weights of the fused layout raise ``ValueError``.
+* ``compute_bf16`` / ``bf16_stream`` build the JAX layers (dtypes, the
+  ``LayerNormBF16_i`` names) and load the JAX tree (their numerics are held
+  to flax in ``test_torch_bf16.py``); the stack weights of the fused layout
+  raise ``ValueError``.
 
 Sizes: 120 nodes, 800 edges, batch 100, K = 10, edge / time / channel dims
 8 / 8 / 8 (D = 32), 2 layers, 2 heads, sequences of 16 per side, output 16,
@@ -422,9 +424,20 @@ def test_eval_is_deterministic_in_either_module_mode(stack):
 # Options that are not ported, and the layouts the kernel takes
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("flag", ["compute_bf16", "bf16_stream"])
-def test_bf16_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DyGFormer(**DYG, **{flag: True})
+def test_bf16_options_build_the_jax_layers(flag):
+    """``bf16_stream`` acts only with ``compute_bf16``, as in JAX."""
+    enc = DyGFormer(**DYG, **{flag: True})
+    j_enc = JDyGFormer(**DYG, **{flag: True})
+    node_x, (src, dst), t, nbrs, ntime, nfeat = inputs(8, 4)
+    tree = jax.eval_shape(j_enc.init, jax.random.PRNGKey(0), jnp.asarray(node_x), src, dst, t,
+                          nbrs, ntime, nfeat)["params"]
+    stream = "LayerNormBF16_0" in tree["transformers_0"]
+    assert stream is False and not any(layer.bf16_stream for layer in enc.transformers)
+    on = flag == "compute_bf16"
+    assert (enc.compute_dtype == torch.bfloat16) == on
+    assert all((layer.dtype == torch.bfloat16) == on for layer in enc.transformers)
+    both = DyGFormer(**DYG, compute_bf16=True, bf16_stream=True)
+    assert all(layer.bf16_stream for layer in both.transformers)
 
 
 def test_stack_weights_need_the_flax_mha_layout():

@@ -26,8 +26,27 @@ within 1e-2 * max |JAX score|, MRR sums within 1e-4 plus 0.5 for each
 candidate the two order differently against its positive, which must be a
 near tie on both sides. The measured maxima are printed.
 
-The port's example script runs one epoch on the CPU (narrow widths), and
-its unported flag raises.
+The same flow with ``compute_bf16=True`` in both packages (the examples'
+``--compute-bf16 on``), one transformer layer, without the K5 batch, the
+JAX steps compiled with XLA's excess precision off so that they round
+where flax's source says, as the port does (``nn/modules/bf16.py``; by
+default XLA keeps some fused bf16 results in fp32). The forwards agree
+(the first loss is printed), but the two backward passes flip bf16
+roundings differently, and Adam's first steps, which move every weight by
+about the learning rate whatever its gradient's size, turn those
+differences into weights that differ by about the learning rate (ROADMAP
+fault 28). So the port is held
+to the JAX trajectory step by step: each train step starts from the JAX
+run's weights of that step, and its loss is within 5e-3 of JAX's; val and
+test run on the JAX run's weights, within 0.01 and 0.02 of JAX's MRR;
+recency state exact after each epoch. The weights one port step leaves,
+against JAX's next weights from the same start, are printed and bounded by
+2.5 x the learning rate (fault 28's drift: Adam's first steps move weights
+by about the learning rate, so a gradient component whose sign the bf16
+roundings decide moves them that far apart).
+
+The port's example script runs one epoch on the CPU (narrow widths), with
+and without ``--compute-bf16 on``.
 """
 
 import jax
@@ -87,6 +106,21 @@ def make_stream(seed=0):
     return src, dst, t, edge_x, node_x, rng
 
 
+def source_rounding(jitted):
+    """``jitted``, compiled at its first call with XLA's excess precision
+    off, so each bf16 op rounds its result where the JAX source says, as JAX
+    run op by op does (by default XLA keeps some fused bf16 results in fp32)."""
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jitted.lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False}))
+        return compiled[0](*args)
+
+    return call
+
+
 def jax_cores(encoder, decoder, opt, node_x):
     """The JAX example's ``train_core`` and ``eval_core`` (no dropout), the
     eval core returning its scores too; ``pl`` is ``pallas_layers``."""
@@ -136,7 +170,7 @@ def jax_cores(encoder, decoder, opt, node_x):
     return train_core, eval_core
 
 
-def run_jax(src, dst, t, edge_x, node_x, cands):
+def run_jax(src, dst, t, edge_x, node_x, cands, compute_bf16=False):
     """The JAX example's flow; returns the initial and the trained params,
     per-epoch records, the injections, the test MRR, the first test batch's
     Pallas scores and the largest weight move."""
@@ -150,11 +184,15 @@ def run_jax(src, dst, t, edge_x, node_x, cands):
     rec = JRecency(N, [K], ["edge_src", "edge_dst", "neg"], ["edge_time", "edge_time", "neg_time"],
                    edge_dim=EDGE_DIM)
     hm.register_shared(rec)
-    encoder = JDyGFormer(dropout=0.0, **DYG)
+    # One layer in bf16: the jitted bf16 step compiles slowly, and the layers
+    # repeat one computation.
+    layers = 1 if compute_bf16 else DYG["num_layers"]
+    encoder = JDyGFormer(dropout=0.0, compute_bf16=compute_bf16, **dict(DYG, num_layers=layers))
     decoder = JLinkPredictor(node_dim=OUT, hidden_dim=OUT)
     z = lambda *s: jnp.zeros(s, jnp.int32)
     k1, k2 = jax.random.split(jax.random.PRNGKey(7))
-    params = {"enc": encoder.init(k1, jnp.asarray(node_x), z(4), z(4), z(4), z(8, K), z(8, K),
+    init = jax.jit(encoder.init) if compute_bf16 else encoder.init
+    params = {"enc": init(k1, jnp.asarray(node_x), z(4), z(4), z(4), z(8, K), z(8, K),
                                   jnp.zeros((8, K, EDGE_DIM))),
               "dec": decoder.init(k2, jnp.zeros((1, OUT)), jnp.zeros((1, OUT)))}
     init_params = params
@@ -181,10 +219,15 @@ def run_jax(src, dst, t, edge_x, node_x, cands):
 
         return step
 
+    if compute_bf16:
+        train_step = source_rounding(train_step)
     replay_steps = {s: jax.jit(lambda st, i, s=s: (lambda r: (r[0], draw(r[1], s)))(
         fns[s](st, streams[s].batch_at(i)))) for s in ("train", "val")}
     injected = {"neg": [], "neg_time": []}
+    step_params = []  # the weights each train step starts from
     steps = {(s, w): eval_step(s, w) for s in ("val", "test") for w in (False, True)}
+    if compute_bf16:
+        steps = {k: source_rounding(v) for k, v in steps.items()}
 
     def run_eval(split, n_pallas=0):
         _, states = hm.as_transform(split, dgs[split])
@@ -203,13 +246,14 @@ def run_jax(src, dst, t, edge_x, node_x, cands):
         _, states = hm.as_transform("train", dgs["train"])
         losses, carry = [], (params, opt_state)
         for i in range(streams["train"].num_batches):
+            step_params.append(carry[0])
             states, carry, loss, neg = train_step(states, carry, i)
             losses.append(float(loss))
             injected["neg"].append(np.asarray(neg))
         hm.adopt_states("train", states)
         params, opt_state = carry
         val_mrr, _ = run_eval("val")
-        epochs.append(dict(losses=losses, val_mrr=val_mrr,
+        epochs.append(dict(losses=losses, val_mrr=val_mrr, params=params,
                            rec=[np.asarray(x).copy() for x in rec.state]))
         hm.reset_state()
     for split in ("train", "val"):
@@ -218,13 +262,15 @@ def run_jax(src, dst, t, edge_x, node_x, cands):
             states, d = replay_steps[split](states, i)
             injected["neg" if split == "train" else "neg_time"].append(np.asarray(d))
         hm.adopt_states(split, states)
-    test_mrr, pallas = run_eval("test", n_pallas=1)
+    test_mrr, pallas = run_eval("test", n_pallas=0 if compute_bf16 else 1)
     moved = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in
                 zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(init_params)))
+    injected["step_params"] = step_params
     return init_params, params, epochs, injected, test_mrr, pallas, moved
 
 
-def run_port(src, dst, t, edge_x, node_x, cands, params, injected, trained):
+def run_port(src, dst, t, edge_x, node_x, cands, params, injected, trained,
+             compute_bf16=False, eval_weights=None, step_weights=None):
     data = DGData.from_raw(t, np.stack([src, dst], 1), edge_x)
     dgs = dict(zip(SPLITS, (DGraph(d) for d in data.split())))
     negs, neg_times = iter(injected["neg"]), iter(injected["neg_time"])
@@ -242,19 +288,41 @@ def run_port(src, dst, t, edge_x, node_x, cands, params, injected, trained):
                               ["edge_time", "edge_time", "neg_time"], edge_dim=EDGE_DIM,
                               device="cpu")
     hm.register_shared(rec)
-    encoder = DyGFormer(dropout=0.0, **DYG)
+    dyg = dict(DYG, num_layers=1) if compute_bf16 else DYG
+    encoder = DyGFormer(dropout=0.0, compute_bf16=compute_bf16, **dyg)
     decoder = LinkPredictor(node_dim=OUT, hidden_dim=OUT)
     load_dygformer_params(params, encoder, decoder)
     x = torch.from_numpy(node_x)
     opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=LR)
     train_core = build_dygformer_train_core(encoder, decoder, opt, x)
+    step_drift = []
+    if step_weights is not None:
+        # Each step starts from the given weights: its loss is a forward on
+        # them, and the weights it leaves are held against the next ones.
+        inner, forced = train_core, iter(step_weights)
+        mods = (encoder, decoder)
+
+        def train_core(carry, batch):
+            own = [p.detach().clone() for m in mods for p in m.parameters()]
+            load_dygformer_params(next(forced), encoder, decoder)
+            if own:
+                step_drift.append(max(float((a - p).abs().max()) for a, p in
+                                      zip(own, (p for m in mods for p in m.parameters()))))
+            return inner(carry, batch)
     streams = {s: DeviceEdgeStream(dgs[s], BSIZE, device="cpu") for s in SPLITS}
 
-    def run_eval(split, n_kernel=0):
+    def run_eval(split, n_kernel=0, weights=None):
         core = build_dygformer_eval_core(encoder, decoder, x, N, stack="module")
-        k5_enc, k5_dec = DyGFormer(dropout=0.0, **DYG), LinkPredictor(node_dim=OUT, hidden_dim=OUT)
-        load_dygformer_params(trained, k5_enc, k5_dec)
-        k5 = build_dygformer_eval_core(k5_enc, k5_dec, x, N, stack="kernel")
+        if weights is not None:
+            w_enc = DyGFormer(dropout=0.0, compute_bf16=compute_bf16, **dyg)
+            w_dec = LinkPredictor(node_dim=OUT, hidden_dim=OUT)
+            load_dygformer_params(weights, w_enc, w_dec)
+            core = build_dygformer_eval_core(w_enc, w_dec, x, N, stack="module")
+        if n_kernel:
+            k5_enc = DyGFormer(dropout=0.0, **DYG)
+            k5_dec = LinkPredictor(node_dim=OUT, hidden_dim=OUT)
+            load_dygformer_params(trained, k5_enc, k5_dec)
+            k5 = build_dygformer_eval_core(k5_enc, k5_dec, x, N, stack="kernel")
         kernel_out = []
 
         def step(carry, batch):
@@ -278,19 +346,24 @@ def run_port(src, dst, t, edge_x, node_x, cands, params, injected, trained):
         _, states, _ = epoch(None, states)
         hm.adopt_states(split, states)
 
+    # ``eval_weights``: the trees each eval (val after each epoch, then test) runs on.
+    weights = iter(eval_weights or [None] * (EPOCHS + 1))
     epochs = []
     for _ in range(EPOCHS):
         epoch, states = hook_epoch(streams["train"], hm, "train", dgs["train"], train_core)
         (_,), states, losses = epoch((None,), states)
         hm.adopt_states("train", states)
-        val_mrr, _ = run_eval("val")
+        val_mrr, _ = run_eval("val", weights=next(weights))
         epochs.append(dict(losses=losses.tolist(), val_mrr=val_mrr,
                            rec=[x.numpy().copy() for x in rec.state]))
         hm.reset_state()
     replay("train")
     replay("val")
-    test_mrr, kernel_out = run_eval("test", n_kernel=1)
+    test_mrr, kernel_out = run_eval("test", n_kernel=0 if compute_bf16 else 1,
+                                    weights=next(weights))
     assert next(negs, None) is None and next(neg_times, None) is None
+    if step_weights is not None:
+        epochs[0]["step_drift"] = step_drift[1:]  # the first entry is the initial load
     return epochs, test_mrr, kernel_out
 
 
@@ -338,7 +411,8 @@ def test_two_epochs_match_the_jax_example_flow():
           f"{got_sum} and {float(j_sum)}, {int(flipped.sum())} order flips")
 
 
-@pytest.mark.parametrize("flags", [[], ["--dyg-pairs", "fused", "--dyg-stack", "kernel"]])
+@pytest.mark.parametrize("flags", [[], ["--dyg-pairs", "fused", "--dyg-stack", "kernel"],
+                                   ["--compute-bf16", "on", "--dyg-stack", "kernel"]])
 def test_example_script_runs_one_epoch_on_the_cpu(flags, capsys):
     out = dyg_example.main(["--dataset", "synthetic-120-800", "--epochs", "1", "--device", "cpu",
                             "--channel-dim", "8", "--time-dim", "8", "--embed-dim", "16",
@@ -349,6 +423,30 @@ def test_example_script_runs_one_epoch_on_the_cpu(flags, capsys):
     assert lines[0].startswith("epoch=0 loss=") and lines[-1].startswith("test_mrr=")
 
 
-def test_example_script_unported_flag_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dyg_example.main(["--device", "cpu", "--compute-bf16", "on"])
+def test_compute_bf16_matches_the_jax_example_flow():
+    src, dst, t, edge_x, node_x, rng = make_stream(0)
+    data = DGData.from_raw(t, np.stack([src, dst], 1), edge_x)
+    _, val, test = data.split()
+    cands = {"val": rng.integers(0, N, (val.num_edge_events, Q)),
+             "test": rng.integers(0, N, (test.num_edge_events, Q))}
+    params, trained, j_epochs, injected, j_test, _, _ = run_jax(src, dst, t, edge_x, node_x,
+                                                                cands, compute_bf16=True)
+    run = lambda weights, step_weights=None: run_port(
+        src, dst, t, edge_x, node_x, cands, params, injected, trained, compute_bf16=True,
+        eval_weights=weights, step_weights=step_weights)
+    j_losses = [j["losses"] for j in j_epochs]
+    p_epochs, p_test, _ = run([e["params"] for e in j_epochs] + [trained],
+                              step_weights=injected["step_params"])
+    loss_diff = np.abs(np.subtract([p["losses"] for p in p_epochs], j_losses))
+    val_diff = max(abs(p["val_mrr"] - j["val_mrr"]) for p, j in zip(p_epochs, j_epochs))
+    drift = p_epochs[0]["step_drift"]
+    print(f"compute_bf16 on JAX's weights: first-loss diff {loss_diff.flat[0]:.3g}, max loss "
+          f"diff {loss_diff.max():.3g}, max val MRR diff {val_diff:.3g}, test MRR diff "
+          f"{abs(p_test - j_test):.3g}; one step from JAX's weights leaves weights up to "
+          f"{max(drift):.3g} from JAX's next ones (lr {LR})")
+    assert loss_diff.max() <= 5e-3
+    assert val_diff <= 0.01 and abs(p_test - j_test) <= 0.02
+    assert len(drift) == len(injected["step_params"]) - 1 and max(drift) <= 2.5 * LR
+    for e, (p, j) in enumerate(zip(p_epochs, j_epochs)):
+        for name, a, b in zip(REC_NAMES, p["rec"], j["rec"]):
+            np.testing.assert_array_equal(a, b, err_msg=f"epoch {e} recency {name}")

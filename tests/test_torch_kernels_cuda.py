@@ -227,7 +227,7 @@ def test_fused_select_kernel_matches_plain(card, B, D, k_of):
     """The eid select on the state in place with the feature rows copied,
     at the TGN eval seed count: ring rows in no time order, PAD slots, wp
     past B, invalid seeds on both sides, edge ids past the table (clamped,
-    as ``gather_edge_feats`` does). D = 7 takes the scalar copy."""
+    as ``gather_edge_feats`` does). D = 7 takes 4-byte units."""
     rng = np.random.default_rng(B + D)
     S, N, E_all = 4400, 5000, 3000
     k = 3 if k_of == "3" else B
@@ -250,6 +250,35 @@ def test_fused_select_kernel_matches_plain(card, B, D, k_of):
     for g, w in zip(bare[:3], want):
         assert torch.equal(g, w)
     assert bare[3].shape == (S, k, 0) and bool((got[2] == -1).any())
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D", [172, 100, 173, 7])
+def test_fused_select_kernel_copies_bf16_rows(card, D, offset):
+    """bf16 tables: the kernel copies each row's bytes in the widest unit
+    that divides the row's bytes and both base addresses (344- and 200-byte
+    rows in 8-byte units, 346 and 14 in 2-byte units; ``offset`` = 1 starts
+    the table 2 bytes past an aligned address, so every row takes 2-byte
+    units), bit for bit ``gather_edge_feats`` of the same table."""
+    rng = np.random.default_rng(D + offset)
+    S, N, B, E_all = 4400, 5000, 10, 3000
+    up = lambda x: torch.as_tensor(x, device=card)
+    state = (up(rng.integers(-1, 9, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 30, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(-1, E_all + 3, (N + 1, B)).astype(np.int32)),
+             up(rng.integers(0, 5 * B, N + 1).astype(np.int32)))
+    seeds = up(rng.integers(-2, N + 3, S).astype(np.int32))
+    qt = up(rng.integers(0, 35, S).astype(np.int32))
+    flat = up(rng.normal(size=E_all * D + offset).astype(np.float32)).to(torch.bfloat16)
+    edge_x = flat[offset:].view(E_all, D)
+    got = recency_eid_select(state, seeds, qt, B, edge_x)
+    want = recency_eid_select_plain(state, seeds, qt, B, edge_x)
+    torch.cuda.synchronize()
+    assert got[3].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                           w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
+    assert bool((got[2] == -1).any()) and bool((got[2] >= 0).any())
 
 
 @pytest.mark.parametrize("S, B, k, D", [(700, 10, 3, 172), (4400, 20, 20, 172), (300, 64, 64, 5),

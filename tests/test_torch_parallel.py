@@ -62,12 +62,13 @@ from tgm_tpu_torch.parallel import (
     make_mesh,
     place,
     shard_leading_axis,
+    sharded_tgat_train_step,
     sharded_tgn_train_step,
     tgn_carry_shardings,
     tgn_carry_shardings_2d,
     tp_param_shardings,
 )
-from tgm_tpu_torch.train import TGNPipeline
+from tgm_tpu_torch.train import TGATPipeline, TGNPipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, SHIFT = 3, 1000
@@ -291,3 +292,16 @@ def test_unported_configurations_raise():
     assert not isinstance(packed.mem_state, TGNMemoryState)
     with pytest.raises(NotImplementedError, match="10e"):
         sharded_tgn_train_step(pipe, mesh)(packed, None)
+
+
+@pytest.mark.parametrize("kw", [dict(feat_bf16=True), dict(attn_bf16=True),
+                                dict(dedup_staging=True)])
+def test_bf16_pipelines_are_not_sharded_yet(kw):
+    """ROADMAP item 10e lists the bf16 options' sharded steps."""
+    mesh = StubMesh([2], ("data",), [0])
+    with pytest.raises(NotImplementedError, match="10e"):
+        sharded_tgn_train_step(tiny_pipe(edge_x_full=np.zeros((4, 3), np.float32), **kw), mesh)
+    if "dedup_staging" not in kw:
+        tgat = TGATPipeline(10, 3, np.zeros((10, 1), np.float32), device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="10e"):
+            sharded_tgat_train_step(tgat, mesh)

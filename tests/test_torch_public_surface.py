@@ -43,7 +43,7 @@ from tgm_tpu_torch.hooks import StatelessHook
 
 # JAX names the port leaves out, with ROADMAP.md's reasons ("Not queued").
 LEFT_OUT = {
-    "tgm_tpu.util": {"fork_key", "resolve_bf16", "tpu_default_bf16"},
+    "tgm_tpu.util": {"fork_key"},
     "tgm_tpu.train": {"tncn_train_scores_occurrence"},
     "tgm_tpu.train.tncn_pipeline": {"tncn_train_scores_occurrence"},
 }

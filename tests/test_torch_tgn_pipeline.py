@@ -24,6 +24,24 @@ table: MRR counts equal, sums within 1e-5. Within the port: the eid layout
 against the feature layout (losses within 1e-6), the pipeline against the
 hook ``train_core`` (losses within 1e-6, state exact), ``eval_advance_state``
 against ``eval_step`` (exact), dropout drawn by no step.
+
+The bf16 options against the JAX pipeline built with the same options, on
+the uniform stream: ``attn_bf16=True`` (the bf16 K/V path and the bf16
+table; eval with the bf16 pre-projected table and the bf16 memory mirror)
+and ``feat_bf16=True`` with ``dedup_staging=True``; two train epochs, then
+val (the first two eval batches) and test (the third), as the stream runs
+on. Bands (the training parity's): losses within 5e-3, val MRR within
+0.01, test MRR within 0.02, MRR counts equal; recency state, integer memory
+fields and the raw message stores exact. The JAX steps are compiled with
+XLA's excess precision off, so they round where the source says, as the
+port does (``nn/modules/bf16.py``); the two backward passes still flip
+bf16 roundings differently, so the gaps are wider than fp32's (ROADMAP
+fault 28); they are printed. Within the port, bit for bit: the mirror's eval and the
+eval without it (scores and state), the mirror against the bf16 cast of the
+memory after every batch, the bf16 table against an fp32 table on the bf16
+K/V path (``bf16(gather(x)) == gather(bf16(x))``), and ``dedup_staging``'s
+staged rows (``forward_only`` scores and the first loss) against staging
+every row.
 """
 
 import copy
@@ -84,14 +102,29 @@ def make_stream(popularity, seed=0):
     return src, dst, t, edge_x, bounds, cands
 
 
-def run_jax(src, dst, t, edge_x, bounds, cands):
+def source_rounding(jitted):
+    """``jitted``, compiled at its first call with XLA's excess precision
+    off, so each bf16 op rounds its result where the JAX source says, as JAX
+    run op by op does (by default XLA keeps some fused bf16 results in fp32)."""
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jitted.lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False}))
+        return compiled[0](*args)
+
+    return call
+
+
+def run_jax(src, dst, t, edge_x, bounds, cands, opts=()):
     data = JDGData.from_raw(t, np.stack([src, dst], 1), edge_x)
     train, val, _ = data.split(JTGBSplit(bounds))
     ts, vs = JStream(JDGraph(train), B), JStream(JDGraph(val), B)
     assert ts.num_edges == E_TRAIN and vs.num_edges == E_VAL
     pipe = JPipeline(num_nodes=N, edge_dim=D, memory_dim=MEM, embed_dim=EMB, time_dim=TIME,
                      num_nbrs=K, lr=LR, neg_low=0, neg_high=N,
-                     edge_x_full=jnp.asarray(data.edge_x))
+                     edge_x_full=jnp.asarray(data.edge_x), **dict(opts))
     carry = pipe.init_carry(jax.random.PRNGKey(7))
     params = carry.params
     # The negatives train_step draws: split the carry's key, randint (:344-349).
@@ -101,6 +134,8 @@ def run_jax(src, dst, t, edge_x, bounds, cands):
         negs.append(np.asarray(jax.random.randint(k_neg, (B,), pipe.neg_low, pipe.neg_high,
                                                   dtype=jnp.int32)))
     epoch = j_jit_scan_epoch(pipe.train_step, ts.batch_at, ts.num_batches, donate_carry=False)
+    if opts:
+        epoch = source_rounding(epoch)
     losses = []
     for _ in range(EPOCHS):
         # Each epoch starts from fresh memory and recency state, as the
@@ -114,10 +149,17 @@ def run_jax(src, dst, t, edge_x, bounds, cands):
                forward=np.asarray(jax.jit(lambda c: pipe.forward_only(c, vs.batch_at(0)))(carry)))
     for proj in (False, True):
         tbl = pipe.eval_proj_table(carry.params) if proj else None
-        step = jax.jit(lambda c, i, cd: pipe.eval_step(c, vs.batch_at(i), cd, nbr_proj_table=tbl))
+        # With attn_bf16 the projected route also gathers from the bf16 mirror.
+        mirror = pipe.eval_mem_bf16(carry) if proj and pipe.attn_bf16 else None
+        step = jax.jit(lambda c, i, cd, m: pipe.eval_step(c, vs.batch_at(i), cd,
+                                                          nbr_proj_table=tbl, mem_bf16=m))
+        if opts:
+            step = source_rounding(step)
         c, sums, counts = carry, [], []
         for i in range(vs.num_batches):
-            c, (s, n) = step(c, i, jnp.asarray(cands[i]))
+            out_i = step(c, i, jnp.asarray(cands[i]), mirror)
+            c, (s, n) = out_i[:2]
+            mirror = out_i[2] if mirror is not None else None
             sums.append(float(s))
             counts.append(float(n))
         out[proj] = (sums, counts, snapshot(c))
@@ -144,17 +186,17 @@ def port_streams(src, dst, t, edge_x, bounds):
         DeviceEdgeStream(DGraph(val), B, device="cpu")
 
 
-def make_pipe(edge_x_full, negs, dropout=0.0):
+def make_pipe(edge_x_full, negs, dropout=0.0, **opts):
     pipe = TGNPipeline(N, D, MEM, EMB, TIME, K, LR, 0, N, dropout=dropout,
-                       edge_x_full=edge_x_full, device="cpu")
+                       edge_x_full=edge_x_full, device="cpu", **opts)
     injected = iter(negs)
     pipe.draw_neg = lambda rng, size: torch.from_numpy(next(injected).copy())
     return pipe
 
 
-def run_port(src, dst, t, edge_x, bounds, cands, params, negs):
+def run_port(src, dst, t, edge_x, bounds, cands, params, negs, opts=()):
     data, _, ts, vs = port_streams(src, dst, t, edge_x, bounds)
-    pipe = make_pipe(data.edge_x, negs)
+    pipe = make_pipe(data.edge_x, negs, **dict(opts))
     carry = pipe.init_carry(0, params=params)
     epoch = jit_scan_epoch(pipe.train_step, ts.batch_at, ts.num_batches)
     losses = []
@@ -173,10 +215,12 @@ def run_port(src, dst, t, edge_x, bounds, cands, params, negs):
     for proj in (False, True):
         c = clone_state(carry)
         tbl = pipe.eval_proj_table(c.params) if proj else None
+        mirror = pipe.eval_mem_bf16(c) if proj and pipe.attn_bf16 else None
         sums, counts = [], []
         for i in range(vs.num_batches):
-            c, (s, n) = pipe.eval_step(c, vs.batch_at(i), torch.from_numpy(cands[i]),
-                                       nbr_proj_table=tbl)
+            out_i = pipe.eval_step(c, vs.batch_at(i), torch.from_numpy(cands[i]),
+                                   nbr_proj_table=tbl, mem_bf16=mirror)
+            c, (s, n) = out_i[:2]
             sums.append(float(s))
             counts.append(float(n))
         out[proj] = (sums, counts, snapshot(c))
@@ -184,11 +228,12 @@ def run_port(src, dst, t, edge_x, bounds, cands, params, negs):
 
 
 @functools.lru_cache(maxsize=None)
-def runs(popularity):
-    """(JAX run, port run) on one stream, computed once per process."""
+def runs(popularity, opts=()):
+    """(JAX run, port run) on one stream, the pipelines built with ``opts``,
+    computed once per process."""
     stream = make_stream(popularity)
-    j = run_jax(*stream)
-    return j, run_port(*stream, j["params"], j["negs"])
+    j = run_jax(*stream, opts=opts)
+    return j, run_port(*stream, j["params"], j["negs"], opts=opts)
 
 
 def assert_state_matches(got, want, atol=1e-4):
@@ -313,15 +358,120 @@ def test_train_step_draws_no_dropout():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    ({"dedup_staging": True}, "queue 1 item 1c"),
     ({"state_row_multiple": 8}, "not queued"),
-    ({"feat_bf16": True}, "queue 1 item 1c"),
-    ({"attn_bf16": True}, "queue 1 item 1c"),
-    ({"attn_bf16": "on"}, "queue 1 item 1c"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         TGNPipeline(N, D, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs, table, kv_bf16", [
+    ({"dedup_staging": True}, torch.float32, False),
+    ({"feat_bf16": True}, torch.bfloat16, False),
+    ({"attn_bf16": True}, torch.bfloat16, True),
+    ({"attn_bf16": "on"}, torch.bfloat16, True),
+    ({"attn_bf16": True, "rowwise": False}, torch.float32, False),
+])
+def test_bf16_options_build_as_in_jax(kwargs, table, kv_bf16):
+    """The table's dtype and the encoder's K/V path as the JAX constructor
+    resolves them (``attn_bf16`` casts the table only on the rowwise path;
+    the segment encoder has no bf16 path)."""
+    edge_x = np.random.default_rng(0).normal(size=(20, D)).astype(np.float32)
+    j_pipe = JPipeline(num_nodes=N, edge_dim=D, edge_x_full=jnp.asarray(edge_x), **kwargs)
+    pipe = TGNPipeline(N, D, edge_x_full=edge_x, device="cpu", **kwargs)
+    assert pipe.edge_x_full.dtype == table
+    assert str(j_pipe.edge_x_full.dtype) == str(table).split(".")[1]
+    np.testing.assert_array_equal(pipe.edge_x_full.float().numpy(),
+                                  np.asarray(j_pipe.edge_x_full.astype(jnp.float32)))
+    enc = pipe.init_carry(0).params["enc"]
+    assert getattr(enc, "kv_bf16", False) == kv_bf16 == getattr(j_pipe.encoder, "kv_bf16", False)
+    assert pipe.dedup_staging == kwargs.get("dedup_staging", False)
+
+
+BF16_OPTS = {"attn_bf16": (("attn_bf16", True),),
+             "feat_bf16_dedup": (("dedup_staging", True), ("feat_bf16", True))}
+
+
+@pytest.mark.parametrize("name", list(BF16_OPTS))
+def test_bf16_options_match_jax(name):
+    j, p = runs("uniform", BF16_OPTS[name])
+    diff = np.abs(p["losses"] - j["losses"])
+    assert diff.size == EPOCHS * -(-E_TRAIN // B)
+    mrr = lambda sums, counts: sum(sums) / max(sum(counts), 1.0)
+    report = [f"{name}: max loss diff {diff.max():.3g} (first {diff[0]:.3g})"]
+    for proj in (False, True):
+        (p_sums, p_counts, p_state), (j_sums, j_counts, j_state) = p[proj], j[proj]
+        assert p_counts == j_counts and sum(p_counts) == E_VAL
+        val = abs(mrr(p_sums[:2], p_counts[:2]) - mrr(j_sums[:2], j_counts[:2]))
+        test = abs(mrr(p_sums[2:], p_counts[2:]) - mrr(j_sums[2:], j_counts[2:]))
+        report.append(f"proj={proj}: val MRR diff {val:.3g}, test MRR diff {test:.3g}")
+        assert val <= 0.01 and test <= 0.02
+        assert_state_matches(p_state, j_state, atol=np.inf)
+        for name_ in ("s_raw", "d_raw"):
+            np.testing.assert_array_equal(p_state["mem"][name_], j_state["mem"][name_])
+    mem_gap = np.abs(p["train"]["mem"]["mem"] - j["train"]["mem"]["mem"]).max()
+    print("; ".join(report) + f"; train memory max diff {mem_gap:.3g}")
+    assert diff.max() <= 5e-3
+    assert_state_matches(p["train"], j["train"], atol=np.inf)
+
+
+def test_bf16_memory_mirror_changes_no_bit():
+    """``eval_step(mem_bf16=...)`` scores and commits exactly as the eval
+    without the mirror, and the mirror stays the bf16 cast of the memory."""
+    data, _, ts, vs, cands, negs = small_run()
+    pipe = make_pipe(data.edge_x, negs, attn_bf16=True)
+    carry, _ = train_losses(pipe, pipe.init_carry(9), ts, epochs=1)
+    carry = pipe.flush_all(carry)
+    table = pipe.eval_proj_table(carry.params)
+    assert table.dtype == torch.bfloat16 and table.shape == (data.edge_x.shape[0], EMB)
+    plain, mirrored = clone_state(carry), clone_state(carry)
+    mirror = pipe.eval_mem_bf16(mirrored)
+    for i in range(vs.num_batches):
+        cd = torch.from_numpy(cands[i])
+        plain, (s0, n0) = pipe.eval_step(plain, vs.batch_at(i), cd, nbr_proj_table=table)
+        mirrored, (s1, n1), mirror = pipe.eval_step(mirrored, vs.batch_at(i), cd,
+                                                    nbr_proj_table=table, mem_bf16=mirror)
+        assert torch.equal(s0, s1) and torch.equal(n0, n1)
+        assert torch.equal(mirror.view(torch.int16),
+                           mirrored.mem_state.mem.to(torch.bfloat16).view(torch.int16))
+    for a, b in zip((*plain.mem_state, *plain.rec_state),
+                    (*mirrored.mem_state, *mirrored.rec_state)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bf16"):
+        pipe.eval_step(mirrored, vs.batch_at(0), torch.from_numpy(cands[0]),
+                       mem_bf16=mirror.float())
+
+
+def test_bf16_table_is_the_gather_of_the_cast():
+    """On the bf16 K/V path a bf16 table gives the fp32 table's bits: the
+    encoder casts the gathered rows to bf16 first."""
+    data, _, ts, _, _, negs = small_run()
+    losses = {}
+    for stored in (torch.bfloat16, torch.float32):
+        pipe = make_pipe(data.edge_x, negs, attn_bf16=True)
+        assert pipe.edge_x_full.dtype == torch.bfloat16
+        pipe.edge_x_full = pipe.edge_x_full.float() if stored == torch.float32 else \
+            pipe.edge_x_full
+        _, losses[stored] = train_losses(pipe, pipe.init_carry(4), ts, epochs=1)
+    assert torch.equal(losses[torch.bfloat16], losses[torch.float32])
+
+
+def test_dedup_staging_stages_the_same_rows():
+    """Staging each distinct row once gives the rows staging every row
+    gives: equal scores and first loss; the gradients then sum the
+    duplicated rows in another order, so later losses agree to 1e-6."""
+    data, _, ts, vs, _, negs = small_run()
+    out = {}
+    for dedup in (False, True):
+        pipe = make_pipe(data.edge_x, negs, dedup_staging=dedup)
+        carry, _ = train_losses(pipe, pipe.init_carry(6), ts, epochs=1)
+        fwd = pipe.forward_only(carry, vs.batch_at(0))
+        pipe.draw_neg = lambda rng, size, it=iter(negs): torch.from_numpy(next(it).copy())
+        _, losses = train_losses(pipe, pipe.init_carry(6), ts, epochs=1)
+        out[dedup] = fwd, losses
+    assert torch.equal(out[False][1][0], out[True][1][0])
+    torch.testing.assert_close(out[False][1], out[True][1], rtol=0, atol=1e-6)
+    torch.testing.assert_close(out[False][0], out[True][0], rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -343,9 +493,11 @@ def test_eval_only_misuse_raises():
         TGNPipeline(N, D, attn_score_layout="rows", device="cpu")
     src, dst, t, edge_x, bounds, cands = make_stream("uniform")
     _, _, _, vs = port_streams(src, dst, t, edge_x, bounds)
-    with pytest.raises(NotImplementedError, match="item 1c"):
+    with pytest.raises(ValueError, match="attn_bf16"):
         pipe.eval_step(carry, vs.batch_at(0), torch.from_numpy(cands[0]),
-                       mem_bf16=torch.zeros(N + 1, MEM))
+                       mem_bf16=torch.zeros(N + 1, MEM, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="attn_bf16"):
+        pipe.eval_mem_bf16(carry)
 
 
 

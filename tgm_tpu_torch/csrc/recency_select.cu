@@ -18,24 +18,29 @@
 // - given the seeds, it reads row seed of the (N1, B) state, an invalid seed
 //   (< 0 or >= N1 - 1) reading the dump row N1 - 1; without them row s of
 //   the pre-gathered (S, B) rows (the Pallas entry);
-// - given a static (E_all, D) fp32 edge table, it writes an (S, K, D)
-//   output: column c holds edge_x[min(eid, E_all - 1)] for the edge id eid
-//   of column c, or zeros where eid < 0, bit for bit what gather_edge_feats
-//   gives.
+// - given a static (E_all, D) edge table of fp32 or bf16 values, it writes an
+//   (S, K, D) output of the same type: column c holds edge_x[min(eid, E_all
+//   - 1)] for the edge id eid of column c, or zeros where eid < 0, bit for
+//   bit what gather_edge_feats gives. The copy moves bytes: a row is RB = D
+//   x (4 or 2) bytes, copied in the widest unit of 16, 8, 4 or 2 bytes that
+//   divides RB and both base addresses (fp32 D = 172: 16; bf16 D = 172 and
+//   100, 344 and 200 bytes: 8; bf16 D = 173, TGAT's side-augmented rows of
+//   346 bytes: 2).
 //
 // What bounds it on an H100: memory. At the TGN eval shape (S = 4,400 seeds,
 // B = K = 10, D = 172) it writes an (S, K, D) fp32 block of 30.3 MB and
 // reads up to as many bytes of selected edge rows: about 18 us at the H100
-// SXM's published 3.35 TB/s (700 W power limit). Without features (the
-// Pallas entry) it moves about 1.1 MB and is launch-bound.
+// SXM's published 3.35 TB/s (700 W power limit); half that from a bf16
+// table. Without features (the Pallas entry) it moves about 1.1 MB and is
+// launch-bound.
 //
 // Design: one warp per seed. Lane l looks at the slots of ages l and l + 32
 // (B <= 64; the row is loaded by slot beside the write position and shuffled
 // to the ages' lanes); a warp ballot gives the valid slots in age order,
 // a popcount each slot's rank. Selected lanes write id, time and edge id to
 // column K-1-rank and the edge id to a per-warp table in shared memory; the
-// warp then streams the K output rows, four float4 (or float) loads in
-// flight per lane before their stores. wp grows without bound and CUDA's %
+// warp then streams the K output rows, four units (16 to 2 bytes) in flight
+// per lane before their stores. wp grows without bound and CUDA's %
 // truncates toward zero, so the slot index uses a floor modulo, as the JAX
 // code does.
 //
@@ -140,9 +145,9 @@ __device__ __forceinline__ WarpSlots rank_slots(const int* __restrict__ ids,
   return w;
 }
 
-// Copies the (K, W) output block of one seed, W = D (T = float) or D / 4
-// (T = float4): row c is edge_x[min(eid[c], E_all - 1)], or zeros where
-// eid[c] < 0.
+// Copies the (K, W) output block of one seed in units of T, W = RB /
+// sizeof(T): row c is edge_x[min(eid[c], E_all - 1)], or zeros where eid[c]
+// < 0.
 template <typename T>
 __device__ __forceinline__ void copy_edge_rows(const T* __restrict__ edge_x, T* __restrict__ out,
                                                const int* eid, int K, int W, int E_all,
@@ -172,10 +177,10 @@ __global__ void recency_select_eid_kernel(
     const int* __restrict__ ids, const int* __restrict__ times,
     const int* __restrict__ eids, const int* __restrict__ write_pos,
     const int* __restrict__ seeds, const int* __restrict__ query_times,
-    const float* __restrict__ edge_x, int* __restrict__ out_ids,
+    const unsigned char* __restrict__ edge_x, int* __restrict__ out_ids,
     int* __restrict__ out_times, int* __restrict__ out_eids,
-    float* __restrict__ out_feats, int S, int N1, int B, int K, int E_all,
-    int D, bool vec) {
+    unsigned char* __restrict__ out_feats, int S, int N1, int B, int K, int E_all,
+    int RB, int unit) {
   __shared__ int sel_eid[kWarpsPerBlock][kMaxSlots];  // edge id of each output column
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -210,13 +215,36 @@ __global__ void recency_select_eid_kernel(
   }
   if (out_feats == nullptr) return;
   __syncwarp();
-  if (vec) {
-    copy_edge_rows(reinterpret_cast<const float4*>(edge_x),
-                   reinterpret_cast<float4*>(out_feats + out * D), sel_eid[warp], K, D / 4,
-                   E_all, lane);
-  } else {
-    copy_edge_rows(edge_x, out_feats + out * D, sel_eid[warp], K, D, E_all, lane);
+  unsigned char* dst = out_feats + out * RB;
+  const int* sel = sel_eid[warp];
+  switch (unit) {  // warp-uniform
+    case 16:
+      copy_edge_rows(reinterpret_cast<const uint4*>(edge_x), reinterpret_cast<uint4*>(dst), sel,
+                     K, RB / 16, E_all, lane);
+      break;
+    case 8:
+      copy_edge_rows(reinterpret_cast<const uint2*>(edge_x), reinterpret_cast<uint2*>(dst), sel,
+                     K, RB / 8, E_all, lane);
+      break;
+    case 4:
+      copy_edge_rows(reinterpret_cast<const unsigned*>(edge_x), reinterpret_cast<unsigned*>(dst),
+                     sel, K, RB / 4, E_all, lane);
+      break;
+    default:
+      copy_edge_rows(reinterpret_cast<const unsigned short*>(edge_x),
+                     reinterpret_cast<unsigned short*>(dst), sel, K, RB / 2, E_all, lane);
   }
+}
+
+// The widest of 16, 8, 4 and 2 bytes that divides the row's bytes and both
+// base addresses.
+int copy_unit(int RB, const void* a, const void* b) {
+  const std::uintptr_t m = static_cast<std::uintptr_t>(RB) |
+                           reinterpret_cast<std::uintptr_t>(a) |
+                           reinterpret_cast<std::uintptr_t>(b);
+  int u = 16;
+  while (u > 2 && m % u != 0) u /= 2;
+  return u;
 }
 
 template <typename T>
@@ -347,26 +375,27 @@ extern "C" int recency_feats_select(
 }
 
 // seeds null: the state is S pre-gathered rows, row s for seed s. edge_x and
-// out_feats both null: no features.
+// out_feats both null: no features. RB: the bytes of one table row (D values
+// of 4 or 2 bytes), even.
 extern "C" int recency_eid_select(
     const void* ids, const void* times, const void* eids,
     const void* write_pos, const void* seeds, const void* query_times,
     const void* edge_x, void* out_ids, void* out_times, void* out_eids,
-    void* out_feats, int S, int N1, int B, int K, int E_all, int D,
+    void* out_feats, int S, int N1, int B, int K, int E_all, int RB,
     void* stream) {
   if (B > kMaxSlots || K > B || K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if ((edge_x == nullptr) != (out_feats == nullptr) || (edge_x != nullptr && E_all < 1))
+  if ((edge_x == nullptr) != (out_feats == nullptr) || (edge_x != nullptr && E_all < 1) ||
+      RB < 0 || RB % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = (D % 4 == 0) && (reinterpret_cast<std::uintptr_t>(edge_x) % 16 == 0) &&
-                   (reinterpret_cast<std::uintptr_t>(out_feats) % 16 == 0);
+  const int unit = copy_unit(RB, edge_x, out_feats);
   const int blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
   recency_select_eid_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ids), static_cast<const int*>(times),
       static_cast<const int*>(eids), static_cast<const int*>(write_pos),
       static_cast<const int*>(seeds), static_cast<const int*>(query_times),
-      static_cast<const float*>(edge_x), static_cast<int*>(out_ids),
+      static_cast<const unsigned char*>(edge_x), static_cast<int*>(out_ids),
       static_cast<int*>(out_times), static_cast<int*>(out_eids),
-      static_cast<float*>(out_feats), S, N1, B, K, E_all, D, vec);
+      static_cast<unsigned char*>(out_feats), S, N1, B, K, E_all, RB, unit);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,11 @@ The flags and defaults are the JAX example's, plus ``--device`` (default
 ``cuda``), ``--dyg-stack`` (the eval stack: ``kernel`` is K5, ``module``
 the layers' modules, ``auto`` the kernel on ``cuda`` and the modules on
 ``cpu``, as ``bench.py`` picks) and ``--dyg-pairs`` (``split``: two encoder
-calls per train step; ``fused``: one ``encode_pairs``). ``--compute-bf16
-on`` raises (the bf16 path is not ported; ``auto`` resolves to off on a
-GPU). ``--eager`` is accepted: the port's epochs are per-batch Python loops
-either way.
+calls per train step; ``fused``: one ``encode_pairs``). ``--compute-bf16``
+goes through ``resolve_bf16``: ``on`` builds ``DyGFormer(compute_bf16=True)``
+(evaluated through K5 or the modules as ``--dyg-stack`` says), ``auto``
+resolves to off on a GPU or CPU. ``--eager`` is accepted: the port's epochs
+are per-batch Python loops either way.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ...hooks import (
     TGBNegativeEdgeSamplerHook,
 )
 from ...nn import DyGFormer, LinkPredictor
+from ...util.precision import resolve_bf16
 from ...train import (
     DeviceEdgeStream,
     build_dygformer_eval_core,
@@ -63,7 +65,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--patch-size", type=int, default=1)
     p.add_argument("--max-seq-len", type=int, default=32)
     p.add_argument("--compute-bf16", choices=["auto", "on", "off"], default="auto",
-                   help="bf16 matmul path: not ported ('on' raises; 'auto' is off on a GPU)")
+                   help="bf16 matmul path for the transformer/projections "
+                   "(auto: on for TPU backends)")
     p.add_argument("--eager", action="store_true",
                    help="accepted for the JAX example's command lines: the port's epochs "
                    "are per-batch Python loops either way")
@@ -79,9 +82,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     """Run the example; return the last epoch's loss and val MRR, and the test MRR."""
     args = parse_args(argv)
-    if args.compute_bf16 == "on":
-        raise NotImplementedError(
-            "--compute-bf16 on: the bf16 DyGFormer path is queued in ROADMAP.md")
     dev = resolve_device(args.device)
     stack = args.dyg_stack
     if stack == "auto":
@@ -112,7 +112,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         node_feat_dim=node_x.shape[1], edge_x_dim=edge_dim, time_feat_dim=args.time_dim,
         channel_embedding_dim=args.channel_dim, output_dim=args.embed_dim,
         patch_size=args.patch_size, max_input_sequence_length=args.max_seq_len,
-        dropout=args.dropout,
+        dropout=args.dropout, compute_bf16=resolve_bf16(args.compute_bf16),
     ).to(dev)
     decoder = LinkPredictor(node_dim=args.embed_dim, hidden_dim=args.embed_dim).to(dev)
     opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=args.lr)

@@ -16,8 +16,8 @@ Node features are ``normal(N, 1)`` from ``--seed``, as in the JAX example.
 The flags and defaults are the JAX example's, plus ``--device`` (default
 ``cuda``). ``--eager`` is accepted: the port's epochs are per-batch
 Python loops either way. The uniform sampler's draws come from a generator
-on the device seeded with ``--seed``. The attention runs in fp32 (the JAX
-example's ``kv_bf16`` auto policy is off on a GPU).
+on the device seeded with ``--seed``. The attention takes
+``kv_bf16=default_attn_bf16()``, as in the JAX example: off on a GPU or CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from ...hooks import (
 )
 from ...nn import TGAT, LinkPredictor
 from ...train import DeviceEdgeStream, build_tgat_eval_core, build_tgat_train_core, hook_epoch
+from ...train.tgat_pipeline import default_attn_bf16
 from .._datasets import load_dataset
 from .tgn import log_metric
 
@@ -100,7 +101,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     # --- model -------------------------------------------------------- #
     encoder = TGAT(node_dim=node_x.shape[1], edge_dim=edge_dim, time_dim=args.time_dim,
                    embed_dim=args.embed_dim, num_layers=len(args.n_nbrs), n_heads=args.n_heads,
-                   dropout=args.dropout).to(dev)
+                   dropout=args.dropout, kv_bf16=default_attn_bf16()).to(dev)
     decoder = LinkPredictor(node_dim=args.embed_dim).to(dev)
     opt = torch.optim.Adam([*encoder.parameters(), *decoder.parameters()], lr=args.lr)
     train_core = build_tgat_train_core(encoder, decoder, opt, node_x)

@@ -18,8 +18,8 @@ test is evaluated. Each reported value is the mean over the loader's
 batches.
 
 The flags and defaults are the JAX example's, plus ``--device`` (default
-``cuda``). ``--compute-bf16 on`` raises (the bf16 path is not ported;
-``auto`` resolves to off on a GPU).
+``cuda``). ``--compute-bf16`` goes through ``resolve_bf16``: ``on`` builds
+``DyGFormer(compute_bf16=True)``, ``auto`` resolves to off on a GPU or CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from ...device import resolve_device
 from ...hooks import EdgeEventsSeenNodesTrackHook, HookManager, RecencyNeighborHook
 from ...nn import DyGFormer, NodePredictor
 from ...train import build_dygformer_node_cores
+from ...util.precision import resolve_bf16
 from .._datasets import load_dataset
 
 
@@ -54,7 +55,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--channel-dim", type=int, default=16)
     p.add_argument("--embed-dim", type=int, default=64)
     p.add_argument("--compute-bf16", choices=["auto", "on", "off"], default="auto",
-                   help="bf16 matmul path: not ported ('on' raises; 'auto' is off on a GPU)")
+                   help="bf16 matmul path for the transformer/projections "
+                   "(auto: on for TPU backends)")
     p.add_argument("--max-seq-len", type=int, default=8)
     p.add_argument("--num-classes", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda")
@@ -65,9 +67,6 @@ def build(args: argparse.Namespace, data=None) -> SimpleNamespace:
     """The example's data, hooks, modules, optimizer, cores and dropout
     generator on ``args.device``; ``data`` replaces the dataset
     ``args.dataset`` names."""
-    if args.compute_bf16 == "on":
-        raise NotImplementedError(
-            "--compute-bf16 on: the bf16 DyGFormer path is queued in ROADMAP.md")
     dev = resolve_device(args.device)
     torch.manual_seed(args.seed)
     if data is None:
@@ -87,7 +86,8 @@ def build(args: argparse.Namespace, data=None) -> SimpleNamespace:
     encoder = DyGFormer(node_feat_dim=node_x.shape[1], edge_x_dim=edge_dim,
                         time_feat_dim=args.time_dim, channel_embedding_dim=args.channel_dim,
                         output_dim=args.embed_dim, max_input_sequence_length=args.max_seq_len,
-                        dropout=args.dropout, num_layers=1).to(dev)
+                        dropout=args.dropout, num_layers=1,
+                        compute_bf16=resolve_bf16(args.compute_bf16)).to(dev)
     decoder = NodePredictor(args.embed_dim, data.node_y.shape[1]).to(dev)
     opt = torch.optim.Adam([p for m in (encoder, decoder) for p in m.parameters()], lr=args.lr)
     train_core, eval_core = build_dygformer_node_cores(encoder, decoder, opt, node_x)

@@ -15,8 +15,8 @@ the epochs, train and val are streamed through the hooks again and test is
 evaluated. Each reported value is the mean over the loader's batches.
 
 The flags and defaults are the JAX example's, plus ``--device`` (default
-``cuda``). The attention runs in fp32 (the JAX example's ``kv_bf16`` auto
-policy is off on a GPU).
+``cuda``). The attention takes ``kv_bf16=default_attn_bf16()``, as in the
+JAX example: off on a GPU or CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ...device import resolve_device
 from ...hooks import HookManager, RecencyNeighborHook
 from ...nn import TGAT, NodePredictor
 from ...train import build_tgat_node_cores
+from ...train.tgat_pipeline import default_attn_bf16
 from .._datasets import load_dataset
 
 
@@ -75,7 +76,7 @@ def build(args: argparse.Namespace, data=None) -> SimpleNamespace:
                                            ["node_y_time"], edge_dim=edge_dim, device=dev))
     encoder = TGAT(node_dim=node_x.shape[1], edge_dim=edge_dim, time_dim=args.time_dim,
                    embed_dim=args.embed_dim, num_layers=len(args.n_nbrs),
-                   dropout=args.dropout).to(dev)
+                   dropout=args.dropout, kv_bf16=default_attn_bf16()).to(dev)
     decoder = NodePredictor(args.embed_dim, data.node_y.shape[1]).to(dev)
     opt = torch.optim.Adam([p for m in (encoder, decoder) for p in m.parameters()], lr=args.lr)
     train_core, eval_core = build_tgat_node_cores(encoder, decoder, opt, node_x)

@@ -15,8 +15,31 @@ With ``stack`` (:meth:`DyGFormer.stack_weights`, the JAX
 ``pallas_layers``) it is ``ops.transformer_stack_fwd``: kernel K5 on the
 card, its plain version on the CPU; forward only, without dropout, which
 the eval paths use. ``encode_pairs`` runs both training pairs, (src, dst)
-and (src, neg), in one forward. The channel projections run in fp32: the
-bf16 options ``compute_bf16`` and ``bf16_stream`` raise (ROADMAP.md).
+and (src, neg), in one forward.
+
+``compute_bf16`` is the JAX bf16 path, rounding where flax rounds
+(``nn/modules/bf16.py``; parameters stay fp32):
+- the co-occurrence MLP, the four channel projections, every dense of the
+  stack and the attention run as ``nn.Dense(dtype=bf16)``: inputs, kernels
+  and biases in bf16, products rounded, biases added in bf16; the
+  co-occurrence pair sum rounds once;
+- flax attention (``nn.MultiHeadDotProductAttention(dtype=bf16)``): q
+  divided by bf16(sqrt(dh)) in bf16, the scores rounded to bf16, the
+  softmax in bf16 step by step (x - max, exp, the fp32 sum rounded, the
+  quotient), attention dropout as a bf16 multiplier, the value product
+  rounded to bf16; ``FusedSelfAttention`` keeps fp32 scores, softmax and
+  value sums (bf16 operands) and rounds only its denses;
+- the patches, the residual stream and the adds are bf16, except where an
+  fp32 input promotes them; the LayerNorms are flax's fp32 ones (fast
+  variance) with fp32 output; gelu (exact) rounds each step;
+- the stack's output is mean-pooled in fp32 and rounded to bf16, and
+  ``output_layer`` runs in fp32 on it. Through K5 (``stack``), the kernel
+  takes the bf16 patches as fp32 and its output is rounded back to bf16.
+
+``bf16_stream`` (with ``compute_bf16``) casts each layer's input to bf16
+and uses ``LayerNormBF16`` (fp32 two-pass statistics, bf16 output); K5 does
+not take it (``stack_weights`` raises), as the JAX ``dygformer_pallas_layers``
+does not.
 """
 
 from __future__ import annotations
@@ -30,6 +53,15 @@ from torch import nn
 
 from ...constants import PADDED_NODE_ID
 from ...ops.dyg_transformer import Layer, StackWeights, stack_weights, transformer_stack_fwd
+from ..modules.bf16 import (
+    BF16,
+    LayerNormBF16,
+    dense,
+    einsum_f32,
+    flax_layer_norm,
+    gelu_bf16,
+    softmax_bf16,
+)
 from ..modules.dropout import dropout
 from ..modules.time_encoding import Time2Vec
 
@@ -39,12 +71,20 @@ class NeighborCooccurrenceEncoder(nn.Module):
 
     For a pair of (R, L) id sequences, each slot gets (appearances in its own
     sequence, appearances in the other), zero on PAD slots; each count goes
-    through ``Linear(1, C) -> ReLU -> Linear(C, C)`` and the two are summed.
+    through ``Linear(1, C) -> ReLU -> Linear(C, C)`` and the two are summed
+    (``dtype=bf16``: bf16 denses, the sum rounded once).
     """
 
-    def __init__(self, feat_dim: int) -> None:
+    def __init__(self, feat_dim: int, dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
+        self.dtype = dtype
         self.enc = nn.Sequential(nn.Linear(1, feat_dim), nn.ReLU(), nn.Linear(feat_dim, feat_dim))
+
+    def _encode(self, freq: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return self.enc(freq[..., None]).sum(dim=2)
+        h = torch.relu(dense(freq[..., None], self.enc[0], self.dtype))
+        return dense(h, self.enc[2], self.dtype).float().sum(dim=2).to(self.dtype)
 
     def forward(self, src_nbrs: torch.Tensor,
                 dst_nbrs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,7 +95,7 @@ class NeighborCooccurrenceEncoder(nn.Module):
         dst_freq = torch.stack([dst_self.sum(dim=1), cross.sum(dim=2)], dim=2).float()
         src_freq = torch.where((src_nbrs == PADDED_NODE_ID)[:, :, None], 0.0, src_freq)
         dst_freq = torch.where((dst_nbrs == PADDED_NODE_ID)[:, :, None], 0.0, dst_freq)
-        return self.enc(src_freq[..., None]).sum(dim=2), self.enc(dst_freq[..., None]).sum(dim=2)
+        return self._encode(src_freq), self._encode(dst_freq)
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -63,14 +103,17 @@ class MultiHeadDotProductAttention(nn.Module):
     ``query``/``key``/``value``/``out`` (D, D) projections, q scaled by
     1 / sqrt(dh) before the q.k product, fp32 softmax. Dropout is on the
     attention weights, one (S, S) mask per call shared by every sequence and
-    head (flax's ``broadcast_dropout=True``)."""
+    head (flax's ``broadcast_dropout=True``). ``dtype=bf16``: the module
+    docstring's rounding points."""
 
-    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1) -> None:
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
         self.num_heads = num_heads
         self.dropout = dropout
+        self.dtype = dtype
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -80,26 +123,47 @@ class MultiHeadDotProductAttention(nn.Module):
         B, S, D = h.shape
         H = self.num_heads
         dh = D // H
-        q = self.query(h).reshape(B, S, H, dh) / math.sqrt(dh)
-        k = self.key(h).reshape(B, S, H, dh)
-        v = self.value(h).reshape(B, S, H, dh)
+        if self.dtype is not None:
+            return self._forward_in_dtype(h, generator)
+        q = dense(h, self.query).reshape(B, S, H, dh) / math.sqrt(dh)
+        k = dense(h, self.key).reshape(B, S, H, dh)
+        v = dense(h, self.value).reshape(B, S, H, dh)
         a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
         a = dropout(a, self.dropout, generator, mask_shape=(S, S))
         return self.out(torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D))
+
+    def _forward_in_dtype(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """flax's ``dot_product_attention`` in ``self.dtype``: every step's
+        result in that dtype."""
+        B, S, D = h.shape
+        H, dt = self.num_heads, self.dtype
+        dh = D // H
+        proj = lambda lin: dense(h, lin, dt).reshape(B, S, H, dh)
+        q = proj(self.query) / float(torch.tensor(math.sqrt(dh)).to(dt))
+        a = softmax_bf16(einsum_f32("bqhd,bkhd->bhqk", q, proj(self.key)).to(dt), dim=-1)
+        if generator is not None and self.dropout > 0.0:
+            keep = torch.rand((S, S), generator=generator, device=h.device) < 1.0 - self.dropout
+            a = a * (keep.to(dt) / torch.tensor(1.0 - self.dropout, dtype=dt, device=h.device))
+        o = einsum_f32("bhqk,bkhd->bqhd", a, proj(self.value)).to(dt)
+        return dense(o.reshape(B, S, D), self.out, dt)
 
 
 class FusedSelfAttention(nn.Module):
     """The JAX ``FusedSelfAttention`` (``fused_attn=True``): one (D, 3D)
     ``qkv`` projection, logits scaled after the q.k product, fp32 softmax,
     ``out`` (D, D). Dropout is on the attention weights as flax ``nn.Dropout``
-    applies it there: a mask of their whole (B, H, S, S) shape."""
+    applies it there: a mask of their whole (B, H, S, S) shape. ``dtype=bf16``:
+    bf16 ``qkv`` and ``out`` denses; the scores, softmax and value sums stay
+    fp32 (bf16 operands)."""
 
-    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1) -> None:
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
         self.num_heads = num_heads
         self.dropout = dropout
+        self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.out = nn.Linear(dim, dim)
 
@@ -107,10 +171,12 @@ class FusedSelfAttention(nn.Module):
         B, S, D = h.shape
         H = self.num_heads
         dh = D // H
-        q, k, v = (t.reshape(B, S, H, dh) for t in self.qkv(h).split(D, dim=-1))
-        a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5, dim=-1)
+        qkv = dense(h, self.qkv, self.dtype)
+        q, k, v = (t.reshape(B, S, H, dh) for t in qkv.split(D, dim=-1))
+        a = torch.softmax(einsum_f32("bqhd,bkhd->bhqk", q, k) * dh ** -0.5, dim=-1)
         a = dropout(a, self.dropout, generator)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, D))
+        o = einsum_f32("bhqk,bkhd->bqhd", a.to(qkv.dtype), v).reshape(B, S, D)
+        return dense(o, self.out, self.dtype)
 
 
 class TransformerEncoder(nn.Module):
@@ -119,24 +185,40 @@ class TransformerEncoder(nn.Module):
     gelu -> dropout -> ``ffn2`` (D) -> dropout -> residual.
 
     Every dropout mask is drawn from the ``generator`` passed to ``forward``,
-    and only when one is passed."""
+    and only when one is passed. ``dtype=bf16`` computes as the module
+    docstring says; ``bf16_stream`` casts the input to bf16 and makes both
+    LayerNorms ``LayerNormBF16``."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
-                 fused_attn: bool = False) -> None:
+                 fused_attn: bool = False, dtype: Optional[torch.dtype] = None,
+                 bf16_stream: bool = False) -> None:
         super().__init__()
         self.dropout = dropout
-        self.ln1 = nn.LayerNorm(dim, eps=1e-5)
+        self.dtype = dtype
+        self.bf16_stream = bf16_stream
+        ln = (lambda: LayerNormBF16(dim)) if bf16_stream else (lambda: nn.LayerNorm(dim, eps=1e-5))
+        self.ln1 = ln()
         attn = FusedSelfAttention if fused_attn else MultiHeadDotProductAttention
-        self.attn = attn(dim, num_heads, dropout)
-        self.ln2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = attn(dim, num_heads, dropout, dtype)
+        self.ln2 = ln()
         self.ffn1 = nn.Linear(dim, 4 * dim)
         self.ffn2 = nn.Linear(4 * dim, dim)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        p = self.dropout
-        out = x + dropout(self.attn(self.ln1(x), generator), p, generator)
-        h = dropout(F.gelu(self.ffn1(self.ln2(out))), p, generator)
-        return out + dropout(self.ffn2(h), p, generator)
+        p, dt = self.dropout, self.dtype
+        if dt is None and not self.bf16_stream:
+            out = x + dropout(self.attn(self.ln1(x), generator), p, generator)
+            h = dropout(F.gelu(self.ffn1(self.ln2(out))), p, generator)
+            return out + dropout(self.ffn2(h), p, generator)
+        if self.bf16_stream:
+            x = x.to(BF16)
+            norm = lambda ln, t: ln(t)
+        else:
+            norm = lambda ln, t: flax_layer_norm(t, ln)
+        out = x + dropout(self.attn(norm(self.ln1, x), generator), p, generator)
+        h = dense(norm(self.ln2, out), self.ffn1, dt)
+        h = dropout(gelu_bf16(h) if h.dtype == BF16 else F.gelu(h), p, generator)
+        return out + dropout(dense(h, self.ffn2, dt), p, generator)
 
 
 class DyGFormer(nn.Module):
@@ -160,11 +242,6 @@ class DyGFormer(nn.Module):
         bf16_stream: bool = False,
     ) -> None:
         super().__init__()
-        if compute_bf16 or bf16_stream:
-            raise NotImplementedError(
-                "compute_bf16 / bf16_stream: the bf16 DyGFormer paths (and LayerNormBF16) are "
-                "queued in ROADMAP.md; the port runs the module path in fp32"
-            )
         if max_input_sequence_length % patch_size != 0:
             raise ValueError("Max sequence length must be a multiple of patch size")
         C = channel_embedding_dim
@@ -175,14 +252,17 @@ class DyGFormer(nn.Module):
         self.num_channels = num_channels
         self.channel_embedding_dim = C
         self.dropout = dropout
+        dt = BF16 if compute_bf16 else None
+        self.compute_dtype = dt
         self.time_encoder = Time2Vec(time_feat_dim)
-        self.co_occurrence_encoder = NeighborCooccurrenceEncoder(C)
+        self.co_occurrence_encoder = NeighborCooccurrenceEncoder(C, dt)
         self.proj_node = nn.Linear(patch_size * node_feat_dim, C)
         self.proj_edge = nn.Linear(patch_size * edge_x_dim, C)
         self.proj_time = nn.Linear(patch_size * time_feat_dim, C)
         self.proj_cooc = nn.Linear(patch_size * C, C)
         self.transformers = nn.ModuleList(
-            [TransformerEncoder(num_channels * C, num_heads, dropout, fused_attn)
+            [TransformerEncoder(num_channels * C, num_heads, dropout, fused_attn, dt,
+                                bf16_stream and compute_bf16)
              for _ in range(num_layers)])
         self.output_layer = nn.Linear(num_channels * C, output_dim)
 
@@ -221,6 +301,15 @@ class DyGFormer(nn.Module):
         f = self.time_encoder((seed_time[:, None] - ntime).float())
         return torch.where((nbrs == PADDED_NODE_ID)[..., None], 0.0, f)
 
+    def _proj(self, lin: nn.Linear, feat: torch.Tensor) -> torch.Tensor:
+        """A channel's patches through its projection, in the compute dtype."""
+        return dense(self._patches(feat), lin, self.compute_dtype)
+
+    @staticmethod
+    def _pool(patches: torch.Tensor) -> torch.Tensor:
+        """Mean over the patches, summed in fp32 and rounded to their dtype."""
+        return patches.float().mean(dim=1).to(patches.dtype)
+
     def stack_weights(self) -> StackWeights:
         """The stack's weights in the kernel's layout; convert once per eval,
         after the last optimizer step."""
@@ -234,7 +323,8 @@ class DyGFormer(nn.Module):
         if stack is not None:
             if not deterministic:
                 raise ValueError("the stack kernel has no dropout: pass stack=None to train")
-            return transformer_stack_fwd(patches.float().contiguous(), stack, self.num_heads)
+            out = transformer_stack_fwd(patches.float().contiguous(), stack, self.num_heads)
+            return out.to(patches.dtype)
         if deterministic:
             generator = None
         elif generator is None and self.dropout > 0.0:
@@ -268,10 +358,10 @@ class DyGFormer(nn.Module):
 
         def channels(nbrs, ntime, nfeat, cooc):
             return (
-                self.proj_node(self._patches(self._node_feats(node_x, nbrs))),
-                self.proj_edge(self._patches(nfeat)),
-                self.proj_time(self._patches(self._time_feats(nbrs, ntime, edge_time))),
-                self.proj_cooc(self._patches(cooc)),
+                self._proj(self.proj_node, self._node_feats(node_x, nbrs)),
+                self._proj(self.proj_edge, nfeat),
+                self._proj(self.proj_time, self._time_feats(nbrs, ntime, edge_time)),
+                self._proj(self.proj_cooc, cooc),
             )
 
         P = self.num_patches
@@ -281,7 +371,8 @@ class DyGFormer(nn.Module):
             B, 2 * P, self.num_channels * self.channel_embedding_dim)
         patches = self._run_stack(patches, deterministic, stack, generator)
         # One output projection for both sides: equal rows come out equal.
-        z = self.output_layer(torch.cat([patches[:, :P].mean(dim=1), patches[:, P:].mean(dim=1)]))
+        z = dense(torch.cat([self._pool(patches[:, :P]), self._pool(patches[:, P:])]),
+                  self.output_layer)
         return z[:B], z[B:]
 
     def encode_pairs(
@@ -312,15 +403,15 @@ class DyGFormer(nn.Module):
         seq_n, seq_t, seq_e = self._side(seeds, seed_times, neighbours, neighbours_time,
                                          neighbours_edge_feat)
         # Channels shared by all 3B sequences (src projected once).
-        ch_node = self.proj_node(self._patches(self._node_feats(node_x, seq_n)))
-        ch_edge = self.proj_edge(self._patches(seq_e))
-        ch_time = self.proj_time(self._patches(self._time_feats(seq_n, seq_t, seed_times)))
+        ch_node = self._proj(self.proj_node, self._node_feats(node_x, seq_n))
+        ch_edge = self._proj(self.proj_edge, seq_e)
+        ch_time = self._proj(self.proj_time, self._time_feats(seq_n, seq_t, seed_times))
         # The co-occurrence channel depends on the pair: left = src (twice),
         # right = [dst; neg].
         s_n = seq_n[:B]
         left_cooc, right_cooc = self.co_occurrence_encoder(torch.cat([s_n, s_n]), seq_n[B:])
-        left_cooc = self.proj_cooc(self._patches(left_cooc))  # (2B, P, C)
-        right_cooc = self.proj_cooc(self._patches(right_cooc))
+        left_cooc = self._proj(self.proj_cooc, left_cooc)  # (2B, P, C)
+        right_cooc = self._proj(self.proj_cooc, right_cooc)
 
         def pair_join(ch):  # (3B, P, C) -> (2B, 2P, C); rows [0:B] positive, [B:2B] negative
             return torch.cat([torch.cat([ch[:B], ch[:B]]), ch[B:]], dim=1)
@@ -331,8 +422,8 @@ class DyGFormer(nn.Module):
         patches = torch.stack(joined, dim=2).reshape(
             2 * B, 2 * P, self.num_channels * self.channel_embedding_dim)
         patches = self._run_stack(patches, deterministic, stack, generator)
-        out = self.output_layer(torch.cat([patches[:, :P].mean(dim=1),
-                                           patches[:, P:].mean(dim=1)]))
+        out = dense(torch.cat([self._pool(patches[:, :P]), self._pool(patches[:, P:])]),
+                    self.output_layer)
         return out[:B], out[2 * B:3 * B], out[B:2 * B], out[3 * B:]
 
 
@@ -345,6 +436,8 @@ def dygformer_stack_layers(encoder: DyGFormer) -> List[Layer]:
         a = t.attn
         if not isinstance(a, MultiHeadDotProductAttention):
             raise ValueError("the stack kernel needs the flax-MHA layout (fused_attn=False)")
+        if t.bf16_stream:
+            raise ValueError("the stack kernel needs fp32 LayerNorms (bf16_stream=False)")
         layers.append({k: v.detach().float() for k, v in {
             "ln1_scale": t.ln1.weight, "ln1_bias": t.ln1.bias,
             "wqkv": torch.cat([a.query.weight.T, a.key.weight.T, a.value.weight.T], dim=1),

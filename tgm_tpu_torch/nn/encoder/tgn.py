@@ -29,7 +29,7 @@
   recent neighbours as dense (S, K) products.
 * ``rowwise_project_edge_feats``: the message half of the ``lin_edge``
   projection over a whole feature table, for frozen weights (eval), fed
-  back per neighbour as ``nbr_msg_proj``.
+  back per neighbour as ``nbr_msg_proj`` (bf16 with ``kv_bf16``).
 
 Both encoders draw dropout on the attention weights from an explicit
 generator, and share their parameters' names with the flax modules.
@@ -46,6 +46,7 @@ from ...constants import PADDED_NODE_ID
 from ...device import DeviceLike, resolve_device
 from ...ops.scatter_cells import put_live, store_winners, tgn_store_commit
 from ...ops.segment import segment_softmax, segment_sum
+from ..modules.bf16 import BF16, dense, einsum_f32
 from ..modules.dropout import dropout as _dropout
 from ..modules.gru import TorchGRUCell
 from ..modules.time_encoding import Time2Vec
@@ -496,15 +497,28 @@ class _TransformerConvWeights(nn.Module):
         self.dropout = dropout
 
     def edge_projection(self, time_feat: torch.Tensor, msg: torch.Tensor,
-                        msg_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        msg_proj: Optional[torch.Tensor] = None,
+                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``lin_edge([time_feat | msg])`` of (R, T) and (R, msg_dim) rows as
         the split sum ``time_feat @ W_t^T + msg @ W_m^T`` (XLA splits the JAX
-        dense over the concat the same way); ``msg_proj`` gives the message
-        half and ``msg`` is not read."""
+        dense over the concat the same way; a bf16 ``msg`` promotes to fp32);
+        ``msg_proj`` gives the message half and ``msg`` is not read.
+
+        ``dtype=bf16`` is ``lin_edge`` as a bf16 dense: the fp32-accumulated
+        sum over both halves rounded once; with ``msg_proj`` the JAX
+        pre-projected form, the time half rounded, then added to the bf16
+        ``msg_proj`` in bf16."""
         T = time_feat.shape[1]
+        w_t, w_m = self.lin_edge.weight[:, :T], self.lin_edge.weight[:, T:]
+        if dtype is not None:
+            w_t = w_t.to(dtype).float()
+            e_t = time_feat.to(dtype).float() @ w_t.T
+            if msg_proj is None:
+                return (e_t + msg.to(dtype).float() @ w_m.to(dtype).float().T).to(dtype)
+            return e_t.to(dtype) + msg_proj.to(dtype)
         if msg_proj is None:
-            msg_proj = msg @ self.lin_edge.weight[:, T:].T
-        return time_feat @ self.lin_edge.weight[:, :T].T + msg_proj
+            msg_proj = msg.float() @ w_m.T
+        return time_feat @ w_t.T + msg_proj
 
 
 class GraphAttentionEmbedding(_TransformerConvWeights):
@@ -561,7 +575,20 @@ class GraphAttentionEmbeddingRowwise(_TransformerConvWeights):
     ``generator`` passed to ``forward``, and only when one is passed and p >
     0, so a train run is reproducible from its seed and a call without a
     generator is deterministic whatever the module's train/eval mode.
+
+    ``kv_bf16=True`` is the JAX bf16 K/V path, rounding where flax rounds
+    (``nn/modules/bf16.py``): the time features, the messages and the
+    neighbour memory are cast to bf16; ``lin_key``, ``lin_value`` and
+    ``lin_edge`` are bf16 denses (product rounded, then the bias added in
+    bf16); ``k = key + e`` and ``v = value + e`` are bf16 adds; q (fp32
+    ``lin_query``) is cast to bf16; scores and the value product are fp32
+    sums of bf16 products; the softmax and ``lin_skip`` stay fp32.
     """
+
+    def __init__(self, in_channels: int, out_channels: int, msg_dim: int, time_dim: int,
+                 n_heads: int = 2, dropout: float = 0.1, kv_bf16: bool = False) -> None:
+        super().__init__(in_channels, out_channels, msg_dim, time_dim, n_heads, dropout)
+        self.kv_bf16 = kv_bf16
 
     def forward(
         self,
@@ -581,39 +608,47 @@ class GraphAttentionEmbeddingRowwise(_TransformerConvWeights):
         no bit of the result."""
         S, K = nbr_valid.shape
         H, C = self.n_heads, self.head_dim
+        dt = BF16 if self.kv_bf16 else None
         rel_t = seed_last_update[:, None] - nbr_time
         time_feat = self.time_enc(rel_t.float()).reshape(S * K, -1)
         e = self.edge_projection(
             time_feat, nbr_msg.reshape(S * K, -1),
-            None if nbr_msg_proj is None else nbr_msg_proj.reshape(S * K, -1),
+            None if nbr_msg_proj is None else nbr_msg_proj.reshape(S * K, -1), dt,
         ).reshape(S, K, H, C)
 
         q = self.lin_query(x_seed).reshape(S, H, C)
         xn2 = x_nbr.reshape(S * K, -1)
-        k = self.lin_key(xn2).reshape(S, K, H, C) + e
-        v = self.lin_value(xn2).reshape(S, K, H, C) + e
+        k = dense(xn2, self.lin_key, dt).reshape(S, K, H, C) + e
+        v = dense(xn2, self.lin_value, dt).reshape(S, K, H, C) + e
 
         mask = nbr_valid[:, :, None]
-        logits = torch.einsum("shc,skhc->skh", q, k) * (C ** -0.5)
+        logits = einsum_f32("shc,skhc->skh", q.to(k.dtype), k) * (C ** -0.5)
         logits = torch.where(mask, logits, -1e10)
         alpha = torch.softmax(logits, dim=1)
         alpha = _dropout(torch.where(mask, alpha, 0.0), self.dropout, generator)
-        out = torch.einsum("skh,skhc->shc", alpha, v).reshape(S, self.out_channels)
+        out = einsum_f32("skh,skhc->shc", alpha.to(v.dtype), v).reshape(S, self.out_channels)
         return out + self.lin_skip(x_seed)
 
 
-def rowwise_project_edge_feats(encoder: _TransformerConvWeights,
-                               edge_x_full: torch.Tensor) -> torch.Tensor:
+def rowwise_project_edge_feats(encoder: _TransformerConvWeights, edge_x_full: torch.Tensor,
+                               kv_bf16: Optional[bool] = None) -> torch.Tensor:
     """``edge_x_full @ W_m^T``: the message half of ``encoder.lin_edge`` over
     a static (E, msg_dim) feature table, (E, out_channels).
 
     Valid while the weights are frozen (eval): computed once, its rows stand
     in for the per-batch message projection (``nbr_msg_proj``). Zero rows
     project to zero (``lin_edge`` has no bias), so padding stays zero.
+    ``kv_bf16`` (default: the encoder's) gives the JAX bf16 table: the bf16
+    table times the bf16 kernel half, fp32 sums, rounded to bf16.
     """
     T = encoder.lin_edge.in_features - edge_x_full.shape[1]
+    w_m = encoder.lin_edge.weight[:, T:]
+    if kv_bf16 is None:
+        kv_bf16 = getattr(encoder, "kv_bf16", False)
     with torch.no_grad():
-        return edge_x_full @ encoder.lin_edge.weight[:, T:].T
+        if kv_bf16:
+            return (edge_x_full.to(BF16).float() @ w_m.to(BF16).float().T).to(BF16)
+        return edge_x_full.float() @ w_m.T
 
 
 __all__ = [

@@ -13,8 +13,16 @@ elementwise mask of the (B, H, K) weights and one of the (B, out_dim)
 output per call, and only when one is passed: a call without a generator
 is deterministic whatever the module's train/eval mode. ``score_layout``
 takes the JAX values: ``"lanes"`` is the same function in another TPU
-layout, and the port computes one layout. The bf16 K/V path
-(``kv_bf16=True``) is queued in ROADMAP.md.
+layout, and the port computes one layout.
+
+``kv_bf16=True`` is the JAX bf16 K/V path, rounding where flax rounds
+(``modules/bf16.py``): the three K/V operands are cast to bf16 before the
+concat; ``W_KV`` is ``nn.Dense(dtype=bf16)`` (no bias), so K and V are the
+fp32-accumulated product rounded to bf16; q (fp32 from ``W_Q``) is cast to
+bf16; the scores are fp32 sums of the bf16 products, scaled, masked and
+softmaxed in fp32; the weights are cast to bf16 for the value product,
+which sums in fp32. ``W_Q``, ``W_O``, the residual and the LayerNorm stay
+fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .bf16 import BF16, einsum_f32
 from .dropout import dropout as _dropout
 
 SCORE_LAYOUTS = ("kmajor", "lanes")
@@ -47,14 +56,11 @@ class TemporalAttention(nn.Module):
         super().__init__()
         if min(n_heads, node_dim, edge_dim, time_dim) <= 0:
             raise ValueError("n_heads, node_dim, edge_dim, time_dim must be > 0")
-        if kv_bf16:
-            raise NotImplementedError(
-                "TemporalAttention(kv_bf16=True): the bf16 K/V path is queued in ROADMAP.md "
-                "(queue 1, TGAT's kv_bf16)")
         if score_layout not in SCORE_LAYOUTS:
             raise ValueError(f"score_layout must be one of {SCORE_LAYOUTS}, got {score_layout!r}")
         self.n_heads = n_heads
         self.dropout = dropout
+        self.kv_bf16 = kv_bf16
         out_dim = node_dim + time_dim
         self.pad_dim = (-out_dim) % n_heads
         self.out_dim = out_dim + self.pad_dim
@@ -83,19 +89,21 @@ class TemporalAttention(nn.Module):
         x = F.pad(node_x, (0, self.pad_dim)) if self.pad_dim else node_x
         R = torch.cat([x, time_feat], dim=-1)  # (B, out_dim)
         q = self.W_Q(R).reshape(B, H, dh)
-        if kv_node_edge_feat is not None:
-            Z = torch.cat([kv_node_edge_feat, nbr_time_feat], dim=-1)
+        kv_in = ([kv_node_edge_feat, nbr_time_feat] if kv_node_edge_feat is not None
+                 else [nbr_node_feat, edge_feat, nbr_time_feat])
+        if self.kv_bf16:
+            Z = torch.cat([t.to(BF16) for t in kv_in], dim=-1)
+            Z = (Z.float() @ self.W_KV.weight.to(BF16).float().T).to(BF16)
         else:
-            Z = torch.cat([nbr_node_feat, edge_feat, nbr_time_feat], dim=-1)
-        Z = self.W_KV(Z)  # (B, K, 2 * out_dim)
+            Z = self.W_KV(torch.cat([t.float() for t in kv_in], dim=-1))  # (B, K, 2 * out_dim)
         k = Z[..., : self.out_dim].reshape(B, K, H, dh)
         v = Z[..., self.out_dim :].reshape(B, K, H, dh)
 
-        attn = torch.einsum("bhd,bkhd->bhk", q, k) * (dh ** -0.5)
+        attn = einsum_f32("bhd,bkhd->bhk", q.to(Z.dtype), k) * (dh ** -0.5)
         attn = torch.where(valid_nbr_mask[:, None, :], attn, -1e10)
         attn = torch.softmax(attn, dim=-1)
         attn = _dropout(attn, self.dropout, generator)
-        out = torch.einsum("bhk,bkhd->bhd", attn, v).reshape(B, self.out_dim)
+        out = einsum_f32("bhk,bkhd->bhd", attn.to(Z.dtype), v).reshape(B, self.out_dim)
         out = _dropout(self.W_O(out), self.dropout, generator)
         return self.layer_norm(out + R)
 

@@ -26,7 +26,11 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
         return torch.zeros_like(x)
     shape = x.shape if mask_shape is None else tuple(mask_shape)
     keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), 0.0)
+    scale = 1.0 - p
+    if x.dtype == torch.bfloat16:
+        # flax divides by the keep rate as a constant of the input's dtype.
+        scale = float(torch.tensor(scale).to(x.dtype))
+    return torch.where(keep, x / scale, 0.0)
 
 
 __all__ = ["dropout"]

@@ -8,9 +8,9 @@ Port of ``tgm_tpu/ops/pallas/recency_select.py``:
   seed's query time, oldest to newest, right-aligned, filled with PAD / 0 / -1.
 * ``recency_eid_select`` launches the same kernel K1 on the ring state
   itself: it reads each seed's row in place (invalid seeds read the dump row)
-  and, given the static edge-feature table, writes the selected edges'
-  feature rows too, what ``gather_edge_feats`` would give. This is the hook's
-  eid-layout query: one launch, no gathered rows.
+  and, given the static edge-feature table (fp32 or bf16), writes the
+  selected edges' feature rows too, what ``gather_edge_feats`` would give.
+  This is the hook's eid-layout query: one launch, no gathered rows.
 * ``recency_window_select`` (K4) replaces ``recency_window_select``: the same
   select carrying an (S, B, D) fp32 feature payload, copied exactly, filled
   with PAD / 0 / 0.0.
@@ -43,6 +43,8 @@ from ..constants import PADDED_NODE_ID
 from . import _native
 
 MAX_BUFFER_SLOTS = 64
+# The edge tables K1 copies rows of (as bytes: 4 or 2 a value).
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Quad = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -152,13 +154,15 @@ def _launch_k1(rows: Sequence[torch.Tensor], seeds: Optional[torch.Tensor],
                out_feats: Optional[torch.Tensor], k: int) -> None:
     """Launch K1 over (N1, B) rows (ids, times, eids, write_pos): row
     ``seeds[s]`` for seed s (the dump row N1 - 1 if invalid), or row s
-    without seeds; features only with both ``edge_x`` and ``out_feats``."""
+    without seeds; features only with both ``edge_x`` and ``out_feats``,
+    copied as bytes (a row is D elements of ``edge_x.element_size()``)."""
     N1, B = rows[0].shape
     E_all, D = (0, 0) if edge_x is None else edge_x.shape
+    esize = 4 if edge_x is None else edge_x.element_size()
     ins = [None if t is None else t.contiguous()
            for t in (*rows, seeds, query_times, edge_x)]
     _native.launch("recency_select", "recency_eid_select", [*ins, *outs, out_feats],
-                   [query_times.shape[0], N1, B, k, E_all, D])
+                   [query_times.shape[0], N1, B, k, E_all, D * esize])
 
 
 def recency_window_select_eid(
@@ -206,14 +210,14 @@ def recency_eid_select(
     seeds: torch.Tensor,  # (S,) int32 node ids; invalid ones read the dump row N1 - 1
     seed_times: torch.Tensor,  # (S,) int32
     k: int,
-    edge_x: Optional[torch.Tensor] = None,  # (E_all, D) float32 static edge features
+    edge_x: Optional[torch.Tensor] = None,  # (E_all, D) float32 or bfloat16 edge features
 ) -> Quad:
     """K most recent (id, time, edge id, features) per seed before its time.
 
     Reads the eid-layout ring state in place: no per-seed rows are gathered.
     Returns (S, K) int32 ids, times and edge ids, filled with PAD / 0 / -1,
-    and (S, K, D) fp32 features of the selected edges (zero rows for edge
-    id -1; (S, K, 0) without ``edge_x``), equal to
+    and (S, K, D) features of the selected edges in the table's dtype (zero
+    rows for edge id -1; fp32 (S, K, 0) without ``edge_x``), equal to
     ``gather_edge_feats(edge_x, eids)`` bit for bit. One launch of kernel K1
     on CUDA tensors, the plain version on CPU tensors;
     ``recency_eid_select.launches`` counts kernel launches.
@@ -222,15 +226,16 @@ def recency_eid_select(
     _check(nbr_ids, nbr_times, nbr_eids, write_pos, seed_times, k, torch.int32, seeds=seeds)
     dev = nbr_ids.device
     if edge_x is not None and (edge_x.dim() != 2 or edge_x.shape[0] == 0
-                               or edge_x.dtype != torch.float32 or edge_x.device != dev):
-        raise ValueError(f"edge_x must be a float32 table of at least one row on {dev}, got "
-                         f"{edge_x.dtype} {tuple(edge_x.shape)} on {edge_x.device}")
+                               or edge_x.dtype not in FEATURE_DTYPES or edge_x.device != dev):
+        raise ValueError(f"edge_x must be a float32 or bfloat16 table of at least one row on "
+                         f"{dev}, got {edge_x.dtype} {tuple(edge_x.shape)} on {edge_x.device}")
     if dev.type == "cpu":
         return recency_eid_select_plain(state, seeds, seed_times, k, edge_x)
     S = seeds.shape[0]
     D = 0 if edge_x is None else edge_x.shape[1]
     outs = tuple(torch.empty((S, k), dtype=torch.int32, device=dev) for _ in range(3))
-    feats = torch.empty((S, k, D), dtype=torch.float32, device=dev)
+    feats = torch.empty((S, k, D), dtype=torch.float32 if edge_x is None else edge_x.dtype,
+                        device=dev)
     if S == 0:
         return (*outs, feats)
     with_feats = D > 0  # a zero-width table has nothing to copy

@@ -52,8 +52,10 @@ With gloo, the collectives' buffers of CUDA tensors are staged through
 pinned host memory (``MeshAxis``); the compute stays on the card.
 
 Not ported (``NotImplementedError``, ROADMAP.md item 10e): the packed
-memory or recency layouts, the segment route (``rowwise=False``) and the
-mean-memory state.
+memory or recency layouts, the segment route (``rowwise=False``), the
+mean-memory state, and pipelines built with a bf16 option (TGN's
+``feat_bf16``, ``attn_bf16``, ``dedup_staging``; TGAT's ``feat_bf16``,
+``attn_bf16``).
 """
 
 from __future__ import annotations
@@ -405,13 +407,19 @@ def sharded_tgn_train_step(pipe, mesh):
         raise NotImplementedError(f"the sharded step of the segment route: {_NOT_PORTED}")
     if pipe.packed_state or (pipe.packed_recency and pipe.edge_x_full is not None):
         raise NotImplementedError(f"the sharded step of the packed layouts: {_NOT_PORTED}")
+    if pipe.feat_bf16 or pipe.attn_bf16 or pipe.dedup_staging:
+        raise NotImplementedError("the sharded step of feat_bf16, attn_bf16 and "
+                                  f"dedup_staging: {_NOT_PORTED}")
     return _TGNStep(pipe, mesh)
 
 
 def sharded_tgat_train_step(pipe, mesh):
     """``train_step(carry, batch) -> (carry, loss)`` of a ``TGATPipeline``
     (every recency layout) over ``mesh``, from a ``tgat_carry_shardings``
-    (or ``_2d``) placed carry and a ``batch_shardings`` placed batch."""
+    (or ``_2d``) placed carry and a ``batch_shardings`` placed batch; not
+    with ``feat_bf16`` or ``attn_bf16``."""
+    if pipe.feat_bf16 or pipe.attn_bf16:
+        raise NotImplementedError(f"the sharded step of feat_bf16 and attn_bf16: {_NOT_PORTED}")
     return _TGATStep(pipe, mesh)
 
 

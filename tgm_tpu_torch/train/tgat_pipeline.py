@@ -21,9 +21,14 @@ that selects them; the shallower hops select with K1 and gather their edge
 rows by ``payload >> 1``. With ``edge_x_full`` alone the rings carry edge
 ids (one K1 launch a hop, the feature rows fused); with neither, edge
 features by value (K4, the state read in place). Every layout pushes once a step (the push kernel).
-fp32 only: ``feat_bf16`` and ``attn_bf16`` raise when true and resolve to
-off when ``None`` (the JAX package's auto policy turns them on for TPU
-backends only).
+
+The bf16 options compute what the JAX ones do (``None`` resolves to off,
+as the JAX auto policies do on any backend but a TPU):
+- ``feat_bf16`` rounds ``node_x`` and ``edge_x_full`` to bf16 before the
+  side-augmented table is built; the fp32 attention promotes them.
+- ``attn_bf16`` builds ``TGAT(kv_bf16=True)`` and stores ``edge_x_full``
+  and the side-augmented table in bf16 (every reader of them is on the bf16
+  K/V path); K1 copies their bf16 rows.
 """
 
 from __future__ import annotations
@@ -45,9 +50,12 @@ from ..hooks.neighbors import (
 from ..nn.decoder.decoders import LinkPredictor
 from ..nn.encoder.tgat import TGAT
 from ..nn.modules.attention import SCORE_LAYOUTS
+from ..nn.modules.bf16 import BF16
 from ..ops.recency_select import gather_edge_feats, recency_eid_select, recency_feats_select
+from ..util.precision import tpu_default_bf16
 from ..weights import load_tgat_params
 from .programs import score_candidates, tie_equal_candidates, train_loss_and_grad
+from .tgn_pipeline import default_feat_bf16
 
 
 class TGATCarry(NamedTuple):
@@ -83,10 +91,10 @@ def build_aug_table(
     return torch.stack([a, b], dim=1).reshape(2 * E, -1).contiguous()
 
 
-def _unported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TGATPipeline({option}) is not ported: bf16 features and attention are ROADMAP.md "
-        "queue 1 (TGAT's kv_bf16)")
+def default_attn_bf16() -> bool:
+    """The JAX auto policy for the bf16 K/V attention: on for TPU backends
+    only (``util.precision``), so off here."""
+    return tpu_default_bf16()
 
 
 class TGATPipeline:
@@ -119,17 +127,18 @@ class TGATPipeline:
         attn_score_layout: str = "kmajor",
         device: DeviceLike = None,
     ) -> None:
-        for name, flag in (("feat_bf16", feat_bf16), ("attn_bf16", attn_bf16)):
-            if flag:
-                raise _unported(f"{name}=True")
         if attn_score_layout not in SCORE_LAYOUTS:
             raise ValueError(f"attn_score_layout must be one of {SCORE_LAYOUTS}, "
                              f"got {attn_score_layout!r}")
         self.device = resolve_device(device)
-        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
+        self.feat_bf16 = default_feat_bf16() if feat_bf16 is None else bool(feat_bf16)
+        self.attn_bf16 = default_attn_bf16() if attn_bf16 is None else bool(attn_bf16)
+        feat_dt = BF16 if self.feat_bf16 else torch.float32
+        table = lambda x: (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                           .to(feat_dt).contiguous())
         self.num_nodes = num_nodes
         self.edge_dim = edge_dim
-        self.node_x = f32(node_x)
+        self.node_x = table(node_x)
         self.num_nbrs = list(num_nbrs)
         self.time_dim = time_dim
         self.embed_dim = embed_dim
@@ -138,13 +147,21 @@ class TGATPipeline:
         self.neg_low = neg_low
         self.neg_high = max(neg_high, neg_low + 1)
         self.attn_score_layout = attn_score_layout
-        self.edge_x_full = None if edge_x_full is None else f32(edge_x_full)
+        self.edge_x_full = None if edge_x_full is None else table(edge_x_full)
         self.aug_x = None
         if self.edge_x_full is not None and edge_ends_full is not None:
             self.aug_x = build_aug_table(self.edge_x_full, self.node_x, *edge_ends_full)
+        if self.attn_bf16:
+            # Every reader of the static edge tables is on the bf16 K/V path.
+            if self.edge_x_full is not None:
+                self.edge_x_full = self.edge_x_full.to(BF16)
+            if self.aug_x is not None:
+                self.aug_x = self.aug_x.to(BF16)
+        if self.aug_x is not None:
             # The fill of an invalid deepest-hop slot: the PAD-wrapped node row
             # and zero edge features, what the unfused K/V input holds there.
-            self.aug_fill = torch.cat([self.node_x[-1], self.node_x.new_zeros(edge_dim)])
+            self.aug_fill = torch.cat([self.node_x[-1], self.node_x.new_zeros(edge_dim)]
+                                      ).to(self.aug_x.dtype)
 
     # ------------------------------------------------------------------ #
     def init_carry(self, seed: int = 0, params: Optional[Any] = None) -> TGATCarry:
@@ -158,7 +175,7 @@ class TGATPipeline:
             modules = nn.ModuleDict({
                 "enc": TGAT(self.node_x.shape[1], self.edge_dim, self.time_dim, self.embed_dim,
                             len(self.num_nbrs), self.n_heads, dropout=0.0,
-                            score_layout=self.attn_score_layout),
+                            kv_bf16=self.attn_bf16, score_layout=self.attn_score_layout),
                 "dec": LinkPredictor(node_dim=self.embed_dim, hidden_dim=self.embed_dim),
             })
         if params is not None:
@@ -305,4 +322,4 @@ class TGATPipeline:
         return self._embed(carry.params, *self._hops(carry.rec_state, seeds, seed_times))
 
 
-__all__ = ["TGATCarry", "TGATPipeline", "build_aug_table"]
+__all__ = ["TGATCarry", "TGATPipeline", "build_aug_table", "default_attn_bf16"]

@@ -26,8 +26,23 @@ as in JAX); ``packed_state=True`` on either (the memory state in the
 packed layout, its store in PyTorch scatters); ``packed_recency=True`` in
 the eid layout (the recency state packed into one (N+1, K, 3) buffer:
 queries through K1's pre-gathered entry, pushes as one row write; ignored
-in the feature layout, as in JAX). The other options of the JAX
-constructor raise ``NotImplementedError`` naming their ROADMAP.md item.
+in the feature layout, as in JAX). ``state_row_multiple`` (a TPU row
+alignment) raises.
+
+The bf16 options compute what the JAX ones do:
+- ``feat_bf16`` stores ``edge_x_full`` in bf16 (K1 copies its bf16 rows);
+  without ``attn_bf16`` the encoder promotes them to fp32.
+- ``attn_bf16`` (``resolve_bf16``: ``"auto"`` and ``None`` are off) builds
+  the rowwise encoder with ``kv_bf16`` and, rowwise, stores the table in
+  bf16 too: the gathered rows feed only the bf16 K/V path, so
+  ``bf16(gather(x)) == gather(bf16(x))`` bit for bit. ``eval_proj_table``
+  is then the bf16 (E, embed) table, and ``eval_mem_bf16`` gives a bf16
+  mirror of the memory for ``eval_step(mem_bf16=...)``: the S * K neighbour
+  rows are gathered from it (they are cast to bf16 anyway), and after the
+  commit the rows it touched are refreshed as their bf16 casts.
+- ``dedup_staging`` stages each distinct row once (a sort, a cumsum and two
+  scatters, padded to the row count with ``num_nodes``, no host sync) and
+  gathers the staged rows back: the same staged values as without it.
 """
 
 from __future__ import annotations
@@ -59,9 +74,17 @@ from ..nn.encoder.tgn import (
     tgn_init_state,
     tgn_pack_state,
 )
-from ..ops.recency_select import gather_edge_feats, recency_eid_select, recency_feats_select
+from ..nn.modules.bf16 import BF16
+from ..ops.recency_select import (
+    gather_edge_feats,
+    recency_eid_select,
+    recency_feats_select,
+    seed_rows,
+)
+from ..util.precision import resolve_bf16
 from ..weights import load_tgn_params
 from .programs import (
+    _batch_nodes,
     local_edges,
     score_candidates,
     tgn_embed,
@@ -75,12 +98,30 @@ from .programs import (
 SCORE_LAYOUTS = ("lanesv", "lanes", "kmajor")
 
 
+def default_feat_bf16() -> bool:
+    """The JAX auto policy for bf16 feature tables: off (measured neutral on
+    a TPU, so fp32 is the default everywhere)."""
+    return False
+
+
 class TGNCarry(NamedTuple):
     params: nn.ModuleDict
     opt_state: torch.optim.Optimizer
     mem_state: Any
     rec_state: Any
     rng: torch.Generator
+
+
+def _unique_inverse(keyed: torch.Tensor, fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(keyed, size=len(keyed), fill_value=fill,
+    return_inverse=True)`` with no host sync: the sorted distinct values,
+    ``fill`` after them, and each entry's index into them."""
+    s, order = torch.sort(keyed)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    pos = torch.cumsum(first, 0) - 1  # each sorted entry's slot in the distinct list
+    uniq = torch.full_like(keyed, fill).scatter_(0, pos, s)  # repeats write equal values
+    return uniq, torch.empty_like(pos).scatter_(0, order, pos)
 
 
 def _unported(option: str, where: str) -> NotImplementedError:
@@ -120,16 +161,9 @@ class TGNPipeline:
         attn_score_layout: str = "lanesv",
         device: DeviceLike = None,
     ) -> None:
-        if dedup_staging:
-            raise _unported("dedup_staging=True", "ROADMAP.md queue 1 item 1c")
         if state_row_multiple != 1:
             raise _unported(f"state_row_multiple={state_row_multiple}",
                             "a TPU row-alignment device, not queued (ROADMAP.md)")
-        if feat_bf16:
-            raise _unported("feat_bf16=True", "bf16 features are ROADMAP.md queue 1 item 1c")
-        if attn_bf16 not in (None, False, "auto", "off"):
-            raise _unported(f"attn_bf16={attn_bf16!r}",
-                            "bf16 features are ROADMAP.md queue 1 item 1c")
         if attn_score_layout not in SCORE_LAYOUTS:
             raise ValueError(f"attn_score_layout must be one of {SCORE_LAYOUTS}, "
                              f"got {attn_score_layout!r}")
@@ -147,9 +181,15 @@ class TGNPipeline:
         self.dropout = dropout
         self.neg_low = neg_low
         self.neg_high = max(neg_high, neg_low + 1)
+        self.dedup_staging = dedup_staging
+        self.feat_bf16 = default_feat_bf16() if feat_bf16 is None else bool(feat_bf16)
+        # Resolved once: it drives both the encoder's kv_bf16 and the table.
+        self.attn_bf16 = resolve_bf16(attn_bf16)
+        table_dtype = (BF16 if self.feat_bf16 or (rowwise and self.attn_bf16)
+                       else torch.float32)
         self.edge_x_full = (None if edge_x_full is None else
                             torch.as_tensor(edge_x_full, dtype=torch.float32,
-                                            device=self.device).contiguous())
+                                            device=self.device).to(table_dtype).contiguous())
 
     # ------------------------------------------------------------------ #
     def init_carry(self, seed: int = 0, params: Optional[Any] = None) -> TGNCarry:
@@ -160,12 +200,13 @@ class TGNPipeline:
         ``packed_state``); empty recency buffers; the negatives' generator on
         the device, seeded with ``seed``."""
         enc_cls = GraphAttentionEmbeddingRowwise if self.rowwise else GraphAttentionEmbedding
+        enc_kwargs = {"kv_bf16": self.attn_bf16} if self.rowwise else {}
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             modules = nn.ModuleDict({
                 "mem": TGNMemory(self.num_nodes, self.edge_dim, self.memory_dim, self.time_dim),
                 "enc": enc_cls(self.memory_dim, self.embed_dim, self.edge_dim, self.time_dim,
-                               dropout=self.dropout),
+                               dropout=self.dropout, **enc_kwargs),
                 "dec": LinkPredictor(node_dim=self.embed_dim, hidden_dim=self.embed_dim),
             })
         if params is not None:
@@ -221,6 +262,23 @@ class TGNPipeline:
                               batch.edge_x if batch.has("edge_x") else None, batch.edge_valid,
                               directed=False)
 
+    def _stage(self, memory: TGNMemory, mem_state, training: bool):
+        """The ``stage`` of ``tgn_embed``: ``None`` (stage every row) or, with
+        ``dedup_staging``, stage each distinct row of [seeds | neighbours]
+        once (ids outside [0, N) keyed to the dump row N) and gather the
+        staged rows back per entry."""
+        if not self.dedup_staging:
+            return None
+        n = self.num_nodes
+
+        def stage(rows: torch.Tensor):
+            keyed = torch.where((rows >= 0) & (rows < n), rows, n)
+            uniq, inv = _unique_inverse(keyed, n)
+            z_u, lu_u = memory.stage(mem_state, uniq, training=training)
+            return z_u[inv], lu_u[inv]
+
+        return stage
+
     def _train_seeds(self, batch, neg: torch.Tensor):
         seeds = torch.cat([batch.edge_src, batch.edge_dst, neg])
         return seeds, batch.edge_time.repeat(3)
@@ -266,7 +324,8 @@ class TGNPipeline:
         if self.rowwise:
             loss, staged = tgn_loss_and_grad(params["mem"], params["enc"], params["dec"], opt,
                                              mem_state, seeds, nbrs, nbr_t, nbr_x,
-                                             batch.edge_valid)
+                                             batch.edge_valid,
+                                             stage=self._stage(params["mem"], mem_state, True))
         else:
             loss = train_loss_and_grad(
                 opt, lambda: self._segment_embed(params, mem_state, seeds, nbrs, nbr_t, nbr_x),
@@ -286,23 +345,24 @@ class TGNPipeline:
         cands: torch.Tensor,  # (B, Q) candidate dst ids, PAD for none
         cand_times: Optional[torch.Tensor] = None,  # (B, Q); default edge_time
         nbr_proj_table: Optional[torch.Tensor] = None,  # (E, embed) from eval_proj_table
-        mem_bf16: Optional[torch.Tensor] = None,
-    ) -> Tuple[TGNCarry, Tuple[torch.Tensor, torch.Tensor]]:
+        mem_bf16: Optional[torch.Tensor] = None,  # (N+1, M) bf16 mirror from eval_mem_bf16
+    ):
         """Score each edge against its candidates, then advance the state in
         the eval-mode order (store messages, then apply them; then the
-        push). Returns ``(carry, (mrr_sum, mrr_count))``.
+        push). Returns ``(carry, (mrr_sum, mrr_count))``, and the refreshed
+        mirror third when ``mem_bf16`` is given.
 
         Seeds are [src | dst | cands], S = 2B + BQ, on stored memory. With
         ``nbr_proj_table`` (eid layout) K1 copies its projected rows in place
         of the raw features and the encoder skips the message projection.
+        With ``mem_bf16`` the neighbour rows come from the mirror (the seeds'
+        from the fp32 memory), and the mirror's rows of this batch's nodes
+        are rewritten, in place, as the bf16 casts of their committed rows.
         Positives and candidates are scored in one decoder call, and a
         candidate whose embedding equals the positive's ties with it.
         """
         if not self.rowwise:
             raise ValueError("eval_step requires the rowwise pipeline")
-        if mem_bf16 is not None:
-            raise _unported("eval_step(mem_bf16=...)",
-                            "bf16 features are ROADMAP.md queue 1 item 1c")
         if nbr_proj_table is not None and self.edge_x_full is None:
             raise ValueError("nbr_proj_table needs the eid layout (edge_x_full)")
         params, _, mem_state, rec_state, _ = carry
@@ -313,14 +373,45 @@ class TGNPipeline:
         seeds = torch.cat([batch.edge_src, batch.edge_dst, cand_flat])
         seed_t = torch.cat([batch.edge_time, batch.edge_time, cand_times.reshape(-1).int()])
         nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t, nbr_proj_table)
-        z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x,
-                         False, nbr_msg_proj=None if nbr_proj_table is None else nbr_x)
+        proj = None if nbr_proj_table is None else nbr_x
+        if mem_bf16 is None:
+            z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x,
+                             False, nbr_msg_proj=proj)
+        else:
+            self._check_mirror(mem_bf16)
+            x_seed, last_upd = params["mem"].stage(mem_state, seeds, training=False)
+            S, K = nbrs.shape
+            z = params["enc"](x_seed, mem_bf16[seed_rows(nbrs.reshape(-1), self.num_nodes)]
+                              .reshape(S, K, -1), last_upd, nbr_t, nbr_x,
+                              nbrs != PADDED_NODE_ID, nbr_msg_proj=proj)
         z_dst, z_cand = z[B : 2 * B], z[2 * B :].reshape(B, Q, -1)
         pos, negs = score_candidates(params["dec"], z[:B], z_dst, z_cand)
         negs = tie_equal_candidates(pos, negs, z_dst, z_cand)
         s, c = mrr_sum_count(pos, negs, neg_valid=(cand_flat != PADDED_NODE_ID).reshape(B, Q),
                              edge_valid=batch.edge_valid)
-        return self.eval_advance_state(carry, batch), (s, c)
+        carry = self.eval_advance_state(carry, batch)
+        if mem_bf16 is None:
+            return carry, (s, c)
+        touched = _batch_nodes(batch, self.num_nodes).long()
+        mem_bf16[touched] = carry.mem_state.mem[touched].to(BF16)
+        return carry, (s, c), mem_bf16
+
+    def _check_mirror(self, mem_bf16: torch.Tensor) -> None:
+        if not self.attn_bf16 or self.packed_state:
+            raise ValueError("mem_bf16 needs attn_bf16 (the bf16 K/V path) and the unpacked "
+                             "memory state")
+        shape = (self.num_nodes + 1, self.memory_dim)
+        if mem_bf16.dtype != BF16 or tuple(mem_bf16.shape) != shape:
+            raise ValueError(f"mem_bf16 must be a bf16 {shape} tensor, got {mem_bf16.dtype} "
+                             f"{tuple(mem_bf16.shape)}")
+
+    def eval_mem_bf16(self, carry: TGNCarry) -> torch.Tensor:
+        """The initial bf16 mirror of the (flushed) memory for an eval epoch
+        (``eval_step``'s ``mem_bf16``); only with ``attn_bf16``, where the
+        neighbour rows are cast to bf16 anyway."""
+        mirror = carry.mem_state.mem.to(BF16)
+        self._check_mirror(mirror)
+        return mirror
 
     @torch.no_grad()
     def eval_advance_state(self, carry: TGNCarry, batch) -> TGNCarry:
@@ -334,11 +425,11 @@ class TGNPipeline:
     def eval_proj_table(self, params: nn.ModuleDict) -> torch.Tensor:
         """``edge_x_full @ W_m^T`` for frozen weights: pass it to ``eval_step``
         as ``nbr_proj_table`` for a whole eval epoch (one (E, msg) x (msg,
-        embed) product)."""
+        embed) product; in bf16 under ``attn_bf16``, as in JAX)."""
         if self.edge_x_full is None or not self.rowwise:
             raise ValueError("eval_proj_table needs the rowwise pipeline in the eid layout "
                              "(edge_x_full)")
-        return rowwise_project_edge_feats(params["enc"], self.edge_x_full)
+        return rowwise_project_edge_feats(params["enc"], self.edge_x_full, self.attn_bf16)
 
     def flush_all(self, carry: TGNCarry) -> TGNCarry:
         """Train -> eval transition: apply every pending message, clear the stores."""
@@ -355,11 +446,11 @@ class TGNPipeline:
         nbrs, nbr_t, nbr_x = self._query(rec_state, seeds, seed_t)
         if self.rowwise:
             z, _ = tgn_embed(params["mem"], params["enc"], mem_state, seeds, nbrs, nbr_t, nbr_x,
-                             True)
+                             True, stage=self._stage(params["mem"], mem_state, True))
         else:
             z = self._segment_embed(params, mem_state, seeds, nbrs, nbr_t, nbr_x)
         dec = params["dec"]
         return torch.stack([dec(z[:B], z[B : 2 * B]), dec(z[:B], z[2 * B :])])
 
 
-__all__ = ["TGNCarry", "TGNPipeline"]
+__all__ = ["TGNCarry", "TGNPipeline", "default_feat_bf16"]

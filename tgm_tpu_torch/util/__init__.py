@@ -6,6 +6,7 @@ from .logging import (
     log_metrics_dict,
     pretty_number_format,
 )
+from .precision import resolve_bf16, tpu_default_bf16
 from .seed import get_seed, seed_everything
 
 __all__ = [
@@ -16,5 +17,7 @@ __all__ = [
     "log_metric",
     "log_metrics_dict",
     "pretty_number_format",
+    "resolve_bf16",
     "seed_everything",
+    "tpu_default_bf16",
 ]

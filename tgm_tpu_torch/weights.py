@@ -155,7 +155,7 @@ def _head(decoder: nn.Module, variables: Mapping[str, Any]) -> None:
     _mlp(decoder.model, p["mlp"] if "mlp" in p else p["_MLP_0"])
 
 
-def _layer_norm(ln: nn.LayerNorm, p: Mapping[str, Any]) -> None:
+def _layer_norm(ln: nn.Module, p: Mapping[str, Any]) -> None:
     _copy(ln.weight, p["scale"])
     _copy(ln.bias, p["bias"])
 
@@ -183,17 +183,26 @@ def fuse_attention_params(mha_params: Mapping[str, Any]) -> dict:
 
 @torch.no_grad()
 def load_transformer_encoder_params(sub: Mapping[str, Any], layer: nn.Module) -> None:
-    """Copy a flax ``TransformerEncoder`` subtree (either attention layout,
-    fp32 LayerNorms) into a ``TransformerEncoder``, in place."""
+    """Copy a flax ``TransformerEncoder`` subtree (either attention layout;
+    fp32 LayerNorms, or the ``LayerNormBF16_i`` of a ``bf16_stream`` layer)
+    into a ``TransformerEncoder``, in place. The tree's parameters are fp32
+    whatever the layer's ``dtype``: flax's ``dtype=`` changes only the
+    computation."""
     fused = "FusedSelfAttention_0" in sub
     if "MultiHeadDotProductAttention_0" not in sub and not fused:
-        raise ValueError("the layer's tree needs the flax-MHA or the fused attention layout "
-                         "with fp32 LayerNorms (bf16_stream=False)")
+        raise ValueError("the layer's tree needs the flax-MHA or the fused attention layout")
     if fused != isinstance(layer.attn, FusedSelfAttention):
         names = ("flax-MHA", "fused")
         raise ValueError(f"the tree has the {names[fused]} attention layout, the encoder "
                          f"the {names[not fused]} one")
-    _layer_norm(layer.ln1, sub["LayerNorm_0"])
+    stream = "LayerNormBF16_0" in sub
+    if stream != layer.bf16_stream:
+        raise ValueError(f"the tree's LayerNorms are {('fp32', 'LayerNormBF16')[stream]}, the "
+                         f"layer's {('fp32', 'LayerNormBF16')[layer.bf16_stream]} "
+                         "(bf16_stream)")
+    ln_names = ("LayerNormBF16_0", "LayerNormBF16_1") if stream else ("LayerNorm_0",
+                                                                      "LayerNorm_1")
+    _layer_norm(layer.ln1, sub[ln_names[0]])
     if fused:
         for name in ("qkv", "out"):
             _dense(getattr(layer.attn, name), sub["FusedSelfAttention_0"][name])
@@ -201,7 +210,7 @@ def load_transformer_encoder_params(sub: Mapping[str, Any], layer: nn.Module) ->
         for name in ("query", "key", "value", "out"):
             _attention_dense(getattr(layer.attn, name),
                              sub["MultiHeadDotProductAttention_0"][name])
-    _layer_norm(layer.ln2, sub["LayerNorm_1"])
+    _layer_norm(layer.ln2, sub[ln_names[1]])
     _dense(layer.ffn1, sub["Dense_0"])
     _dense(layer.ffn2, sub["Dense_1"])
 
