@@ -416,7 +416,17 @@ hand-written CUDA kernels, in phases:
               loss and state within 1e-5, every loss within 5e-3, integer
               state exact) and frozen at lr = 0 (every loss and the memory,
               messages and recency rows within 1e-5 after the last step);
-              ms a step and rank 0's launches.
+              ms a step and rank 0's launches. Then every other pipeline
+              option at the tiny sizes (TGN's packed memory and recency, the
+              segment route, attn_bf16, feat_bf16 + attn_bf16 +
+              dedup_staging; TGAT's feat_bf16 + attn_bf16 in the eid layout
+              and over the bf16 side-augmented table; two TGN cases on one
+              data rank's rows alone) and at the wiki shape (the segment
+              route, both packed layouts, attn_bf16 in the feature layout),
+              trained and frozen; the bf16 cases' losses within 1e-4 and
+              float state within 5e-3 * max |x|; each rank's launches a step
+              those of one device for its variant (K1 fused or
+              pre-gathered, K4, the push, the store commit).
               ``--only-parallel`` runs phases 48-50 alone.
     bf16: the JAX package's bf16 options at full width on the wiki-shaped
               stream, each route beside its fp32 one, over the first 150
@@ -5947,7 +5957,17 @@ PAR_BATCHES = 120
 PAR_SPANS, PAR_ROUNDS, PAR_EVAL_SPANS = 4, 2, 3
 PAR_WORLDS = (1, 2, 4)  # ranks of the sharded steps: NCCL alone, gloo sharing the card
 PAR_SIM_CASES = ("tgn_feature", "tgn_eid", "tgat_eid", "tgat_feature", "tgat_aug",
-                 "tgn_eid_wiki", "tgn_eid_wiki_frozen")
+                 "tgn_packed", "tgn_packed_feature", "tgn_segment", "tgn_segment_feature",
+                 "tgn_attn_bf16", "tgn_bf16_eid", "tgat_bf16", "tgat_aug_bf16", "tgn_one_rank",
+                 "tgn_segment_one_rank",
+                 "tgn_eid_wiki", "tgn_eid_wiki_frozen", "tgn_segment_wiki",
+                 "tgn_segment_wiki_frozen", "tgn_packed_wiki", "tgn_packed_wiki_frozen",
+                 "tgn_attn_bf16_wiki", "tgn_attn_bf16_wiki_frozen")
+# The kernels line's sharded launches: rank 0 of each trained wiki case.
+PAR_SIM_LAUNCHES = {"tgn_eid_wiki": "launches_tgn_sharded_p{}",
+                    "tgn_segment_wiki": "launches_tgn_sharded_segment_p{}",
+                    "tgn_packed_wiki": "launches_tgn_sharded_packed_p{}",
+                    "tgn_attn_bf16_wiki": "launches_tgn_sharded_attn_bf16_p{}"}
 TGN_ADVANCE = {"recency_push": PUSH_LAUNCHES, "tgn_store_commit": 1}
 
 
@@ -6091,8 +6111,8 @@ def par_sharded_phase(card: str):
     """``tools/torch_multihost_sim.py`` on the card at P = 1 (NCCL), 2 (a 1-D
     mesh) and 4 (2 x 2, the parameters split over ``model``), gloo ranks
     sharing the card, all three at once: each case's sharded steps against
-    the single-process steps (every rank launching K1 or K4 once, the push
-    twice and the store commit once a TGN step)."""
+    the single-process steps (every rank launching what one device does for
+    the case's variant: ``step_launches`` of the tool)."""
     import tempfile
 
     tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
@@ -6119,19 +6139,24 @@ def par_sharded_phase(card: str):
             with open(os.path.join(tmp, f"p{w}.json")) as f:
                 rec = json.load(f)
             for case, c in rec["cases"].items():
+                rel = ("" if "max_rel_diff_float_state" not in c else
+                       f", float state gap / max |x| after step 1 "
+                       f"{c['max_rel_diff_float_state_step1']:.3g} and after the last "
+                       f"{c['max_rel_diff_float_state']:.3g}")
                 log("par-sharded", f"P={w} {rec['backend']} mesh {rec['mesh_axes']} "
                                    f"{rec['mesh_shape']} {case}: {c['steps']} steps, ms_per_step="
                                    f"{c['ms_per_step']:.3f} (single process "
                                    f"{c['ms_per_step_single_process']:.3f}), loss gap "
                                    f"{c['max_abs_diff_loss']:.3g}, state gap after step 1 "
                                    f"{c['max_abs_diff_state_step1']:.3g} and after the last "
-                                   f"{c['max_abs_diff_state']:.3g}, integer state equal "
+                                   f"{c['max_abs_diff_state']:.3g}{rel}, integer state equal "
                                    f"{c['int_state_equal']}, split params {c['split_params']}, "
                                    f"rank 0 launches {c['launches_rank0']} [{card}]")
             if not rec["ok"]:
                 raise AssertionError(f"sharded steps at P = {w} differ from one process")
-            launches[f"launches_tgn_sharded_p{w}"] = dict(
-                _zero_launches(), **rec["cases"]["tgn_eid_wiki"]["launches_rank0"])
+            for case, key in PAR_SIM_LAUNCHES.items():
+                launches[key.format(w)] = dict(_zero_launches(),
+                                               **rec["cases"][case]["launches_rank0"])
     log("par-sharded", f"the three worlds ran at once in {dt:.1f} s [{card}]")
     return launches
 

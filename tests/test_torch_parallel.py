@@ -53,8 +53,16 @@ import torch
 from __graft_entry__ import _tiny_setup
 from tgm_tpu.core.batch import DGBatch as JBatch
 from tgm_tpu.train import TGATPipeline as JTGAT
+from tgm_tpu.train import TGNPipeline as JTGN
 from tgm_tpu_torch.core.batch import DGBatch
-from tgm_tpu_torch.nn import TGNMemoryState, tgn_pack_state
+from tgm_tpu_torch.hooks.neighbors import recency_pk_init, recency_pk_update
+from tgm_tpu_torch.nn.encoder.tgn import (
+    TGNPackedState,
+    tgn_init_state,
+    tgn_mean_init_state,
+    tgn_pack_state,
+    tgn_store_messages_packed,
+)
 from tgm_tpu_torch.parallel import (
     Sharding,
     batch_shardings,
@@ -64,27 +72,30 @@ from tgm_tpu_torch.parallel import (
     shard_leading_axis,
     sharded_tgat_train_step,
     sharded_tgn_train_step,
+    tgat_carry_shardings,
     tgn_carry_shardings,
     tgn_carry_shardings_2d,
     tp_param_shardings,
 )
-from tgm_tpu_torch.train import TGATPipeline, TGNPipeline
+from tgm_tpu_torch.parallel.mesh import MeshAxis
+from tgm_tpu_torch.parallel.spmd import _events, _pack, _push_owned, _Rows, _store_owned, _unpack
+from tgm_tpu_torch.train import TGNPipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, SHIFT = 3, 1000
 INT_KEYS = ("rec0", "rec1", "rec3", "mem.last_update", "mem.s_other", "mem.s_t", "mem.s_valid",
-            "mem.d_other", "mem.d_t", "mem.d_valid")
+            "mem.d_other", "mem.d_t", "mem.d_valid", "mem.meta")
+BF16_LOSS_TOL = 5e-3  # the bf16 training band against JAX
 
 
-def _tiny_tgat(batch_size=16):
-    """``tests/test_parallel.py::_tiny_tgat`` (one device)."""
+def _tiny_tgat(batch_size=16, aug=False, **opts):
+    """``tests/test_parallel.py::_tiny_tgat`` (one device) with the
+    ``TGATPipeline`` options ``opts``; ``aug``: over the side-augmented table
+    of random endpoints, the tool's ``tiny_tgat(layout="aug")`` draws."""
     rng = np.random.default_rng(0)
-    N, D = 32, 4
+    N, D, E = 32, 4, 256
     node_x = jnp.asarray(rng.normal(size=(N, 3)).astype(np.float32))
-    edge_x_full = jnp.asarray(rng.normal(size=(256, D)).astype(np.float32))
-    pipe = JTGAT(num_nodes=N, edge_dim=D, node_x=node_x, num_nbrs=(4, 4), time_dim=8,
-                 embed_dim=16, n_heads=2, lr=1e-3, neg_low=0, neg_high=N,
-                 edge_x_full=edge_x_full)
+    edge_x_full = jnp.asarray(rng.normal(size=(E, D)).astype(np.float32))
     B = batch_size
     batch = JBatch(
         edge_src=jnp.asarray(rng.integers(0, N, B), jnp.int32),
@@ -93,7 +104,22 @@ def _tiny_tgat(batch_size=16):
         edge_valid=jnp.ones(B, bool),
     )
     batch.edge_ids = jnp.arange(B, dtype=jnp.int32)
+    ends = None
+    if aug:
+        ends = (rng.integers(0, N, E), rng.integers(0, N, E))
+        ends[0][:B], ends[1][:B] = np.asarray(batch.edge_src), np.asarray(batch.edge_dst)
+    pipe = JTGAT(num_nodes=N, edge_dim=D, node_x=node_x, num_nbrs=(4, 4), time_dim=8,
+                 embed_dim=16, n_heads=2, lr=1e-3, neg_low=0, neg_high=N,
+                 edge_x_full=edge_x_full, edge_ends_full=ends, **opts)
     return pipe, batch
+
+
+def _tiny_tgn(eid_mode, **opts):
+    """``__graft_entry__._tiny_setup(batch_size=16)`` with the ``TGNPipeline``
+    options ``opts``."""
+    pipe, batch = _tiny_setup(batch_size=16, eid_mode=eid_mode)
+    return JTGN(num_nodes=64, edge_dim=16, memory_dim=32, embed_dim=32, time_dim=16, num_nbrs=4,
+                neg_low=0, neg_high=64, edge_x_full=pipe.edge_x_full, **opts), batch
 
 
 def plain(tree):
@@ -110,8 +136,10 @@ def state_arrays(carry):
     return out
 
 
-def jax_case(pipe, batch):
-    """Weights, negatives, losses and final state of STEPS single-device steps."""
+def jax_case(pipe, batch, bf16=False):
+    """Weights, negatives, losses and final state of STEPS single-device steps
+    (``bf16``: compiled with XLA's excess precision off, so each bf16 op
+    rounds where the JAX source says, as the port does)."""
     carry = pipe.init_carry(jax.random.PRNGKey(0))
     params = plain(jax.device_get(carry.params))
     negs, key = [], carry.rng
@@ -119,22 +147,35 @@ def jax_case(pipe, batch):
         key, k_neg = jax.random.split(key)
         negs.append(np.asarray(jax.random.randint(k_neg, (batch.edge_src.shape[0],),
                                                   pipe.neg_low, pipe.neg_high, dtype=jnp.int32)))
+    batches = [batch.replace(edge_time=batch.edge_time + i * SHIFT) for i in range(STEPS)]
     step = jax.jit(pipe.train_step)
+    if bf16:
+        step = step.lower(carry, batches[0]).compile(
+            compiler_options={"xla_allow_excess_precision": False})
     losses = []
-    for i in range(STEPS):
-        carry, loss = step(carry, batch.replace(edge_time=batch.edge_time + i * SHIFT))
+    for b in batches:
+        carry, loss = step(carry, b)
         losses.append(float(loss))
     return {"params": params, "negs": negs}, {"losses": losses, "state": state_arrays(carry)}
 
 
 @pytest.fixture(scope="module")
 def jax_refs():
+    bf16 = dict(feat_bf16=True, attn_bf16=True)
     cases = {"tgn_feature": _tiny_setup(batch_size=16),
              "tgn_eid": _tiny_setup(batch_size=16, eid_mode=True),
-             "tgat_eid": _tiny_tgat()}
+             "tgat_eid": _tiny_tgat(),
+             "tgn_packed": _tiny_tgn(True, packed_state=True, packed_recency=True),
+             "tgn_packed_feature": _tiny_tgn(False, packed_state=True),
+             "tgn_segment": _tiny_tgn(True, rowwise=False),
+             "tgn_segment_feature": _tiny_tgn(False, rowwise=False, packed_state=True),
+             "tgn_attn_bf16": _tiny_tgn(False, attn_bf16=True),
+             "tgn_bf16_eid": _tiny_tgn(True, dedup_staging=True, **bf16),
+             "tgat_bf16": _tiny_tgat(**bf16),
+             "tgat_aug_bf16": _tiny_tgat(aug=True, **bf16)}
     inputs, refs = {}, {}
     for name, (pipe, batch) in cases.items():
-        inputs[name], refs[name] = jax_case(pipe, batch)
+        inputs[name], refs[name] = jax_case(pipe, batch, bf16="bf16" in name)
     return inputs, refs
 
 
@@ -184,15 +225,17 @@ def check_world(world, rec, dump, refs):
         got = dump[case]
         assert rec["cases"][case]["split_params"] > 0 if world == 4 else True
         assert rec["cases"][case]["params_whole"]
-        np.testing.assert_allclose(got["losses"], want["losses"], rtol=0, atol=1e-5,
+        bf16 = "bf16" in case
+        tol = BF16_LOSS_TOL if bf16 else 1e-5
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=0, atol=tol,
                                    err_msg=case)
-        np.testing.assert_allclose(got["replay_losses"], want["losses"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got["replay_losses"], want["losses"], rtol=0, atol=tol)
         assert all(np.isfinite(got["losses"]))
         assert set(got["state"]) == set(want["state"])
         for k, v in want["state"].items():
             if k in INT_KEYS or v.dtype.kind != "f":
                 np.testing.assert_array_equal(got["state"][k], v, err_msg=f"{case} {k}")
-            else:
+            elif not bf16:
                 np.testing.assert_allclose(got["state"][k], v, rtol=0, atol=1e-5,
                                            err_msg=f"{case} {k}")
         if case.startswith("tgn"):
@@ -281,27 +324,119 @@ def test_place_keeps_each_ranks_rows_and_its_dump_row(P):
     assert [len(e) for e in edges] == ([7] if P == 1 else [3, 2, 2])
 
 
-def test_unported_configurations_raise():
-    mesh = StubMesh([2], ("data",), [0])
-    for kw in (dict(packed_state=True), dict(rowwise=False)):
-        with pytest.raises(NotImplementedError, match="10e"):
-            sharded_tgn_train_step(tiny_pipe(**kw), mesh)
+@pytest.mark.parametrize("width", [4, 5, 172, 173])
+def test_bf16_rows_cross_the_exchange_bit_exact(width):
+    """bf16 rows travel as their own bits, two to an int32 column (an odd
+    row padded with one), beside fp32, int32 and bool ones: every bit back."""
+    g = torch.Generator().manual_seed(width)
+    x = (torch.randn((6, width), generator=g) * 1e3).to(torch.bfloat16)
+    x[0, 0], x[1, -1], x[2, 0] = float("nan"), -0.0, float("inf")
+    kv = torch.randn((6, 2, width), generator=g).to(torch.bfloat16)
+    likes = [torch.arange(6, dtype=torch.int32), x, torch.randn((6, 3), generator=g),
+             torch.rand(6, generator=g) > 0.5, kv, torch.empty((6, 0), dtype=torch.bfloat16)]
+    buf = _pack(likes)
+    assert buf.dtype == torch.int32
+    assert buf.shape[1] == 1 + (width + 1) // 2 + 3 + 1 + width
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for a, b in zip(_unpack(buf, likes), likes):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(bits.get(b.dtype, b.dtype)), b.view(bits.get(b.dtype, b.dtype)))
+
+
+def _stream_batch(rng, N, E, t0):
+    """One batch of the owned-write test: ids with PAD rows (invalid), tied
+    times, raw messages and edge ids."""
+    i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32)
+    valid = rng.random(E) > 0.15
+    src = np.where(valid, rng.integers(0, N, E), -1)
+    dst = np.where(valid, rng.integers(0, N, E), -1)
+    return {"src": i32(src), "dst": i32(dst), "t": i32(t0 + np.sort(rng.integers(0, 5, E))),
+            "valid": torch.as_tensor(valid), "eids": i32(rng.permutation(E) + t0)}, \
+        torch.as_tensor(rng.normal(size=(E, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("P", [2, 3])
+def test_owned_packed_store_and_push_equal_one_device(P):
+    """Each of P ranks writes the whole batches into its own rows (the packed
+    message store and the packed recency push); the ranks' rows put back
+    together, and the last rank's dump row, equal one device's writes."""
+    N, M, R, K = 10, 4, 3, 3
+    rng = np.random.default_rng(P)
+    batches = [_stream_batch(rng, N, 24, 100 * i) for i in range(3)]
+    state = tgn_pack_state(tgn_init_state(N, M, R, "cpu"))
+    rec = recency_pk_init(N, K, "cpu")
+    shards = []
+    for r in range(P):
+        rows = _Rows(N, MeshAxis(StubMesh([P], ("data",), [r]), "data"))
+        part = lambda x: torch.cat([x[rows.lo : rows.hi], x[N:]]).clone()
+        shards.append((rows, TGNPackedState(*map(part, state)), tuple(map(part, rec))))
+    for w, raw in batches:
+        tgn_store_messages_packed(state, w["src"], w["dst"], w["t"], raw, w["valid"])
+        recency_pk_update(rec, w["src"], w["dst"], w["t"], w["eids"], w["valid"], directed=False)
+        for rows, st, rc in shards:
+            _store_owned(rows, st, w, raw)
+            _push_owned(rows, rc, _events(w, w["eids"]))
+    assert bool(state.meta[:N, 3].any()) and bool((rec[0][:N, :, 0] >= 0).any())
+    for i, whole in enumerate(tuple(state) + tuple(rec)):
+        parts = [(tuple(st) + tuple(rc))[i] for _, st, rc in shards]
+        got = torch.cat([x[:-1] for x in parts] + [parts[-1][-1:]])
+        assert torch.equal(got, whole), i
+
+
+# The pipeline options the sharded steps take beyond the rowwise fp32 ones.
+ONE_RANK_CASES = ["tgn_packed", "tgn_packed_feature", "tgn_segment", "tgn_segment_feature",
+                  "tgn_attn_bf16", "tgn_bf16_eid", "tgat_bf16", "tgat_aug_bf16"]
+
+
+@pytest.mark.parametrize("case", ONE_RANK_CASES)
+def test_sharded_step_on_one_rank_equals_train_step(case):
+    """On one rank (a StubMesh, no group) the sharded step of each option is
+    the pipeline's own ``train_step``: bit-equal after the first step, and
+    within the tool's bounds (integer state exact) after three."""
+    from tools.torch_multihost_sim import (
+        BF16_LOSS_TOL,
+        TOL,
+        build,
+        max_gap,
+        max_rel_gap,
+        state_arrays,
+    )
+
+    mesh = StubMesh([1], ("data",), [0])
+    dev = torch.device("cpu")
+    runs = []
+    for sharded in (False, True):
+        pipe, batches, carry = build(case, dev, None)
+        step = pipe.train_step
+        if sharded:
+            is_tgat = case.startswith("tgat")
+            carry = place(carry, (tgat_carry_shardings if is_tgat else tgn_carry_shardings)(
+                mesh, carry))
+            step = (sharded_tgat_train_step if is_tgat else sharded_tgn_train_step)(pipe, mesh)
+            batches = [place(b, batch_shardings(mesh, b)) for b in batches]
+        losses, states = [], []
+        for b in batches:
+            carry, loss = step(carry, b)
+            losses.append(float(loss))
+            states.append(state_arrays(carry))
+        runs.append((losses, states))
+    (ref, ref_states), (got, got_states) = runs
+    assert got[0] == ref[0]
+    assert max_gap(got_states[0], ref_states[0]) == 0.0
+    bf16 = "bf16" in case
+    assert max(abs(a - b) for a, b in zip(got, ref)) <= (BF16_LOSS_TOL if bf16 else TOL)
+    last, ref_last = got_states[-1], ref_states[-1]
+    assert (max_rel_gap(last, ref_last) <= 5e-3) if bf16 else (max_gap(last, ref_last) <= TOL)
+    for k, v in ref_last.items():
+        if v.dtype.kind != "f":
+            np.testing.assert_array_equal(last[k], v, err_msg=k)
+
+
+def test_mean_memory_carry_raises():
+    """No pipeline of either package builds a mean-memory carry, so the
+    sharded TGN step refuses one."""
     pipe = tiny_pipe()
     carry = pipe.init_carry(0)
-    packed = carry._replace(mem_state=tgn_pack_state(carry.mem_state))
-    assert not isinstance(packed.mem_state, TGNMemoryState)
-    with pytest.raises(NotImplementedError, match="10e"):
-        sharded_tgn_train_step(pipe, mesh)(packed, None)
-
-
-@pytest.mark.parametrize("kw", [dict(feat_bf16=True), dict(attn_bf16=True),
-                                dict(dedup_staging=True)])
-def test_bf16_pipelines_are_not_sharded_yet(kw):
-    """ROADMAP item 10e lists the bf16 options' sharded steps."""
-    mesh = StubMesh([2], ("data",), [0])
-    with pytest.raises(NotImplementedError, match="10e"):
-        sharded_tgn_train_step(tiny_pipe(edge_x_full=np.zeros((4, 3), np.float32), **kw), mesh)
-    if "dedup_staging" not in kw:
-        tgat = TGATPipeline(10, 3, np.zeros((10, 1), np.float32), device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="10e"):
-            sharded_tgat_train_step(tgat, mesh)
+    mean = carry._replace(mem_state=tgn_mean_init_state(10, 4, 3, device="cpu"))
+    with pytest.raises(TypeError, match="TGNMeanMemoryState"):
+        sharded_tgn_train_step(pipe, StubMesh([1], ("data",), [0]))(mean, None)

@@ -51,11 +51,33 @@ One step on each rank, ``P`` ranks on the ``data`` axis:
 With gloo, the collectives' buffers of CUDA tensors are staged through
 pinned host memory (``MeshAxis``); the compute stays on the card.
 
-Not ported (``NotImplementedError``, ROADMAP.md item 10e): the packed
-memory or recency layouts, the segment route (``rowwise=False``), the
-mean-memory state, and pipelines built with a bf16 option (TGN's
-``feat_bf16``, ``attn_bf16``, ``dedup_staging``; TGAT's ``feat_bf16``,
-``attn_bf16``).
+Every option of the two pipelines is taken:
+
+* **Answers in bf16** (``feat_bf16``, ``attn_bf16``: bf16 feature rows,
+  K/V rows and side-augmented rows) travel as their own bits, two to an
+  int32 column (an odd row padded with one zero column): half the bytes of
+  fp32 rows, and bit-equal on arrival.
+* **Staging.** ``dedup_staging`` stages each distinct requested row once
+  and gathers the staged rows back, as on one device. The packed memory
+  state (``packed_state``) is staged from its packed rows and stored with
+  its PyTorch scatters on the rank's rows (no store-commit launch, as on
+  one device), its counterpart columns decoded as the unpacked ones are.
+* **Packed recency** (``packed_recency``, eid layout): the owner answers a
+  query as one device does (K1's pre-gathered entry, then the feature
+  rows). Its push is one row write that resets the dump row after
+  writing, so other ranks' events are marked invalid instead of aimed at
+  the dump row.
+* **The segment route** (``rowwise=False``). The encoder aggregates at the
+  neighbours' rows, so a seed's embedding sums over every seed of the whole
+  batch whose window holds it. Each rank therefore gathers the whole
+  batch's seeds (negatives included) and query answers, stages the whole
+  batch's distinct rows through owner requests, runs the encoder over the
+  whole batch (its work repeated on every rank) and takes the loss of its
+  own slice. The commit is the flush of its own src | dst rows with the
+  old parameters, the reference order.
+
+A mean-memory carry (``TGNMeanMemoryState``) raises ``TypeError``: no
+pipeline of either package builds one (both build the last aggregator).
 """
 
 from __future__ import annotations
@@ -67,25 +89,45 @@ import torch
 from torch import nn
 
 from ..constants import PADDED_NODE_ID
-from ..nn.encoder.tgn import TGNMemoryState, pending_rows, tgn_commit_staged
+from ..hooks.neighbors import recency_pk_update
+from ..nn.encoder.tgn import (
+    TGNMemoryState,
+    TGNPackedState,
+    pending_rows,
+    tgn_commit_staged,
+    tgn_store_messages_packed,
+)
 from ..ops.scatter_cells import put_live, recency_push, tgn_store_commit
 from ..train.programs import tgn_loss_and_grad, train_loss_and_grad
+from ..train.tgn_pipeline import dedup_stage
 from .mesh import MeshAxis
 from .sharding import Sharding, is_split, tp_param_shardings
 from .temporal import split_spans
 
-_NOT_PORTED = "ROADMAP.md item 10e"
+
+def _width(like: torch.Tensor) -> int:
+    """The int32 columns one row of ``like`` takes in ``_pack``'s buffer."""
+    w = math.prod(like.shape[1:])
+    return (w + 1) // 2 if like.element_size() == 2 else w
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
-    """(L, W) int32 of the same bits as ``x`` (bool as 0 / 1), W its elements a row."""
-    if x.dtype == torch.float32:
-        x = x.contiguous().view(torch.int32)
-    elif x.dtype == torch.bool:
-        x = x.int()
-    elif x.dtype != torch.int32:
-        raise TypeError(f"cannot exchange {x.dtype}")
-    return x.reshape(x.shape[0], math.prod(x.shape[1:]))
+    """(L, W) int32 of the same bits as ``x`` (bool as 0 / 1): W its
+    elements a row, or for a 2-byte dtype (bf16) its elements paired, an odd
+    row padded with one zero column."""
+    L, w = x.shape[0], math.prod(x.shape[1:])
+    if w == 0:
+        return torch.zeros((L, 0), dtype=torch.int32, device=x.device)
+    if x.dtype in (torch.float32, torch.int32):
+        return x.contiguous().view(torch.int32).reshape(L, w)
+    if x.dtype == torch.bool:
+        return x.int().reshape(L, w)
+    if x.element_size() == 2:
+        h = x.contiguous().view(torch.int16).reshape(L, w)
+        if w % 2:
+            h = torch.cat([h, h.new_zeros((L, 1))], dim=1)
+        return h.view(torch.int32)
+    raise TypeError(f"cannot exchange {x.dtype}")
 
 
 def _pack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -98,10 +140,19 @@ def _unpack(buf: torch.Tensor, likes: Sequence[torch.Tensor]) -> List[torch.Tens
     out, c = [], 0
     for like in likes:
         shape = (buf.shape[0],) + tuple(like.shape[1:])
-        w = math.prod(like.shape[1:])
-        x = buf[:, c : c + w].contiguous().reshape(shape)
-        out.append(x.view(torch.float32) if like.dtype == torch.float32
-                   else x != 0 if like.dtype == torch.bool else x)
+        w = _width(like)
+        x = buf[:, c : c + w].contiguous()
+        if w == 0:
+            x = torch.zeros(shape, dtype=like.dtype, device=buf.device)
+        elif like.dtype == torch.float32:
+            x = x.reshape(shape).view(torch.float32)
+        elif like.dtype == torch.bool:
+            x = x.reshape(shape) != 0
+        elif like.element_size() == 2:
+            x = x.view(torch.int16)[:, : math.prod(like.shape[1:])].reshape(shape).view(like.dtype)
+        else:
+            x = x.reshape(shape)
+        out.append(x)
         c += w
     return out
 
@@ -277,16 +328,6 @@ class _ShardedStep:
         seed's owner (one K1 or K4 launch a rank)."""
         return self.ex.ask(seeds, lambda loc, t: select(state, loc, t), seed_t)
 
-    def push(self, rec_state, events) -> None:
-        """One directed push of the whole batch's (node, nbr, t, payload,
-        valid) events: the single-device push's plan on this rank's rows.
-        Events of other ranks' rows aim at the local dump row, which the
-        push never writes, as it never writes padding."""
-        nodes, nbrs, t, payload, valid = events
-        ids, times, pay_buf, wp = rec_state
-        recency_push(ids, times, pay_buf, wp, self.rows.local(nodes, self.rows.n), nbrs.int(),
-                     t.int(), payload.to(pay_buf.dtype), valid, directed=True)
-
     def finish(self, params: nn.Module, opt, loss: torch.Tensor) -> torch.Tensor:
         """Reduce the gradients, step, bring the working modules up to date;
         returns the whole batch's loss."""
@@ -313,31 +354,61 @@ def _feats(w: Dict[str, torch.Tensor], rec_state) -> torch.Tensor:
     return torch.zeros((w["t"].shape[0], rec_state[2].shape[-1]), device=w["t"].device)
 
 
-def _store_owned(rows: _Rows, state: TGNMemoryState, w: Dict[str, torch.Tensor],
-                 raw: torch.Tensor) -> None:
-    """The store commit of the whole batch on this rank's rows, one launch.
+def _store_owned(rows: _Rows, state, w: Dict[str, torch.Tensor], raw: torch.Tensor) -> None:
+    """The message store of the whole batch on this rank's rows.
 
     Owned ids go in as local rows, the others as ``-2 - id`` (negative: the
-    commit skips them as owners, and it writes them as counterparts); each
-    written row's counterpart is then decoded back to its global id.
+    store skips them as owners, and it writes them as counterparts); each
+    written row's counterpart is then decoded back to its global id. The
+    unpacked state is written by one store-commit launch, the packed one by
+    ``tgn_store_messages_packed``'s scatters (its counterparts in ``meta``
+    columns 1 and 4).
     """
     enc = lambda ids: torch.where(rows.own(ids), ids - rows.lo, -2 - ids).int()
     src, dst = enc(w["src"]), enc(w["dst"])
-    tgn_store_commit(state, src, dst, w["t"], raw, w["valid"])
+    if isinstance(state, TGNPackedState):
+        tgn_store_messages_packed(state, src, dst, w["t"], raw, w["valid"])
+        others = (state.meta[:, 1], state.meta[:, 4])
+    else:
+        tgn_store_commit(state, src, dst, w["t"], raw, w["valid"])
+        others = (state.s_other, state.d_other)
     dec = lambda x: torch.where(x >= 0, x + rows.lo, -2 - x).int()
-    for owner, other in ((src, state.s_other), (dst, state.d_other)):
+    for owner, other in zip((src, dst), others):
         live = w["valid"] & (owner >= 0)
         at = torch.where(live, owner, rows.n)
         put_live(other, (at,), live, dec(other[at.long()]))
 
 
+def _push_owned(rows: _Rows, rec_state, events) -> None:
+    """One directed push of the whole batch's (node, nbr, t, payload, valid)
+    events: the single-device push's plan on this rank's rows.
+
+    The ring layouts (four tensors): events of other ranks' rows aim at the
+    local dump row, which the push never writes, as it never writes
+    padding. The packed layout (``(buf, write_pos)``) is written by one row
+    write that resets the dump row after writing, so those events are
+    marked invalid instead.
+    """
+    nodes, nbrs, t, payload, valid = events
+    local = rows.local(nodes, rows.n)
+    if len(rec_state) == 2:
+        recency_pk_update(rec_state, local, nbrs, t, payload, valid & rows.own(nodes),
+                          directed=True)
+        return
+    ids, times, pay_buf, wp = rec_state
+    recency_push(ids, times, pay_buf, wp, local, nbrs.int(), t.int(), payload.to(pay_buf.dtype),
+                 valid, directed=True)
+
+
 class _TGNStep(_ShardedStep):
     def __call__(self, carry, batch):
         params, opt, mem, rec, rng = carry
-        if not isinstance(mem, TGNMemoryState):
-            raise NotImplementedError(f"the sharded TGN step takes a TGNMemoryState, got "
-                                      f"{type(mem).__name__}: {_NOT_PORTED}")
+        if not isinstance(mem, (TGNMemoryState, TGNPackedState)):
+            raise TypeError(f"the sharded TGN step takes the last aggregator's state "
+                            f"(TGNMemoryState or TGNPackedState), got {type(mem).__name__}: no "
+                            f"pipeline of either package builds a mean-memory carry")
         pipe, ex, rows = self.pipe, self.ex, self.rows
+        memory = params["mem"]
         zero = self.grad_owner(params, opt)
         bt = self.batch(batch, rng)
         loc, w = bt["loc"], bt["whole"]
@@ -346,31 +417,61 @@ class _TGNStep(_ShardedStep):
         nbrs, nbr_t, nbr_x = self.query(pipe._query, rec, seeds, loc["t"].repeat(3))
 
         def fetch_mem(ids):
-            return ex.ask(ids, lambda l: (mem.mem[l.long()],))[0]
+            return ex.ask(ids.clamp(0, rows.N).int(), lambda l: (mem.mem[l.long()],))[0]
 
         def stage(ids):
-            got = ex.ask(ids, lambda l: (mem.mem[l.long()], *pending_rows(mem, l.long())))
-            return params["mem"].stage_rows(got[0], got[1:],
-                                            lambda o: fetch_mem(o.clamp(0, rows.N).int()))
+            got = ex.ask(ids.int(), lambda l: (mem.mem[l.long()], *pending_rows(mem, l.long())))
+            return memory.stage_rows(got[0], got[1:], fetch_mem)
 
-        loss, (st_mem, st_last) = tgn_loss_and_grad(
-            params["mem"], params["enc"], params["dec"], zero, mem, seeds, nbrs, nbr_t, nbr_x,
-            loc["valid"], stage=stage, denom=bt["denom"])
-        # The train-mode commit of the whole batch's src | dst rows, then the
-        # message store, then the push: each rank writes its own rows.
-        st_mem, st_last = ex.gather([st_mem.reshape(2, bm, -1).transpose(0, 1).reshape(bm, -1),
-                                     st_last.reshape(2, bm).T.contiguous()])
-        M = mem.mem.shape[1]
-        st_mem = st_mem.reshape(-1, 2, M).transpose(0, 1).reshape(-1, M)
-        st_last = st_last.T.reshape(-1)
         nodes = torch.cat([w["src"], w["dst"]])
         nodes = torch.where(torch.cat([w["valid"], w["valid"]]), nodes, rows.N)
+        if pipe.rowwise:
+            if pipe.dedup_staging:
+                stage = dedup_stage(stage, rows.N)
+            loss, (st_mem, st_last) = tgn_loss_and_grad(
+                memory, params["enc"], params["dec"], zero, mem, seeds, nbrs, nbr_t, nbr_x,
+                loc["valid"], stage=stage, denom=bt["denom"])
+            # The train-mode commit of the whole batch's src | dst rows.
+            st_mem, st_last = ex.gather([st_mem.reshape(2, bm, -1).transpose(0, 1).reshape(bm, -1),
+                                         st_last.reshape(2, bm).T.contiguous()])
+            M = mem.mem.shape[1]
+            st_mem = st_mem.reshape(-1, 2, M).transpose(0, 1).reshape(-1, M)
+            st_last = st_last.T.reshape(-1)
+        else:
+            loss = train_loss_and_grad(
+                zero, lambda: self._segment_rows(params, seeds, nbrs, nbr_t, nbr_x, stage),
+                params["dec"], loc["valid"], bt["denom"])
+            # The flush of this rank's src | dst rows with the old parameters.
+            with torch.no_grad():
+                local = rows.local(nodes, rows.n).long()
+                st_mem, st_last = memory.stage_rows(mem.mem[local], pending_rows(mem, local),
+                                                    fetch_mem)
+        # The commit, then the message store, then the push: each rank
+        # writes its own rows.
         tgn_commit_staged(mem, rows.local(nodes, PADDED_NODE_ID), st_mem, st_last)
         raw = w["x"] if "x" in w else torch.zeros((w["t"].shape[0], 0), device=w["t"].device)
         _store_owned(rows, mem, w, raw)
-        self.push(rec, _events(w, w["eids"] if pipe.edge_x_full is not None else _feats(w, rec)))
+        _push_owned(rows, rec, _events(w, w["eids"] if pipe.edge_x_full is not None
+                                       else _feats(w, rec)))
         loss = self.finish(params, opt, loss)
         return type(carry)(params, opt, mem, rec, rng), loss
+
+    def _segment_rows(self, params, seeds, nbrs, nbr_t, nbr_x, stage) -> torch.Tensor:
+        """This rank's [src | dst | neg] embedding rows on the segment route:
+        the whole batch's seeds and query answers gathered, put in batch
+        order ([src | dst | neg] of the whole batch, each in rank order) and
+        embedded as on one device, ``stage`` fetching the rows from their
+        owners."""
+        P, me = self.data.size, self.data.index
+        bm = seeds.shape[0] // 3
+
+        def batch_order(x):
+            rest = tuple(x.shape[1:])
+            return x.reshape((P, 3, bm) + rest).transpose(0, 1).reshape((3 * P * bm,) + rest)
+
+        whole = [batch_order(x) for x in self.ex.gather([seeds, nbrs, nbr_t, nbr_x])]
+        z = self.pipe._segment_embed(params, None, *whole, stage=stage)
+        return z.reshape(3, P, bm, -1)[:, me].reshape(3 * bm, -1)
 
 
 class _TGATStep(_ShardedStep):
@@ -392,34 +493,26 @@ class _TGATStep(_ShardedStep):
             events = _events(w, w["eids"] * 2 + 1, w["eids"] * 2)
         else:
             events = _events(w, w["eids"] if pipe.edge_x_full is not None else _feats(w, rec))
-        self.push(rec, events)
+        _push_owned(self.rows, rec, events)
         loss = self.finish(params, opt, loss)
         return type(carry)(params, opt, rec, rng), loss
 
 
 def sharded_tgn_train_step(pipe, mesh):
-    """``train_step(carry, batch) -> (carry, loss)`` of ``pipe`` (a rowwise
-    ``TGNPipeline``, eid or feature recency layout) over ``mesh``: a
-    ``tgn_carry_shardings`` placed carry (``tgn_carry_shardings_2d`` on a
+    """``train_step(carry, batch) -> (carry, loss)`` of a ``TGNPipeline``
+    (every option: rowwise or segment, eid or feature recency layout, packed
+    memory or recency, the bf16 options, ``dedup_staging``) over ``mesh``:
+    a ``tgn_carry_shardings`` placed carry (``tgn_carry_shardings_2d`` on a
     mesh with a ``model`` axis of two ranks or more) and a
     ``batch_shardings`` placed batch."""
-    if not pipe.rowwise:
-        raise NotImplementedError(f"the sharded step of the segment route: {_NOT_PORTED}")
-    if pipe.packed_state or (pipe.packed_recency and pipe.edge_x_full is not None):
-        raise NotImplementedError(f"the sharded step of the packed layouts: {_NOT_PORTED}")
-    if pipe.feat_bf16 or pipe.attn_bf16 or pipe.dedup_staging:
-        raise NotImplementedError("the sharded step of feat_bf16, attn_bf16 and "
-                                  f"dedup_staging: {_NOT_PORTED}")
     return _TGNStep(pipe, mesh)
 
 
 def sharded_tgat_train_step(pipe, mesh):
     """``train_step(carry, batch) -> (carry, loss)`` of a ``TGATPipeline``
-    (every recency layout) over ``mesh``, from a ``tgat_carry_shardings``
-    (or ``_2d``) placed carry and a ``batch_shardings`` placed batch; not
-    with ``feat_bf16`` or ``attn_bf16``."""
-    if pipe.feat_bf16 or pipe.attn_bf16:
-        raise NotImplementedError(f"the sharded step of feat_bf16 and attn_bf16: {_NOT_PORTED}")
+    (every recency layout, ``feat_bf16`` and ``attn_bf16``) over ``mesh``,
+    from a ``tgat_carry_shardings`` (or ``_2d``) placed carry and a
+    ``batch_shardings`` placed batch."""
     return _TGATStep(pipe, mesh)
 
 

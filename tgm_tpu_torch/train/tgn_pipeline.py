@@ -47,7 +47,7 @@ The bf16 options compute what the JAX ones do:
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -122,6 +122,21 @@ def _unique_inverse(keyed: torch.Tensor, fill: int) -> Tuple[torch.Tensor, torch
     pos = torch.cumsum(first, 0) - 1  # each sorted entry's slot in the distinct list
     uniq = torch.full_like(keyed, fill).scatter_(0, pos, s)  # repeats write equal values
     return uniq, torch.empty_like(pos).scatter_(0, order, pos)
+
+
+def dedup_stage(stage: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+                num_nodes: int) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """``stage(rows)`` run once over the distinct rows (ids outside [0, N)
+    keyed to the dump row N, padded to the row count with N), its staged
+    rows gathered back per entry: the same values as staging every row."""
+
+    def staged(rows: torch.Tensor):
+        keyed = torch.where((rows >= 0) & (rows < num_nodes), rows, num_nodes)
+        uniq, inv = _unique_inverse(keyed, num_nodes)
+        z_u, lu_u = stage(uniq)
+        return z_u[inv], lu_u[inv]
+
+    return staged
 
 
 def _unported(option: str, where: str) -> NotImplementedError:
@@ -269,29 +284,24 @@ class TGNPipeline:
         staged rows back per entry."""
         if not self.dedup_staging:
             return None
-        n = self.num_nodes
-
-        def stage(rows: torch.Tensor):
-            keyed = torch.where((rows >= 0) & (rows < n), rows, n)
-            uniq, inv = _unique_inverse(keyed, n)
-            z_u, lu_u = memory.stage(mem_state, uniq, training=training)
-            return z_u[inv], lu_u[inv]
-
-        return stage
+        return dedup_stage(lambda rows: memory.stage(mem_state, rows, training=training),
+                           self.num_nodes)
 
     def _train_seeds(self, batch, neg: torch.Tensor):
         seeds = torch.cat([batch.edge_src, batch.edge_dst, neg])
         return seeds, batch.edge_time.repeat(3)
 
     def _segment_embed(self, params, mem_state, seeds: torch.Tensor, nbrs: torch.Tensor,
-                       nbr_t: torch.Tensor, nbr_x: torch.Tensor) -> torch.Tensor:
+                       nbr_t: torch.Tensor, nbr_x: torch.Tensor, stage=None) -> torch.Tensor:
         """Train-mode segment embeddings of ``seeds``' rows, in their order.
 
         The pipeline's own dedup, unlike the hook's: capacity U = all the
         S + S * K ids (no N + 1 cap), and the dense table is filled with U - 1,
         so a PAD or unseen id reads the last local row. Memory is staged over
         the unique ids, and the encoder runs over the (seed -> neighbour)
-        edges.
+        edges. ``stage(ids)``, where given, replaces the train-mode
+        ``memory.stage`` of ``mem_state`` (the node-sharded step stages rows
+        fetched from their owners).
         """
         n = self.num_nodes
         all_ids = torch.cat([seeds, nbrs.reshape(-1)])
@@ -301,8 +311,9 @@ class TGNPipeline:
         g2l[torch.where(u_valid, uniq, n + 1).long()] = torch.arange(
             U, dtype=torch.int32, device=seeds.device)
         g2l = g2l[: n + 1]
-        z_mem, last_upd = params["mem"].stage(
-            mem_state, torch.where(u_valid, uniq, PADDED_NODE_ID), training=True)
+        if stage is None:
+            stage = lambda ids: params["mem"].stage(mem_state, ids, training=True)
+        z_mem, last_upd = stage(torch.where(u_valid, uniq, PADDED_NODE_ID))
         z = params["enc"](z_mem, last_upd, *local_edges(g2l, seeds, nbrs, nbr_t, nbr_x))
         return z[map_to_local(g2l, seeds).long()]
 
